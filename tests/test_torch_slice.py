@@ -1,0 +1,178 @@
+"""The whole videoglamm_torch GCG slice against the JAX package on the CPU.
+
+`VideoGLaMMConfig.tiny()` weights are shaped by `jax.eval_shape` and filled
+from a numpy seed, then loaded into the port through `io/from_jax.py`. The
+LLM is compared teacher-forced (ROADMAP.md: greedy argmax on random
+weights flips under rounding and the flip cascades): one fixed stream of
+new tokens with [SEG] at two steps goes through the port's prefill and
+cached decode steps, and through ONE uncached JAX forward. Then the [SEG]
+embeddings and the mask logits. One JAX compile for the whole slice.
+
+Tolerances (f32): 1e-4 on activations, logits and hidden states; 1e-3 on
+mask logits, whose magnitudes reach O(10) after the two-way transformer
+and the hypernetwork product (guidance from the f32 controls in
+parity/parity_modules_cpu.json).
+"""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_models import seeded_params
+from videoglamm_tpu.config import VideoGLaMMConfig
+from videoglamm_tpu.constants import IMAGE_TOKEN_INDEX
+from videoglamm_tpu.models import VideoGLaMM as JVideoGLaMM
+from videoglamm_tpu.models.multimodal import splice_visual_prefix as jsplice
+from videoglamm_tpu.models.videoglamm import SegExtraction as JSeg
+from videoglamm_torch.inference.generate import (GenerateResult, decode_step,
+                                                 prefill)
+from videoglamm_torch.inference.pipeline import (GroundedInference,
+                                                 extract_seg_from_generation)
+from videoglamm_torch.io.from_jax import port_config, videoglamm_state_dict
+from videoglamm_torch.models.videoglamm import VideoGLaMM
+
+CFG = VideoGLaMMConfig.tiny(num_frames=4)
+SEG = CFG.seg_token_idx
+S_TEXT = 16
+FORCED = np.array([[7, SEG, 33, 41, SEG, 9]], np.int32)
+TOL = 1e-4
+
+
+def _inputs():
+    rng = np.random.RandomState(0)
+    T = CFG.num_frames
+    frames = rng.randn(1, T, 28, 28, 3).astype(np.float32)
+    ctx = rng.randn(1, T, 56, 56, 3).astype(np.float32)
+    sam = rng.randn(1, 2, 128, 128, 3).astype(np.float32)
+    ids = rng.randint(1, 400, size=(1, S_TEXT)).astype(np.int32)
+    ids[:, 2] = IMAGE_TOKEN_INDEX
+    return frames, ctx, sam, ids
+
+
+def _jax_slice(mdl, frames, ctx, sam, ids_full, lens_full):
+    """Visual prefix, one uncached LLM forward over prompt + FORCED, the
+    [SEG] extraction of pipeline.py:36-53 and the batched mask decode."""
+    visual = mdl.encode_visual_prefix(frames, ctx)
+    emb = mdl.llm.embed(ids_full)
+    sp = jsplice(emb, ids_full, visual, lens_full)
+    logits, hidden, _ = mdl.llm(sp.embeds, sp.positions, sp.attn_lens)
+    n = FORCED.shape[1]
+    start = sp.attn_lens[0] - n                   # first forced position
+    gen_hidden = jax.lax.dynamic_slice_in_dim(hidden, start, n, axis=1)
+    tokens = jnp.asarray(FORCED)
+    pos = jnp.arange(n)[None]
+    is_seg = tokens == SEG
+    idx = jnp.argsort(jnp.where(is_seg, pos, n + pos), axis=1)[:, :CFG.max_seg_tokens]
+    valid = jnp.take_along_axis(is_seg, idx, axis=1)
+    h = jnp.take_along_axis(gen_hidden, idx[..., None], axis=1)
+    seg_emb = jnp.where(valid[..., None], mdl.text_hidden_fcs(h), 0.0)
+    feats, _ = mdl.encode_sam_features(sam)
+    masks = mdl.decode_masks(feats, JSeg(seg_emb, valid, idx),
+                             jnp.arange(1, dtype=jnp.int32), training=False)
+    return visual, logits, gen_hidden, seg_emb, masks
+
+
+@pytest.fixture(scope="module")
+def slice_setup():
+    frames, ctx, sam, ids = _inputs()
+    ids_full = np.concatenate([ids, FORCED], axis=1)
+    lens_full = np.array([ids_full.shape[1]], np.int32)
+    jm = JVideoGLaMM(CFG, dtype=jnp.float32)
+    args = (frames, ctx, sam, ids_full, lens_full)
+    params = seeded_params(lambda: jm.init(jax.random.PRNGKey(0), *args,
+                                           method=_jax_slice), 7)
+    ref = jax.jit(lambda p, *a: jm.apply(p, *a, method=_jax_slice))(params, *args)
+    ref = [np.asarray(r, np.float32) for r in ref]
+    tm = VideoGLaMM(port_config(CFG)).eval()
+    tm.load_state_dict(videoglamm_state_dict(params, CFG))
+    inputs = [torch.from_numpy(a) for a in (frames, ctx, sam, ids)]
+    return tm, inputs, ref
+
+
+def _close(got, ref, tol, what):
+    np.testing.assert_allclose(got.detach().float().numpy(), ref, atol=tol,
+                               rtol=tol, err_msg=what)
+
+
+def test_slice_teacher_forced_matches_jax(slice_setup):
+    tm, (frames, ctx, sam, ids), (visual, logits, gen_hidden, seg_emb,
+                                  masks) = slice_setup
+    n = FORCED.shape[1]
+    with torch.no_grad():
+        tvis = tm.encode_visual_prefix(frames, ctx)
+        _close(tvis, visual, TOL, "visual prefix")
+        h_pre, cache, sp, last_logits = prefill(tm.llm, tvis, ids,
+                                                torch.tensor([S_TEXT]), n)
+        s_pre = int(sp.attn_lens[0])
+        _close(last_logits[0], logits[0, s_pre - 1], TOL, "prefill logits")
+        pos = sp.attn_lens.clone()
+        hiddens = []
+        for i in range(n):
+            lg, h = decode_step(tm.llm, cache, torch.from_numpy(FORCED[:, i]),
+                                pos + i)
+            _close(h[0], gen_hidden[0, i], TOL, f"step {i} hidden")
+            _close(lg[0], logits[0, s_pre + i], TOL, f"step {i} logits")
+            hiddens.append(h)
+        gen = GenerateResult(tokens=torch.from_numpy(FORCED).long(),
+                             hidden=torch.stack(hiddens, dim=1),
+                             lengths=torch.tensor([n]), prefill_hidden=h_pre,
+                             prefill_len=sp.attn_lens)
+        seg = extract_seg_from_generation(tm, gen)
+        assert seg.valid[0].tolist() == [True, True, False, False]
+        _close(seg.embeds, seg_emb, TOL, "[SEG] embeddings")
+        feats, _ = tm.encode_sam_features(sam)
+        tmasks = tm.decode_masks(feats, seg, torch.arange(1))
+        _close(tmasks, masks, 1e-3, "mask logits")
+
+
+def test_grounded_inference_contract(slice_setup):
+    """Free-running greedy serving through the port's entry point."""
+    tm, (frames, ctx, sam, ids), _ = slice_setup
+    timings = {}
+    out = GroundedInference(tm, max_new_tokens=6)(frames, ctx, sam, ids,
+                                                  torch.tensor([S_TEXT]),
+                                                  timings=timings)
+    E4 = 4 * CFG.sam2.low_res_size
+    assert out.tokens.shape == (1, 6) and out.lengths.shape == (1,)
+    assert out.seg_valid.shape == (1, CFG.max_seg_tokens)
+    assert out.pred_masks.shape == (1, CFG.max_seg_tokens, 2, E4, E4)
+    assert torch.isfinite(out.pred_masks).all()
+    invalid = ~out.seg_valid[0]
+    assert (out.pred_masks[0][invalid] <= -1e3).all()
+    assert set(timings) == {"visual", "generate", "sam_encode", "mask_decode"}
+
+
+def test_port_imports_and_runs_without_jax():
+    """videoglamm_torch imports neither jax nor videoglamm_tpu: with both
+    blocked, import the package and the pipeline and serve a tiny model on
+    the CPU."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'videoglamm_tpu'): sys.modules[name] = None\n"
+        "import torch, videoglamm_torch\n"
+        "from videoglamm_torch.inference.pipeline import GroundedInference\n"
+        "from videoglamm_torch.models.videoglamm import VideoGLaMM\n"
+        "from videoglamm_torch.io import from_jax\n"
+        "from videoglamm_torch.config import VideoGLaMMConfig\n"
+        "cfg = VideoGLaMMConfig.tiny(num_frames=4)\n"
+        "m = VideoGLaMM(cfg).eval()\n"
+        "ids = torch.randint(1, 400, (1, 8)); ids[0, 2] = -200\n"
+        "out = GroundedInference(m, max_new_tokens=4)(\n"
+        "    torch.randn(1, 4, 28, 28, 3), torch.randn(1, 4, 56, 56, 3),\n"
+        "    torch.randn(1, 1, 128, 128, 3), ids, torch.tensor([8]))\n"
+        "assert out.pred_masks.shape == (1, 4, 1, 32, 32)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'flax', 'videoglamm_tpu')\n"
+        "               and v is not None\n"
+        "               for k, v in sys.modules.items())\n"
+        "print('ok')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=root, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok")

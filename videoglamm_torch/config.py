@@ -1,0 +1,206 @@
+"""Architecture configs of the port (the fields of videoglamm_tpu/config.py
+that the ported modules read, with the same names, defaults and presets).
+
+The port keeps its own copy so that it, and everything that drives it on
+the card, imports nothing of the JAX package. `io.from_jax.port_config`
+turns a JAX config into these classes; tests/test_torch_models.py holds
+the presets equal to the JAX ones.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class CLIPVisionConfig:
+    """CLIP ViT-L/336 context-image tower."""
+    image_size: int = 336
+    patch_size: int = 14
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    layer_norm_eps: float = 1e-5
+    select_layer: int = -2          # features of hidden_states[select_layer]
+    select_feature: str = "patch"   # "patch" drops CLS
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid * self.grid
+
+    @staticmethod
+    def vit_l_336() -> "CLIPVisionConfig":
+        return CLIPVisionConfig()
+
+    @staticmethod
+    def tiny() -> "CLIPVisionConfig":
+        return CLIPVisionConfig(image_size=56, patch_size=14, hidden_size=32,
+                                num_layers=2, num_heads=2, intermediate_size=64)
+
+
+@dataclass(frozen=True)
+class InternVideo2Config:
+    """InternVideo2-1B video tower."""
+    image_size: int = 224
+    patch_size: int = 14
+    embed_dim: int = 1408
+    depth: int = 40
+    num_heads: int = 16
+    mlp_ratio: float = 48.0 / 11.0
+    num_frames: int = 4          # frames per chunk (tube)
+    tubelet_size: int = 1
+    qkv_bias: bool = False
+    qk_normalization: bool = True
+    init_values: float = 1e-5    # layer-scale init
+    rms_eps: float = 1e-6
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def tokens_per_frame(self) -> int:
+        return self.grid * self.grid
+
+    @staticmethod
+    def internvideo2_1b() -> "InternVideo2Config":
+        return InternVideo2Config()
+
+    @staticmethod
+    def tiny() -> "InternVideo2Config":
+        return InternVideo2Config(image_size=28, patch_size=14, embed_dim=32,
+                                  depth=2, num_heads=2, mlp_ratio=2.0)
+
+
+@dataclass(frozen=True)
+class Phi3Config:
+    """Phi-3-mini-4k-instruct decoder."""
+    vocab_size: int = 32064
+    hidden_size: int = 3072
+    intermediate_size: int = 8192
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: int = 96
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+
+    @staticmethod
+    def phi3_mini_4k() -> "Phi3Config":
+        return Phi3Config()
+
+    @staticmethod
+    def tiny() -> "Phi3Config":
+        return Phi3Config(vocab_size=512, hidden_size=64, intermediate_size=128,
+                          num_layers=2, num_heads=4, num_kv_heads=4, head_dim=16)
+
+
+@dataclass(frozen=True)
+class HieraConfig:
+    """SAM-2 Hiera trunk (Hiera-L by default)."""
+    embed_dim: int = 144
+    num_heads: int = 2
+    stages: Tuple[int, ...] = (2, 6, 36, 4)
+    global_att_blocks: Tuple[int, ...] = (23, 33, 43)
+    window_pos_embed_bkg_spatial_size: Tuple[int, int] = (7, 7)
+    window_spec: Tuple[int, ...] = (8, 4, 16, 8)
+    q_pool: int = 3
+    dim_mul: float = 2.0
+    head_mul: float = 2.0
+    mlp_ratio: float = 4.0
+    patch_kernel: int = 7
+    patch_stride: int = 4
+    patch_padding: int = 3
+
+    @property
+    def channel_list(self) -> Tuple[int, ...]:
+        # per-stage output channels, highest stage first (the FPN's order)
+        dims = [int(self.embed_dim * self.dim_mul ** i)
+                for i in range(len(self.stages))]
+        return tuple(reversed(dims))
+
+    @staticmethod
+    def hiera_l() -> "HieraConfig":
+        return HieraConfig()
+
+    @staticmethod
+    def tiny() -> "HieraConfig":
+        return HieraConfig(embed_dim=16, num_heads=1, stages=(1, 1, 1, 1),
+                           global_att_blocks=(2,), window_spec=(4, 2, 2, 2))
+
+
+@dataclass(frozen=True)
+class SAM2Config:
+    """SAM-2 image path: Hiera + FPN, prompt encoder, mask decoder. The
+    memory and tracking fields come with the tracking branch."""
+    hiera: HieraConfig = field(default_factory=HieraConfig.hiera_l)
+    image_size: int = 1024
+    d_model: int = 256                 # FPN/neck and two-way transformer width
+    backbone_scalp: int = 1            # drop the lowest-resolution level
+    fpn_top_down_levels: Tuple[int, ...] = (2, 3)
+    use_high_res_features_in_sam: bool = True
+    iou_prediction_use_sigmoid: bool = True
+    use_multimask_token_for_obj_ptr: bool = True
+    dynamic_multimask_via_stability: bool = True
+    dynamic_multimask_stability_delta: float = 0.05
+    dynamic_multimask_stability_thresh: float = 0.98
+
+    @property
+    def backbone_stride(self) -> int:
+        return 16
+
+    @property
+    def low_res_size(self) -> int:
+        return self.image_size // self.backbone_stride  # 64 at 1024
+
+    @staticmethod
+    def sam2_hiera_l() -> "SAM2Config":
+        return SAM2Config()
+
+    @staticmethod
+    def tiny() -> "SAM2Config":
+        return SAM2Config(hiera=HieraConfig.tiny(), image_size=128, d_model=32)
+
+
+@dataclass(frozen=True)
+class VideoGLaMMConfig:
+    """The composite: InternVideo2 + CLIP towers, projectors, Phi-3, the
+    [SEG] head and SAM-2."""
+    llm_type: str = "phi3"
+    llm: Phi3Config = field(default_factory=Phi3Config.phi3_mini_4k)
+    clip: CLIPVisionConfig = field(default_factory=CLIPVisionConfig.vit_l_336)
+    internvideo: InternVideo2Config = field(
+        default_factory=InternVideo2Config.internvideo2_1b)
+    sam2: SAM2Config = field(default_factory=SAM2Config.sam2_hiera_l)
+    mm_projector_type: str = "mlp2x_gelu"
+    out_dim: int = 256               # [SEG] projection width
+    seg_token_idx: int = 32064       # appended after the base vocab
+    num_frames: int = 16
+    chunk_size: int = 4
+    max_seg_tokens: int = 4
+    video_pool: Tuple[int, int] = (8, 8)      # 256 -> 64 tokens per frame
+    context_pool: Tuple[int, int] = (12, 12)  # 576 -> 144 tokens per frame
+
+    @staticmethod
+    def flagship() -> "VideoGLaMMConfig":
+        return VideoGLaMMConfig()
+
+    @staticmethod
+    def tiny(num_frames: int = 4) -> "VideoGLaMMConfig":
+        return VideoGLaMMConfig(
+            llm=Phi3Config.tiny(),
+            clip=CLIPVisionConfig.tiny(),
+            internvideo=replace(InternVideo2Config.tiny(), num_frames=2),
+            sam2=SAM2Config.tiny(),
+            out_dim=32,
+            seg_token_idx=500,
+            num_frames=num_frames,
+            chunk_size=2,
+            video_pool=(2, 2),
+            context_pool=(2, 2),
+        )

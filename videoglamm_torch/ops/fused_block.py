@@ -1,0 +1,182 @@
+"""Hiera windowed transformer block (PyTorch port of
+videoglamm_tpu/ops/fused_block.py).
+
+On the TPU, one Pallas kernel (`_kernel`, fused_block.py:108) runs a whole
+MultiScaleBlock over window tokens. On Hopper, the block is a chain of the
+port's hand-written kernels, and every product that the TPU kernel computes
+in its body runs in one of them:
+
+    K3 LN1 -> K2 qkv + bias -> K1 window attention -> K2 proj + bias +
+    residual -> K3 LN2 -> K2 fc1 + bias + GELU -> K2 fc2 + bias + residual
+
+K2 (`csrc/gemm_epilogue.cu`) is a bf16 GEMM with the bias / GELU / residual
+epilogue fused. Windows of 16 tokens are packed four to a 64-row K1 tile
+with a block-diagonal `win` mask. Fusing the chain into one launch, so that
+the activation is read once as on the TPU, is queued in ROADMAP.md.
+
+The plain twin `_fused_block_ref` mirrors the JAX reference op for op:
+LayerNorm with f32 statistics, products with f32 accumulation rounded to
+the working dtype before the bias, f32 softmax, and GELU chosen by dtype.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _cuda
+from .attention import attention_fwd_kernel
+from .norms import _layer_norm_plain, row_norm
+
+# launches: "block" (fused_window_block on the kernel path), "gemm" (K2)
+LAUNCHES = collections.Counter()
+
+PKEYS = ("ln1_weight", "ln1_bias", "qkv_weight", "qkv_bias", "proj_weight",
+         "proj_bias", "ln2_weight", "ln2_bias", "fc1_weight", "fc1_bias",
+         "fc2_weight", "fc2_bias")
+
+
+def _erf_as(x):
+    """Abramowitz & Stegun 7.1.26 erf, as in fused_block.py:39-51."""
+    a1, a2, a3, a4, a5 = (0.254829592, -0.284496736, 1.421413741,
+                          -1.453152027, 1.061405429)
+    s = torch.sign(x)
+    ax = torch.abs(x)
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t
+    return s * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def _gelu(x):
+    """erf form in f32 (via `_erf_as`), tanh form below f32
+    (fused_block.py:54-59)."""
+    if x.dtype in (torch.float32, torch.float64):
+        return 0.5 * x * (1.0 + _erf_as(x * (2.0 ** -0.5)))
+    return F.gelu(x, approximate="tanh")
+
+
+def _gemm_plain(a, w, bias=None, *, gelu: bool = False, residual=None):
+    """Twin of K2 with the rounding order of fused_block.py:83-105."""
+    y = F.linear(a, w.to(a.dtype))
+    if bias is not None:
+        y = y + bias.to(a.dtype)
+    if gelu:
+        y = _gelu(y)
+    if residual is not None:
+        y = residual + y
+    return y
+
+
+def _fused_block_ref(x, p, num_heads: int, eps: float = 1e-6):
+    """Twin of `_fused_block_ref` (fused_block.py:71-105).
+    x: [NW, S, C] window tokens -> [NW, S, C]; p: PKEYS in nn.Linear
+    layout ([out, in] weights)."""
+    NW, S, C = x.shape
+    H = num_heads
+    hd = C // H
+    dt = x.dtype
+    h = _layer_norm_plain(x, p["ln1_weight"], p["ln1_bias"], eps)
+    qkv = _gemm_plain(h, p["qkv_weight"], p["qkv_bias"]).view(NW, S, 3, H, hd)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    logits = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) * hd ** -0.5
+    probs = torch.softmax(logits, dim=-1)
+    o = torch.einsum("nhqk,nkhd->nqhd", probs.to(dt).float(), v.float())
+    o = o.to(dt).reshape(NW, S, C)
+    x1 = _gemm_plain(o, p["proj_weight"], p["proj_bias"], residual=x)
+    h2 = _layer_norm_plain(x1, p["ln2_weight"], p["ln2_bias"], eps)
+    mid = _gemm_plain(h2, p["fc1_weight"], p["fc1_bias"], gelu=True)
+    return _gemm_plain(mid, p["fc2_weight"], p["fc2_bias"], residual=x1)
+
+
+# ---------------------------------------------------------------------------
+# K2: GEMM + fused epilogue
+# ---------------------------------------------------------------------------
+def _gemm_fn():
+    fn = _cuda.load("gemm_epilogue").lib.vgt_gemm_epilogue
+    if fn.argtypes is None:
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [P, L, P, P, P, L, P, L, I, I, I, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gemm_epilogue(a, w, bias=None, *, gelu: bool = False, residual=None):
+    """K2 wrapper: act(a @ w^T + bias) (+ residual). a: [M,K]; w: [N,K]
+    (nn.Linear layout); bias: [N]; residual: [M,N]. GELU is the tanh form,
+    the rule for bf16. A CPU tensor takes the plain twin; a CUDA tensor
+    launches K2 or raises (bf16 only)."""
+    if a.device.type == "cpu":
+        return _gemm_plain(a, w, bias, gelu=gelu, residual=residual)
+    M, K = a.shape
+    N = w.shape[0]
+    _cuda.check_operand(a, "a", torch.bfloat16)
+    _cuda.check_operand(w, "w", torch.bfloat16)
+    if w.shape != (N, K) or not w.is_contiguous():
+        raise ValueError("gemm_epilogue: w must be a contiguous [N, K]")
+    if K % 8 or N % 8:
+        raise ValueError(f"gemm_epilogue: K={K} and N={N} must be multiples of 8")
+    if bias is not None:
+        _cuda.check_operand(bias, "bias", torch.bfloat16)
+        if bias.shape != (N,):
+            raise ValueError("gemm_epilogue: bias must be [N]")
+    if residual is not None:
+        _cuda.check_operand(residual, "residual", torch.bfloat16)
+        if residual.shape != (M, N):
+            raise ValueError("gemm_epilogue: residual must be [M, N]")
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    err = _gemm_fn()(
+        a.data_ptr(), a.stride(0), w.data_ptr(),
+        bias.data_ptr() if bias is not None else None,
+        residual.data_ptr() if residual is not None else None,
+        residual.stride(0) if residual is not None else 0,
+        out.data_ptr(), out.stride(0), M, N, K, 1 if gelu else 0,
+        _cuda.stream_ptr(a))
+    _cuda.check_launch(err, "gemm_epilogue")
+    LAUNCHES["gemm"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the block
+# ---------------------------------------------------------------------------
+def _fused_block_kernels(x, p, num_heads: int, eps: float):
+    NW, S, C = x.shape
+    H = num_heads
+    hd = C // H
+    M = NW * S
+    x2 = x.reshape(M, C)
+    h = row_norm(x2, p["ln1_weight"], p["ln1_bias"], eps, rms=False)
+    qkv = gemm_epilogue(h, p["qkv_weight"], p["qkv_bias"])
+    # pack 16-token windows four to a 64-row K1 tile (block-diagonal mask)
+    f = 64 // S if S < 64 and NW % (64 // S) == 0 else 1
+    B_, S_ = NW // f, S * f
+    qkv5 = qkv.view(B_, S_, 3, H, hd)
+    attn = torch.empty((M, C), dtype=x.dtype, device=x.device)
+    attention_fwd_kernel(
+        qkv5[:, :, 0].transpose(1, 2), qkv5[:, :, 1].transpose(1, 2),
+        qkv5[:, :, 2].transpose(1, 2),
+        attn.view(B_, S_, H, hd).transpose(1, 2),
+        causal=False, sm_scale=hd ** -0.5, mode="window",
+        win=S if f > 1 else 0)
+    x1 = gemm_epilogue(attn, p["proj_weight"], p["proj_bias"], residual=x2)
+    h2 = row_norm(x1, p["ln2_weight"], p["ln2_bias"], eps, rms=False)
+    mid = gemm_epilogue(h2, p["fc1_weight"], p["fc1_bias"], gelu=True)
+    y = gemm_epilogue(mid, p["fc2_weight"], p["fc2_bias"], residual=x1)
+    LAUNCHES["block"] += 1
+    return y.view(NW, S, C)
+
+
+def fused_window_block(x, p, num_heads: int, *, eps: float = 1e-6):
+    """Full windowed transformer block over window tokens.
+
+    x: [NW, S, C]; p: dict of PKEYS (nn.Linear layout). Returns [NW, S, C].
+    A CPU tensor takes the plain twin."""
+    NW, S, C = x.shape
+    hd = C // num_heads
+    # fused_block.py:248
+    if (x.is_cuda and S in (16, 64, 256) and hd <= 128
+            and C == num_heads * hd):
+        return _fused_block_kernels(x, p, num_heads, float(eps))
+    return _fused_block_ref(x, p, num_heads, float(eps))
