@@ -11,7 +11,10 @@ conftest) with
 Tolerances: the kernels and the twins round to bf16 at the same points,
 but sum in another order, and K1 rounds the unnormalised softmax weights
 (in [0, 1]) where the twin rounds the normalised ones. So they differ by a
-few bf16 ulps (2^-8 relative) of the output scale.
+few bf16 ulps (2^-8 relative) of the output scale. K4 likewise rounds
+p * v_scale relative to the running maximum where its twin rounds the
+normalised probability. K5 rounds once, after an f32 sum taken in another
+order than the twin's, so it differs by at most one bf16 ulp.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,8 @@ import torch
 from videoglamm_torch.ops import attention as attn
 from videoglamm_torch.ops import fused_block as fb
 from videoglamm_torch.ops import norms
+from videoglamm_torch.ops import quant
+from videoglamm_torch.models import kvcache
 
 pytestmark = pytest.mark.cuda
 
@@ -142,3 +147,126 @@ def test_fused_window_block_matches_plain(dev, NW, S, H, hd):
     ref = fb._fused_block_ref(x, p, H)
     torch.cuda.synchronize()
     _close(got, ref, 3e-2, f"block S={S} C={C}")
+
+
+def _int8_cache(rng, L, B, Hkv, C, hd, dev):
+    """A stacked int8 cache with different data per layer, made by the
+    port's quantiser from random K/V."""
+    cache = kvcache.init_cache(L, B, Hkv, C, hd, device=dev, quant_kv=True)
+    for layer in range(L):
+        kn, vn = (_randn(rng, (B, Hkv, C, hd), dev) for _ in range(2))
+        kvcache.write(cache, layer, kn, vn,
+                      torch.zeros(B, dtype=torch.long, device=dev))
+    return cache
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,C,hd,L,layer,kv", [
+    (1, 32, 32, 3456, 96, 3, 1, (3400,)),     # flagship geometry, MHA
+    (2, 4, 4, 300, 96, 2, 0, (300, 211)),     # ragged kv_lens, ragged C
+    (1, 8, 2, 700, 64, 2, 1, (650,)),         # GQA G = 4
+    (2, 8, 4, 160, 96, 1, 0, (160, 97)),      # GQA G = 2
+    (2, 4, 4, 40, 16, 2, 1, (33, 1)),         # tiny() head dim, one token
+    (1, 2, 2, 3456, 64, 2, 1, (3391,)),       # narrow rows (R > 1)
+    (1, 4, 4, 64, 128, 1, 0, (0,)),           # empty cache row -> zeros
+])
+def test_k4_decode_attention_matches_plain(dev, B, Hq, Hkv, C, hd, L, layer, kv):
+    rng = np.random.default_rng(5)
+    cache = _int8_cache(rng, L, B, Hkv, C, hd, dev)
+    q = _randn(rng, (B, Hq, 1, hd), dev)
+    kv_lens = torch.tensor(kv, dtype=torch.int32, device=dev)
+    args = (q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"])
+    before = attn.LAUNCHES["decode_q8"]
+    got = attn.dot_product_attention(q, cache["k"], cache["v"], causal=True,
+                                     kv_lens=kv_lens, q_start=kv_lens - 1,
+                                     k_scale=cache["k_scale"],
+                                     v_scale=cache["v_scale"], layer=layer)
+    assert attn.LAUNCHES["decode_q8"] == before + 1
+    ref = attn._decode_attention_q8_plain(*args, sm_scale=hd ** -0.5,
+                                          kv_lens=kv_lens, layer=layer)
+    torch.cuda.synchronize()
+    for b in range(B):
+        if kv[b] == 0:      # no valid key: K4 writes 0, the twin averages V
+            assert not got[b].float().abs().max().item()
+        else:
+            _close(got[b], ref[b], 2e-2, f"decode b={b}")
+    # a 3-D slab is layer 0
+    slab = attn.decode_attention_q8(q, cache["k"][layer], cache["v"][layer],
+                                    cache["k_scale"][layer],
+                                    cache["v_scale"][layer], kv_lens,
+                                    sm_scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(slab, got)
+
+
+def test_k4_refuses_f32_and_unsupported_geometry(dev):
+    rng = np.random.default_rng(6)
+    cache = _int8_cache(rng, 1, 1, 2, 32, 16, dev)
+    kv_lens = torch.tensor([32], dtype=torch.int32, device=dev)
+    args = (cache["k"], cache["v"], cache["k_scale"], cache["v_scale"], kv_lens)
+    with pytest.raises(ValueError):
+        attn.decode_attention_q8(_randn(rng, (1, 2, 1, 16), dev,
+                                        dtype=torch.float32), *args,
+                                 sm_scale=0.25)
+    with pytest.raises(ValueError):      # G = 3
+        attn.decode_attention_q8(_randn(rng, (1, 6, 1, 16), dev), *args,
+                                 sm_scale=0.25)
+
+
+@pytest.mark.parametrize("M", [1, 3, 64])
+@pytest.mark.parametrize("K,N", [(3072, 9216), (8192, 3072), (3072, 32065),
+                                 (128, 193)])
+def test_k5_int8_gemv_matches_plain(dev, M, K, N):
+    rng = np.random.default_rng(7)
+    x = _randn(rng, (M, K), dev)
+    q, s = quant.quantize_int8(_randn(rng, (N, K), dev, K ** -0.5,
+                                      torch.float32))
+    wq = quant.pad_rows8(q)
+    before = quant.LAUNCHES["int8"]
+    got = quant.dequant_matmul(x[None], wq, s)[0]
+    assert quant.LAUNCHES["int8"] == before + 1
+    ref = quant._dequant_matmul_plain(x, wq, s)
+    torch.cuda.synchronize()
+    _close(got, ref, 1e-2, f"int8 gemv M={M} K={K} N={N}")
+
+
+@pytest.mark.parametrize("M", [1, 3, 64])
+@pytest.mark.parametrize("K,N", [(3072, 9216), (8192, 3072), (3072, 32065),
+                                 (128, 193)])
+def test_k5_int4_gemv_matches_plain(dev, M, K, N):
+    rng = np.random.default_rng(8)
+    x = _randn(rng, (M, K), dev)
+    p, s = quant.quantize_int4(_randn(rng, (N, K), dev, K ** -0.5,
+                                      torch.float32), 128)
+    before = quant.LAUNCHES["int4"]
+    got = quant.dequant4_matmul(x, p, s, 128)
+    assert quant.LAUNCHES["int4"] == before + 1
+    ref = quant._dequant4_matmul_plain(x, p, s, 128)
+    torch.cuda.synchronize()
+    _close(got, ref, 1e-2, f"int4 gemv M={M} K={K} N={N}")
+
+
+def test_k5_routing_and_refusals(dev):
+    """Large M leaves K5: W8A8 through the s8 x s8 product (N padded to 8)
+    and int4 through dequantise-then-matmul; f32 operands raise."""
+    rng = np.random.default_rng(9)
+    K, N = 256, 193
+    q, s = quant.quantize_int8(_randn(rng, (N, K), dev, K ** -0.5,
+                                      torch.float32))
+    wq = quant.pad_rows8(q)
+    x = _randn(rng, (300, K), dev)
+    before = dict(quant.LAUNCHES)
+    y = quant.dequant_matmul(x, wq, s)
+    ref = quant._dequant_matmul_plain(x, wq, s)
+    p4, s4 = quant.quantize_int4(_randn(rng, (N, K), dev, K ** -0.5,
+                                        torch.float32), 128)
+    y4 = quant.dequant4_matmul(x, p4, s4, 128)
+    ref4 = quant._dequant4_matmul_plain(x, p4, s4, 128)
+    torch.cuda.synchronize()
+    assert dict(quant.LAUNCHES) == before
+    # activation quantisation: each of K terms is off by at most half a code
+    _close(y, ref, 3e-2, "w8a8")
+    _close(y4, ref4, 2e-2, "int4 large M")
+    with pytest.raises(ValueError):
+        quant.dequant_matmul(x[:2].float(), wq, s)
+    with pytest.raises(ValueError):
+        quant.dequant4_matmul(x[:2].float(), p4, s4, 128)

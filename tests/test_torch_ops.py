@@ -187,9 +187,15 @@ def test_masked_and_biased_attention_stay_plain():
                                       kv_mask=torch.from_numpy(mask),
                                       bias=torch.from_numpy(bias))
     np.testing.assert_allclose(got.numpy(), _np(ref), atol=ATOL, rtol=ATOL)
-    with pytest.raises(NotImplementedError, match="_decode_q_kernel"):
+    # the int8-cache branch (tests/test_torch_quant.py) wants both scales
+    # and, for a 4-D (stacked) cache, the layer
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
         tattn.dot_product_attention(*map(torch.from_numpy, (q, k, v)),
                                     k_scale=torch.ones(2, 2, 9))
+    with pytest.raises(ValueError, match="layer"):
+        tattn.dot_product_attention(*map(torch.from_numpy, (q, k, v)),
+                                    k_scale=torch.ones(2, 2, 9),
+                                    v_scale=torch.ones(2, 2, 9))
 
 
 # ---------------------------------------------------------------------------

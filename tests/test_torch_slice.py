@@ -149,8 +149,9 @@ def test_grounded_inference_contract(slice_setup):
 
 def test_port_imports_and_runs_without_jax():
     """videoglamm_torch imports neither jax nor videoglamm_tpu: with both
-    blocked, import the package and the pipeline and serve a tiny model on
-    the CPU."""
+    blocked, import the package, the pipeline and the quantisation and
+    preprocessing modules, and serve a tiny model on the CPU, bf16-mode from
+    streams and int8 (weights + KV cache) from raw frames."""
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'videoglamm_tpu'): sys.modules[name] = None\n"
@@ -158,6 +159,8 @@ def test_port_imports_and_runs_without_jax():
         "from videoglamm_torch.inference.pipeline import GroundedInference\n"
         "from videoglamm_torch.models.videoglamm import VideoGLaMM\n"
         "from videoglamm_torch.io import from_jax\n"
+        "from videoglamm_torch.ops import preprocess, quant, resize\n"
+        "from videoglamm_torch.inference.pipeline import build_inference\n"
         "from videoglamm_torch.config import VideoGLaMMConfig\n"
         "cfg = VideoGLaMMConfig.tiny(num_frames=4)\n"
         "m = VideoGLaMM(cfg).eval()\n"
@@ -165,6 +168,11 @@ def test_port_imports_and_runs_without_jax():
         "out = GroundedInference(m, max_new_tokens=4)(\n"
         "    torch.randn(1, 4, 28, 28, 3), torch.randn(1, 4, 56, 56, 3),\n"
         "    torch.randn(1, 1, 128, 128, 3), ids, torch.tensor([8]))\n"
+        "assert out.pred_masks.shape == (1, 4, 1, 32, 32)\n"
+        "gi = build_inference(cfg, device='cpu', dtype=torch.float32,\n"
+        "                     quant='int8', kv_cache='int8', max_new_tokens=4)\n"
+        "raw = torch.randint(0, 256, (1, 4, 48, 85, 3), dtype=torch.uint8)\n"
+        "out = gi.serve_raw(raw, ids, torch.tensor([8]), num_sam_frames=1)\n"
         "assert out.pred_masks.shape == (1, 4, 1, 32, 32)\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'videoglamm_tpu')\n"
         "               and v is not None\n"

@@ -2,7 +2,8 @@
 of the greedy, draft_k=0 path of videoglamm_tpu/inference/generate.py).
 
 One prefill over the spliced sequence (Phi-3 attention on K1's causal
-mode), then a decode loop over the static cache. Step i feeds the token
+mode), then a decode loop over the static cache, bf16 or int8
+(`model.quant_kv_int8`; the int8 cache decodes through K4). Step i feeds the token
 sampled at step i-1 at its own position and records that position's
 final-layer hidden state (generate.py:126-137), so [SEG] hidden states are
 read exactly once. The loop always runs max_new_tokens steps; slots after
@@ -30,16 +31,18 @@ class GenerateResult(NamedTuple):
 PHI3_TERMINATORS = (32000, 32001, 32007)
 
 
-def prefill(llm, visual_prefix, input_ids, text_lens, max_new_tokens: int):
-    """Splice, allocate the cache and run the prefill. Returns
-    (prefill_hidden, cache, spliced batch, logits of the last prompt
-    position)."""
+def prefill(llm, visual_prefix, input_ids, text_lens, max_new_tokens: int,
+            quant_kv: bool = False):
+    """Splice, allocate the cache (int8 with `quant_kv`) and run the
+    prefill. Returns (prefill_hidden, cache, spliced batch, logits of the
+    last prompt position)."""
     B, S_text = input_ids.shape
     S_prefill = S_text - 1 + visual_prefix.shape[1]
     embeds = llm.embed(input_ids)
     sp = splice_visual_prefix(embeds, input_ids, visual_prefix, text_lens)
     cache = init_kv_cache(llm.cfg, B, S_prefill + max_new_tokens + 1,
-                          dtype=embeds.dtype, device=embeds.device)
+                          dtype=embeds.dtype, device=embeds.device,
+                          quant_kv=quant_kv)
     hidden_pre, cache = llm.forward_hidden(sp.embeds, sp.positions,
                                            sp.attn_lens, cache)
     bidx = torch.arange(B, device=embeds.device)
@@ -65,8 +68,9 @@ def generate_with_prefix(model, visual_prefix, input_ids, text_lens, *,
     dev = visual_prefix.device
     eos = torch.as_tensor(eos_id if isinstance(eos_id, (tuple, list))
                           else [eos_id], device=dev)
-    hidden_pre, cache, sp, logits = prefill(llm, visual_prefix, input_ids,
-                                            text_lens, max_new_tokens)
+    hidden_pre, cache, sp, logits = prefill(
+        llm, visual_prefix, input_ids, text_lens, max_new_tokens,
+        quant_kv=getattr(model, "quant_kv_int8", False))
     tok = logits.argmax(dim=-1)
     done = torch.isin(tok, eos)
     pos = sp.attn_lens.clone()

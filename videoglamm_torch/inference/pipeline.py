@@ -1,15 +1,24 @@
 """End-to-end grounded inference, framewise (PyTorch port of
-videoglamm_tpu/inference/pipeline.py): encode video -> generate text with
-[SEG] tokens -> project the [SEG] hidden states -> encode every SAM frame
--> one batched mask decode over every ([SEG], frame) pair."""
+videoglamm_tpu/inference/pipeline.py): raw uint8 frames -> the three
+preprocessed streams -> encode video -> generate text with [SEG] tokens ->
+project the [SEG] hidden states -> encode every SAM frame -> one batched
+mask decode over every ([SEG], frame) pair.
+
+`build_inference` is the port's model construction (counterpart of
+`load_model`, videoglamm_tpu/cli/common.py:53): it builds on the card
+unless the caller asks for the CPU, quantises the LLM when asked and
+chooses the KV-cache storage."""
 from __future__ import annotations
 
 import time
-from typing import NamedTuple, Optional
+from typing import Callable, Mapping, NamedTuple, Optional
 
 import torch
 
-from ..models.videoglamm import SegExtraction
+from ..models.phi3 import quantize_llm
+from ..models.videoglamm import SegExtraction, VideoGLaMM
+from ..ops.preprocess import (preprocess_clip_stream, preprocess_iv_stream,
+                              preprocess_sam_stream, sample_frame_indices)
 from .generate import PHI3_TERMINATORS, GenerateResult, generate_with_prefix
 
 
@@ -38,9 +47,30 @@ def extract_seg_from_generation(model, gen: GenerateResult) -> SegExtraction:
     return SegExtraction(embeds=emb, valid=valid, positions=idx)
 
 
+def prepare_vision_inputs(raw_frames, cfg, *, num_sam_frames=None,
+                          dtype=torch.float32):
+    """Raw RGB frames -> (frames, context_images, frames_sam), the device
+    branch of `prepare_vision_inputs` (videoglamm_tpu/cli/common.py:127-134)
+    batched as bench.py:126-133 does. raw_frames: [B, T, H, W, 3] uint8 (or
+    float 0-255) on the serving device. The InternVideo2 and CLIP streams
+    come from all T frames; the SAM stream from `num_sam_frames` frames
+    sampled uniformly, or from all."""
+    frames = preprocess_iv_stream(raw_frames, cfg.internvideo.image_size, dtype)
+    context = preprocess_clip_stream(raw_frames, cfg.clip.image_size, dtype)
+    sam_frames = raw_frames
+    T = raw_frames.shape[1]
+    if num_sam_frames is not None and num_sam_frames != T:
+        idx = torch.from_numpy(sample_frame_indices(T, num_sam_frames))
+        sam_frames = raw_frames[:, idx.to(raw_frames.device)]
+    frames_sam = preprocess_sam_stream(sam_frames, cfg.sam2.image_size, dtype)
+    return frames, context, frames_sam
+
+
 class GroundedInference:
     """Grounded video chat / GCG pipeline: framewise (the SAM-2 memory
-    tracker of `use_video_branch` is not ported yet) and greedy."""
+    tracker of `use_video_branch` is not ported yet) and greedy. The LLM's
+    serving mode (bf16, int8 or int4 weights; bf16 or int8 KV cache) is the
+    model's (`build_inference`)."""
 
     def __init__(self, model, *, max_new_tokens: int = 128,
                  eos_id=PHI3_TERMINATORS):
@@ -71,6 +101,70 @@ class GroundedInference:
         clock("mask_decode")
         return InferenceResult(tokens=gen.tokens, lengths=gen.lengths,
                                seg_valid=seg.valid, pred_masks=masks)
+
+
+    @torch.no_grad()
+    def serve_raw(self, raw_frames, input_ids, text_lens, *,
+                  num_sam_frames: Optional[int] = None,
+                  timings: Optional[dict] = None) -> InferenceResult:
+        """One request from raw decoded frames: raw_frames [B,T,H,W,3] uint8
+        on the model's device -> the three streams in the model's compute
+        dtype (`preprocess` stage) -> `__call__`."""
+        m = self.model
+        clock = _StageClock(timings, raw_frames.device)
+        dtype = m.llm.model.embed_tokens.weight.dtype
+        streams = prepare_vision_inputs(raw_frames, m.cfg,
+                                        num_sam_frames=num_sam_frames,
+                                        dtype=dtype)
+        clock("preprocess")
+        return self(*streams, input_ids, text_lens, timings=timings)
+
+
+def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
+                    device="cuda", dtype=torch.bfloat16, quant: str = "none",
+                    kv_cache: str = "bf16", max_new_tokens: int = 128,
+                    eos_id=PHI3_TERMINATORS,
+                    init: Optional[Callable] = None) -> GroundedInference:
+    """Build a VideoGLaMM on `device` and wrap it for serving.
+
+    device: the card by default; a CUDA device with no card present raises
+    (there is no silent CPU). Pass "cpu" to run the plain twins.
+    state_dict: the port's weights (`io/from_jax.py` makes them); float, or
+    already in the quantised form that `quant` names. Without one, `init`
+    (a callable that fills the float model in place, e.g. seeded random
+    weights) or torch's default initialisation stands in.
+    quant: "none", "int8" or "int4" weights for the LLM; float weights are
+    quantised here from their f32 values, before the cast to `dtype`.
+    kv_cache: "bf16" (the compute dtype) or "int8"."""
+    if quant not in ("none", "int8", "int4"):
+        raise ValueError(f"quant {quant!r}: expected none, int8 or int4")
+    if kv_cache not in ("bf16", "int8"):
+        raise ValueError(f"kv_cache {kv_cache!r}: expected bf16 or int8")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"build_inference: device {device!r} asked for, but no CUDA "
+            "device is present; pass device='cpu' to run on the CPU")
+    head = state_dict.get("llm.lm_head.weight") if state_dict else None
+    prequant = head is not None and head.dtype == torch.int8
+    if prequant and quant == "none":
+        raise ValueError("state_dict holds a quantised LLM; name its mode "
+                         "with quant='int8' or 'int4'")
+    with torch.device(dev):
+        model = VideoGLaMM(cfg, quant_llm_int8=prequant and quant == "int8",
+                           quant_llm_int4=prequant and quant == "int4",
+                           quant_kv_int8=kv_cache == "int8")
+    model.to(dev)     # tensors made from numpy ignore the device context
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    elif init is not None:
+        init(model)
+    if quant != "none" and not prequant:
+        quantize_llm(model.llm, quant)
+    if dtype != torch.float32:
+        model.to_compute_dtype(dtype)
+    return GroundedInference(model.eval(), max_new_tokens=max_new_tokens,
+                             eos_id=eos_id)
 
 
 class _StageClock:

@@ -13,6 +13,15 @@ returns the port's `state_dict`. It inverts the layout mapping of
 - the port's names are the reference checkpoint keys that import_torch.py
   reads, under the port's submodule prefixes.
 
+Quantised LLM trees (`quantize_phi3_params` / `_int4` of import_torch.py:
+`{"kernel": int8 [L, in, out], "scale": f32 [L, out]}`, int4
+`{"kernel": packed int8 [L, in/2, out], "scale": f32 [L, in/group, out]}`,
+the lm_head unstacked) become the buffers of the port's `QDense` /
+`QDense4`: transposed to [out, in] (int8 padded with zero rows to a
+multiple of 8, as `QDense` holds it) resp. [out, in/2] and [out, in/group].
+The transpose keeps the nibble order along K: packed byte r of a row still
+holds k = 2r low and k = 2r + 1 high.
+
 Parameters the port does not build (the SAM-2 memory machinery, the point,
 box and mask prompt embeddings) are skipped.
 """
@@ -39,6 +48,23 @@ def _linear(p, prefix: str, layer=None) -> Dict[str, torch.Tensor]:
     if "bias" in p:
         out[f"{prefix}.bias"] = _t(pick(p["bias"]))
     return out
+
+
+def _qlinear(p, prefix: str, layer=None) -> Dict[str, torch.Tensor]:
+    """A quantised flax projection -> QDense / QDense4 buffers; a float one
+    -> an nn.Linear weight. int8 scales are [out], int4 scales
+    [in/group, out]."""
+    kernel = np.asarray(p["kernel"])
+    if kernel.dtype != np.int8:
+        return _linear(p, prefix, layer)
+    scale = np.asarray(p["scale"], dtype=np.float32)
+    if layer is not None:
+        kernel, scale = kernel[layer], scale[layer]
+    w = np.array(kernel.T, order="C")
+    if scale.ndim == 1:                          # int8: pad rows to 8
+        w = np.pad(w, ((0, -w.shape[0] % 8), (0, 0)))
+    return {f"{prefix}.weight": torch.from_numpy(w),
+            f"{prefix}.scale": torch.from_numpy(np.array(scale.T, order="C"))}
 
 
 def _norm(p, prefix: str, layer=None) -> Dict[str, torch.Tensor]:
@@ -106,21 +132,21 @@ def internvideo2_state_dict(p) -> Dict[str, torch.Tensor]:
 
 def phi3_state_dict(p) -> Dict[str, torch.Tensor]:
     """Phi3ForCausalLM params (scanned `model/layers`) -> HF-named
-    state_dict of the port's Phi3ForCausalLM."""
+    state_dict of the port's Phi3ForCausalLM, float or quantised."""
     lay = p["model"]["layers"]
     sd = {"model.embed_tokens.weight": _t(p["embed_tokens"]["embedding"]),
-          "model.norm.weight": _t(p["model"]["norm"]["scale"]),
-          "lm_head.weight": _t(np.asarray(p["lm_head"]["kernel"]).T)}
+          "model.norm.weight": _t(p["model"]["norm"]["scale"])}
+    sd.update(_qlinear(p["lm_head"], "lm_head"))
     n = np.asarray(lay["input_layernorm"]["scale"]).shape[0]
     for i in range(n):
         pre = f"model.layers.{i}"
         sd.update(_norm(lay["input_layernorm"], f"{pre}.input_layernorm", i))
         sd.update(_norm(lay["post_attention_layernorm"],
                         f"{pre}.post_attention_layernorm", i))
-        sd.update(_linear(lay["qkv_proj"], f"{pre}.self_attn.qkv_proj", i))
-        sd.update(_linear(lay["o_proj"], f"{pre}.self_attn.o_proj", i))
-        sd.update(_linear(lay["gate_up_proj"], f"{pre}.mlp.gate_up_proj", i))
-        sd.update(_linear(lay["down_proj"], f"{pre}.mlp.down_proj", i))
+        sd.update(_qlinear(lay["qkv_proj"], f"{pre}.self_attn.qkv_proj", i))
+        sd.update(_qlinear(lay["o_proj"], f"{pre}.self_attn.o_proj", i))
+        sd.update(_qlinear(lay["gate_up_proj"], f"{pre}.mlp.gate_up_proj", i))
+        sd.update(_qlinear(lay["down_proj"], f"{pre}.mlp.down_proj", i))
     return sd
 
 

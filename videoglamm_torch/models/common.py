@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant
 from ..ops.attention import attention_bshd
 from ..ops.norms import layer_norm, rms_norm
 
@@ -40,6 +41,65 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rms_norm(x, self.weight, eps=self.eps)
+
+
+class QDense(nn.Module):
+    """Weight-only int8 linear, bias-free (common.py:41): buffers `weight`
+    int8 [round_up(out, 8), in] in nn.Linear orientation (rows past `out`
+    are zero padding for the s8 x s8 product of the W8A8 branch) and
+    `scale` f32 [out], consumed by `ops.quant.dequant_matmul`. Calls with
+    fewer than `w8a8_min_m` rows (decode) stream the weight through K5."""
+
+    w8a8_min_m = quant.W8A8_MIN_M
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        rows = out_features + (-out_features % 8)
+        self.register_buffer("weight", torch.zeros(rows, in_features,
+                                                   dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_features))
+
+    @classmethod
+    def from_linear(cls, lin: nn.Linear) -> "QDense":
+        """Quantise a bias-free float linear (per output channel)."""
+        q, s = quant.quantize_int8(lin.weight.detach())
+        m = cls(lin.in_features, lin.out_features)
+        m.weight, m.scale = quant.pad_rows8(q), s
+        return m
+
+    def forward(self, x):
+        return quant.dequant_matmul(x, self.weight, self.scale,
+                                    w8a8_min_m=self.w8a8_min_m)
+
+
+class QDense4(nn.Module):
+    """Weight-only int4 linear, bias-free (common.py:64): buffers `weight`
+    packed int8 [out, in/2] (byte r of a row: k = 2r low nibble, k = 2r + 1
+    high) and `scale` f32 [out, in/group], group = min(128, in), consumed
+    by `ops.quant.dequant4_matmul`. Calls with at most `matvec_max_m` rows
+    (decode) stream the weight through K5 at 4 bits."""
+
+    matvec_max_m = quant.MATVEC4_MAX_M
+
+    def __init__(self, in_features: int, out_features: int, group: int = 128):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.group = min(group, in_features)     # tiny configs: one group
+        self.register_buffer("weight", torch.zeros(
+            out_features, in_features // 2, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(
+            out_features, in_features // self.group))
+
+    @classmethod
+    def from_linear(cls, lin: nn.Linear, group: int = 128) -> "QDense4":
+        m = cls(lin.in_features, lin.out_features, group)
+        m.weight, m.scale = quant.quantize_int4(lin.weight.detach(), m.group)
+        return m
+
+    def forward(self, x):
+        return quant.dequant4_matmul(x, self.weight, self.scale, self.group,
+                                     matvec_max_m=self.matvec_max_m)
 
 
 def cast_compute(module: nn.Module, dtype) -> nn.Module:

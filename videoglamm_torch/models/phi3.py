@@ -1,7 +1,13 @@
-"""Phi-3-mini decoder with a static KV cache (PyTorch port of the bf16 path
-of videoglamm_tpu/models/phi3.py). HF Phi3ForCausalLM parameter names:
-fused `qkv_proj` and `gate_up_proj`, full-head RoPE, untied lm_head.
-No LoRA and no quantised weights in this slice."""
+"""Phi-3-mini decoder with a static KV cache (PyTorch port of
+videoglamm_tpu/models/phi3.py). HF Phi3ForCausalLM parameter names: fused
+`qkv_proj` and `gate_up_proj`, full-head RoPE, untied lm_head.
+
+Weight-only quantised serving: with `quant_int8` / `quant_int4` the four
+projections of every layer and the lm_head are `QDense` / `QDense4`
+(int8 resp. packed int4 weights through `ops/quant.py`; decode calls run
+on K5). `quantize_llm` turns a float model into that form in place. The
+cache may be bf16 or int8 (`models/kvcache.py`); on the int8 cache a decode
+step hands the stacked buffers, unrepeated for GQA, to K4. No LoRA yet."""
 from __future__ import annotations
 
 import torch
@@ -12,32 +18,45 @@ from ..config import Phi3Config
 from ..ops.attention import dot_product_attention
 from ..ops.rope import apply_rope, rope_cos_sin
 from . import kvcache
-from .common import RMSNorm
+from .common import QDense, QDense4, RMSNorm
+
+QUANT_MODES = ("none", "int8", "int4")
 
 
 def init_kv_cache(cfg: Phi3Config, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device=None):
+                  dtype=torch.bfloat16, device=None, quant_kv: bool = False):
+    """quant_kv stores K/V as int8 with per-token and per-head scales
+    (models/kvcache.py)."""
     return kvcache.init_cache(cfg.num_layers, batch, cfg.num_kv_heads, max_len,
-                              cfg.head_dim, dtype, device)
+                              cfg.head_dim, dtype, device, quant_kv)
+
+
+def _proj(in_features: int, out_features: int, quant: str):
+    """A bias-free projection in the serving mode `quant` (phi3.py:58)."""
+    if quant == "int4":
+        return QDense4(in_features, out_features)
+    if quant == "int8":
+        return QDense(in_features, out_features)
+    if quant != "none":
+        raise ValueError(f"quant {quant!r}: expected one of {QUANT_MODES}")
+    return nn.Linear(in_features, out_features, bias=False)
 
 
 class Phi3Attention(nn.Module):
-    def __init__(self, cfg: Phi3Config):
+    def __init__(self, cfg: Phi3Config, quant: str = "none"):
         super().__init__()
         hd = cfg.head_dim
-        self.qkv_proj = nn.Linear(cfg.hidden_size,
-                                  (cfg.num_heads + 2 * cfg.num_kv_heads) * hd,
-                                  bias=False)
-        self.o_proj = nn.Linear(cfg.num_heads * hd, cfg.hidden_size, bias=False)
+        self.qkv_proj = _proj(cfg.hidden_size,
+                              (cfg.num_heads + 2 * cfg.num_kv_heads) * hd, quant)
+        self.o_proj = _proj(cfg.num_heads * hd, cfg.hidden_size, quant)
 
 
 class Phi3MLP(nn.Module):
-    def __init__(self, cfg: Phi3Config):
+    def __init__(self, cfg: Phi3Config, quant: str = "none"):
         super().__init__()
-        self.gate_up_proj = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size,
-                                      bias=False)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
-                                   bias=False)
+        self.gate_up_proj = _proj(cfg.hidden_size, 2 * cfg.intermediate_size,
+                                  quant)
+        self.down_proj = _proj(cfg.intermediate_size, cfg.hidden_size, quant)
 
     def forward(self, x):
         gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
@@ -45,13 +64,13 @@ class Phi3MLP(nn.Module):
 
 
 class Phi3DecoderLayer(nn.Module):
-    def __init__(self, cfg: Phi3Config):
+    def __init__(self, cfg: Phi3Config, quant: str = "none"):
         super().__init__()
         self.cfg = cfg
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.self_attn = Phi3Attention(cfg)
+        self.self_attn = Phi3Attention(cfg, quant)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.mlp = Phi3MLP(cfg)
+        self.mlp = Phi3MLP(cfg, quant)
 
     def forward(self, x, positions, rope, cache, kv_lens, layer_idx: int,
                 self_contained: bool = False):
@@ -69,40 +88,46 @@ class Phi3DecoderLayer(nn.Module):
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+        k_scale = v_scale = None
         if cache is not None and self_contained:
             # prefill from position 0: attend to the fresh k/v, the cache
-            # is write-only (phi3.py:112-123)
+            # (bf16 or int8) is write-only (phi3.py:112-123)
             kvcache.write(cache, layer_idx, k, v, positions[:, 0])
             k_att, v_att = k, v
         elif cache is not None:
-            cache, k_att, v_att = kvcache.update_and_fetch(
-                cache, layer_idx, k, v, positions[:, 0])
+            cache, k_att, v_att, k_scale, v_scale = kvcache.update_and_fetch(
+                cache, layer_idx, k, v, positions[:, 0], x.dtype)
         else:
             k_att, v_att = k, v
-        if nkv != nh:
+        # GQA: the int8-cache path passes k/v unrepeated; the attention
+        # groups the heads itself (phi3.py:136-142)
+        if nkv != nh and k_scale is None:
             k_att = k_att.repeat_interleave(nh // nkv, dim=1)
             v_att = v_att.repeat_interleave(nh // nkv, dim=1)
         # positions[:, 0]: absolute KV position of the first query
         o = dot_product_attention(q, k_att, v_att, causal=True, kv_lens=kv_lens,
-                                  q_start=positions[:, 0])
+                                  q_start=positions[:, 0], k_scale=k_scale,
+                                  v_scale=v_scale, layer=layer_idx)
         x = x + self.self_attn.o_proj(o.transpose(1, 2).reshape(B, S, nh * hd))
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
 class Phi3Model(nn.Module):
-    def __init__(self, cfg: Phi3Config, vocab: int):
+    def __init__(self, cfg: Phi3Config, vocab: int, quant: str = "none"):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(vocab, cfg.hidden_size)
-        self.layers = nn.ModuleList(Phi3DecoderLayer(cfg)
+        self.layers = nn.ModuleList(Phi3DecoderLayer(cfg, quant)
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
     def forward(self, embeds, positions, kv_lens, cache=None,
                 self_contained: bool = False):
         x = embeds
-        # one table for every layer (the JAX scan traces it once per layer)
+        # one table for every layer (the JAX scan traces it once per layer),
+        # and one int32 copy of kv_lens, the type the K1 and K4 launchers read
         rope = rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        kv_lens = kv_lens.to(torch.int32)
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, rope, cache, kv_lens, i,
                       self_contained=self_contained)
@@ -111,14 +136,17 @@ class Phi3Model(nn.Module):
 
 class Phi3ForCausalLM(nn.Module):
     """Embedding + decoder + lm_head. `extra_vocab` rows hold added tokens
-    ([SEG])."""
+    ([SEG]). `quant_int8` / `quant_int4` build the projections and the
+    lm_head in weight-only quantised form (phi3.py:224-243)."""
 
-    def __init__(self, cfg: Phi3Config, extra_vocab: int = 0):
+    def __init__(self, cfg: Phi3Config, extra_vocab: int = 0,
+                 quant_int8: bool = False, quant_int4: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.quant = "int4" if quant_int4 else "int8" if quant_int8 else "none"
         vocab = cfg.vocab_size + extra_vocab
-        self.model = Phi3Model(cfg, vocab)
-        self.lm_head = nn.Linear(cfg.hidden_size, vocab, bias=False)
+        self.model = Phi3Model(cfg, vocab, self.quant)
+        self.lm_head = _proj(cfg.hidden_size, vocab, self.quant)
 
     def embed(self, input_ids):
         """Negative placeholder ids (IMAGE_TOKEN_INDEX) are clamped: their
@@ -137,3 +165,30 @@ class Phi3ForCausalLM(nn.Module):
 
     def head(self, hidden):
         return self.lm_head(hidden)
+
+
+_QUANT_PROJS = ("self_attn.qkv_proj", "self_attn.o_proj", "mlp.gate_up_proj",
+                "mlp.down_proj")
+
+
+@torch.no_grad()
+def quantize_llm(llm: Phi3ForCausalLM, mode: str = "int8") -> Phi3ForCausalLM:
+    """Float Phi3ForCausalLM -> weight-only int8 / int4 serving form, in
+    place (counterpart of `quantize_phi3_params` / `_int4` and of
+    `quantize_videoglamm_llm`, videoglamm_tpu/io/import_torch.py:618-665;
+    pass the composite's `.llm`): the four projections of
+    every layer and the lm_head are replaced by `QDense` / `QDense4` built
+    from the float weights; embeddings and norms stay float."""
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"quantize_llm: mode {mode!r}")
+    if llm.quant != "none":
+        raise ValueError(f"quantize_llm: the model is already {llm.quant}")
+    make = QDense.from_linear if mode == "int8" else QDense4.from_linear
+    for layer in llm.model.layers:
+        for name in _QUANT_PROJS:
+            parent, attr = name.split(".")
+            sub = getattr(layer, parent)
+            setattr(sub, attr, make(getattr(sub, attr)))
+    llm.lm_head = make(llm.lm_head)
+    llm.quant = mode
+    return llm

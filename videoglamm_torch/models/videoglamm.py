@@ -31,7 +31,12 @@ class SegExtraction(NamedTuple):
 
 
 class VideoGLaMM(nn.Module):
-    def __init__(self, cfg: VideoGLaMMConfig):
+    """`quant_llm_int8` / `quant_llm_int4` build the LLM in weight-only
+    quantised serving form; `quant_kv_int8` makes generation use the int8
+    KV cache (read by inference/generate.py) (videoglamm.py:110-132)."""
+
+    def __init__(self, cfg: VideoGLaMMConfig, *, quant_llm_int8: bool = False,
+                 quant_llm_int4: bool = False, quant_kv_int8: bool = False):
         super().__init__()
         if cfg.llm_type != "phi3":
             raise NotImplementedError(
@@ -44,7 +49,10 @@ class VideoGLaMM(nn.Module):
             cfg.mm_projector_type, cfg.internvideo.embed_dim, hidden)
         self.image_mm_projector = build_vision_projector(
             cfg.mm_projector_type, cfg.clip.hidden_size, hidden)
-        self.llm = Phi3ForCausalLM(cfg.llm, extra_vocab=1)
+        self.quant_kv_int8 = quant_kv_int8
+        self.llm = Phi3ForCausalLM(cfg.llm, extra_vocab=1,
+                                   quant_int8=quant_llm_int8,
+                                   quant_int4=quant_llm_int4)
         self.text_hidden_fcs = nn.ModuleList([TextHiddenFCs(hidden, cfg.out_dim)])
         self.visual_model = SAM2Base(cfg.sam2)
 

@@ -15,6 +15,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -31,7 +32,8 @@ class Built(NamedTuple):
     ptxas_log: str     # nvcc's -Xptxas -v report (registers, shared memory)
 
 
-_lock = threading.Lock()
+_lock = threading.Lock()          # guards the two tables below
+_name_locks: dict = {}            # one build at a time per source
 _built: dict = {}
 
 
@@ -47,8 +49,11 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> Built:
-    """Compile `csrc/<name>.cu` if needed and return the loaded library."""
+    """Compile `csrc/<name>.cu` if needed and return the loaded library.
+    Different sources may build at the same time (`load_all`)."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _built:
             return _built[name]
         src = CSRC / f"{name}.cu"
@@ -70,6 +75,14 @@ def load(name: str) -> Built:
         built = Built(ctypes.CDLL(str(so)), so, seconds, log)
         _built[name] = built
         return built
+
+
+def load_all(names) -> dict:
+    """Build several sources at once, one nvcc process each, all started
+    together. Returns {name: Built}."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(load, names)))
 
 
 def stream_ptr(t) -> int:

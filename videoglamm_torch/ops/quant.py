@@ -1,0 +1,252 @@
+"""Weight-only int8 / int4 quantisation and the dequantising products
+(PyTorch port of videoglamm_tpu/ops/quant.py).
+
+The port stores quantised weights in nn.Linear orientation, [N, K] with
+each output channel's K values contiguous (int4: [N, K/2] packed bytes,
+scales [N, K/group]); the JAX package keeps flax's [K, N]. `io/from_jax.py`
+transposes. The nibble order along K is the JAX one: packed byte r of a row
+holds k = 2r in its low and k = 2r + 1 in its high nibble.
+
+K5 (`csrc/dequant_gemv.cu`) is the decode GEMV, with two entry points. The
+int8 entry replaces the Pallas kernel `_kernel` (quant.py:36): y = (x . w_q)
+* scale with f32 accumulation and the per-channel scale in the epilogue.
+The int4 entry replaces `_kernel4` (quant.py:132): nibbles are
+sign-extended, multiplied by their group scale, then by x, f32
+accumulation. Both are bound by the bytes of the weights, which they read
+once, as 16-byte vectors along K.
+
+Routing follows the JAX package. `dequant_matmul` sends M >= `w8a8_min_m`
+rows through dynamic per-token W8A8 (activations quantised per row, an
+s8 x s8 -> s32 product, both scales in the epilogue), which the JAX package
+leaves to XLA outside any Pallas kernel and which `torch._int_mm` serves on
+the card; fewer rows go to K5. `dequant4_matmul` sends M <= `matvec_max_m`
+rows to K5 and dequantises once for a plain matmul above that. The
+thresholds are arguments, not environment variables. A CPU tensor takes
+the plain twins; a CUDA tensor launches K5 or raises.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _cuda
+
+# K5 launches by entry point ("int8", "int4"); counted where it launches
+LAUNCHES = collections.Counter()
+
+W8A8_MIN_M = 256       # quant.py:253: rows from which the W8A8 branch runs
+MATVEC4_MAX_M = 64     # quant.py:225: rows up to which int4 takes the matvec
+
+
+# ---------------------------------------------------------------------------
+# quantisers (copied exactly: the parity tests hold the codes equal)
+# ---------------------------------------------------------------------------
+def quantize_int8(w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[N, K] float -> (int8 [N, K], scale f32 [N]), symmetric per output
+    channel (quant.py:20)."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(wf / scale[:, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_rows(x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 over the last dim (quant.py:233).
+    x: [..., K] float -> (int8 [..., K], scale f32 [..., 1])."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) * (1.0 / 127.0)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_int4(w, group: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[N, K] float -> (packed int8 [N, K/2], scales f32 [N, K/group]):
+    4-bit signed symmetric with one scale per (output channel, group of K)
+    (quant.py:93)."""
+    N, K = w.shape
+    if K % group or K % 2:
+        raise ValueError(f"quantize_int4: K={K} must be a multiple of the "
+                         f"group {group} and of 2")
+    wf = w.float().view(N, K // group, group)
+    amax = wf.abs().amax(dim=2)
+    scale = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(wf / scale[:, :, None]), -8, 7)
+    q = q.view(N, K).to(torch.int16)
+    packed = (q[:, 0::2] & 0x0F) | ((q[:, 1::2] & 0x0F) << 4)
+    return packed.to(torch.uint8).view(torch.int8), scale
+
+
+def pad_rows8(w_q):
+    """Zero-pad an int8 [N, K] weight to a multiple of 8 rows: the s8 x s8
+    product of the W8A8 branch needs N % 8 == 0 on the card, and the
+    lm_head has vocab + 1 = 32065 rows."""
+    pad = -w_q.shape[0] % 8
+    return F.pad(w_q, (0, 0, 0, pad)) if pad else w_q
+
+
+def _unpack4(p):
+    """packed int8 -> (lo, hi) sign-extended nibbles as int32 (quant.py:112):
+    hi is the arithmetic shift of the byte, lo is ((b & 15) ^ 8) - 8."""
+    p32 = p.to(torch.int32)
+    return ((p32 & 15) ^ 8) - 8, p32 >> 4
+
+
+def _dequant4_weights(packed, scales, group: int, dtype):
+    """packed [N, K/2], scales [N, K/group] -> [N, K] in `dtype`
+    (quant.py:124)."""
+    lo, hi = _unpack4(packed)
+    N, K2 = packed.shape
+    q = torch.stack([lo, hi], dim=2).view(N, 2 * K2)
+    w = q.float() * scales.float().repeat_interleave(group, dim=1)
+    return w.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# plain twins of K5
+# ---------------------------------------------------------------------------
+def _dequant_matmul_plain(x2, w_q, scale):
+    """Twin of K5's int8 entry: the arithmetic of the Pallas body
+    (quant.py:43-51) and of the small-M branch (quant.py:289-291), f32
+    accumulation with the scale in the epilogue. `_dequant_matmul_ref`
+    (quant.py:30) scales the weights first; the two agree to f32 rounding.
+    x2: [M, K]; w_q: [>= N, K] int8; scale: [N] -> [M, N] in x2.dtype."""
+    N = scale.shape[0]
+    y = torch.matmul(x2.float(), w_q[:N].float().t())
+    return (y * scale.float()).to(x2.dtype)
+
+
+def _dequant4_matmul_plain(x2, packed, scales, group: int):
+    """Twin of K5's int4 entry (quant.py:143-155): weights dequantised in
+    f32 (nibble * group scale), f32 products and accumulation."""
+    w = _dequant4_weights(packed, scales, group, torch.float32)
+    return torch.matmul(x2.float(), w.t()).to(x2.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K5 launchers
+# ---------------------------------------------------------------------------
+def _gemv_fn(kind: str):
+    fn = getattr(_cuda.load("dequant_gemv").lib, f"vgt_dequant_gemv_{kind}")
+    if fn.argtypes is None:
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        tail = [I] if kind == "int4" else []
+        fn.argtypes = [P, L, P, P, P, L, I, I, I] + tail + [P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_gemv(x2, w, scale, row_bytes: int, what: str):
+    _cuda.check_operand(x2, f"{what}: x", torch.bfloat16)
+    for name, t, dt in (("weight", w, torch.int8), ("scale", scale,
+                                                    torch.float32)):
+        if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous CUDA "
+                             f"{dt} tensor")
+    if row_bytes % 16 or w.data_ptr() % 16:
+        raise ValueError(f"{what}: weight rows of {row_bytes} bytes are not "
+                         "16-byte vectors")
+
+
+def dequant_gemv_int8(x2, w_q, scale):
+    """Launch K5's int8 entry. x2: [M, K] bf16; w_q: [>= N, K] int8 with
+    K % 16 == 0; scale: [N] f32 -> [M, N] bf16. Every M is taken (rows are
+    looped in tiles). Raises unless the operands are CUDA tensors of these
+    types."""
+    M, K = x2.shape
+    N = scale.shape[0]
+    if w_q.dim() != 2 or w_q.shape[0] < N or w_q.shape[1] != K:
+        raise ValueError(f"dequant_gemv_int8: weight {tuple(w_q.shape)} for "
+                         f"x [{M},{K}] and {N} channels")
+    _check_gemv(x2, w_q, scale, K, "dequant_gemv_int8")
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    err = _gemv_fn("int8")(x2.data_ptr(), x2.stride(0), w_q.data_ptr(),
+                           scale.data_ptr(), out.data_ptr(), out.stride(0),
+                           M, N, K, _cuda.stream_ptr(x2))
+    _cuda.check_launch(err, "dequant_gemv_int8")
+    LAUNCHES["int8"] += 1
+    return out
+
+
+def dequant_gemv_int4(x2, packed, scales, group: int = 128):
+    """Launch K5's int4 entry. x2: [M, K] bf16; packed: [N, K/2] int8 with
+    K % 32 == 0; scales: [N, K/group] f32 with group % 32 == 0 -> [M, N]
+    bf16."""
+    M, K = x2.shape
+    N = packed.shape[0]
+    if packed.shape != (N, K // 2) or group % 32 or K % group \
+            or scales.shape != (N, K // group):
+        raise ValueError(f"dequant_gemv_int4: packed {tuple(packed.shape)}, "
+                         f"scales {tuple(scales.shape)}, group {group} for "
+                         f"x [{M},{K}]")
+    _check_gemv(x2, packed, scales, K // 2, "dequant_gemv_int4")
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    err = _gemv_fn("int4")(x2.data_ptr(), x2.stride(0), packed.data_ptr(),
+                           scales.data_ptr(), out.data_ptr(), out.stride(0),
+                           M, N, K, group, _cuda.stream_ptr(x2))
+    _cuda.check_launch(err, "dequant_gemv_int4")
+    LAUNCHES["int4"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# entries
+# ---------------------------------------------------------------------------
+def _int_matmul(q, w_q):
+    """s8 [M, K] x s8 [Np, K]^T -> s32 [M, Np], exact."""
+    if q.is_cuda:
+        if w_q.shape[0] % 8:
+            raise ValueError("W8A8 on the card needs the int8 weight padded "
+                             f"to a multiple of 8 rows (pad_rows8), got "
+                             f"{w_q.shape[0]}")
+        return torch._int_mm(q, w_q.t())
+    return torch.matmul(q.to(torch.int32), w_q.to(torch.int32).t())
+
+
+def _w8a8_matmul(x2, w_q, scale):
+    """Dynamic per-token W8A8 (quant.py:243): quantise the activations per
+    row, s8 x s8 -> s32, fold both scales into the f32 epilogue."""
+    N = scale.shape[0]
+    q, s = quantize_rows(x2)
+    acc = _int_matmul(q, w_q)[:, :N]
+    return (acc.float() * s * scale.float()).to(x2.dtype)
+
+
+def dequant_matmul(x, w_q, scale, *, w8a8_min_m: int = W8A8_MIN_M):
+    """x: [..., K] float; w_q: [>= N, K] int8 (rows past N are padding);
+    scale: [N] f32 -> [..., N] (quant.py:268).
+
+    M >= w8a8_min_m rows (prefill): dynamic per-token W8A8. Fewer rows
+    (decode): the weights stream once as int8 through K5 on the card, and
+    through its plain twin for a CPU tensor."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    if x2.shape[0] >= w8a8_min_m:
+        y = _w8a8_matmul(x2, w_q, scale)
+    elif x2.device.type == "cpu":
+        y = _dequant_matmul_plain(x2, w_q, scale)
+    else:
+        y = dequant_gemv_int8(x2, w_q, scale)
+    return y.reshape(*lead, scale.shape[0])
+
+
+def dequant4_matmul(x, packed, scales, group: int = 128, *,
+                    matvec_max_m: int = MATVEC4_MAX_M):
+    """x: [..., K]; packed: [N, K/2] int8 nibbles; scales: [N, K/group] f32
+    -> [..., N] (quant.py:209). M <= matvec_max_m rows (decode) stream the
+    weights at 4 bits through K5; more rows (prefill) dequantise once to
+    x's dtype and take a plain matmul."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    if x2.shape[0] > matvec_max_m:
+        y = F.linear(x2, _dequant4_weights(packed, scales, group, x.dtype))
+    elif x2.device.type == "cpu":
+        y = _dequant4_matmul_plain(x2, packed, scales, group)
+    else:
+        y = dequant_gemv_int4(x2, packed, scales, group)
+    return y.reshape(*lead, packed.shape[0])
