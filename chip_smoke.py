@@ -7,11 +7,11 @@ Run from the root of a checkout. Phases, each fatal on failure:
 
 1. device: needs CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off for matmuls and cuDNN;
-2. build: compiles the four CUDA sources of videoglamm_torch/csrc (K1
+2. build: compiles the five CUDA sources of videoglamm_torch/csrc (K1
    attention_fwd, K2 gemm_epilogue, K4 decode_attention_q8, K5
-   dequant_gemv) from the checkout with one nvcc process each, all started
-   together, and JIT-compiles K3 (the Triton row norm), printing build
-   seconds and the -Xptxas -v lines;
+   dequant_gemv, K6 flash_bwd) from the checkout with one nvcc process
+   each, all started together, and JIT-compiles K3 (the Triton row norm),
+   printing build seconds and the -Xptxas -v lines;
 3. kernels: holds every kernel against its plain PyTorch twin on the same
    inputs at the main path's shapes, with the stated tolerance, and times
    the kernel, the twin and, where one PyTorch call computes the same
@@ -20,7 +20,11 @@ Run from the root of a checkout. Phases, each fatal on failure:
    a pair spans a batch of launches sized to last at least 1 ms. K4 and K5
    rotate over operands larger than the L2 cache, as the decode loop finds
    them. Beside each time stands the bound: the larger of bytes moved over
-   3.35 TB/s and operations over the peak rate of their type;
+   3.35 TB/s and operations over the peak rate of their type. K6 (the
+   flash-attention backward) is held against its twin at the training shape
+   [2,32,3456,96] causal and non-causal and at the three small cases of
+   the JAX package's own test, dq, dk and dv each by relative L2; K1's LSE
+   output against the log-sum-exp of the twin's logits;
 4. serve: builds the flagship VideoGLaMM (seeded random weights, normal
    std 0.02, norm scales 1) on the card through `build_inference` and
    serves, with every launch counter set to 0 just before each path and
@@ -41,7 +45,23 @@ Run from the root of a checkout. Phases, each fatal on failure:
    every kernel (real image sizes and sequence lengths, a few layers)
    agrees on the card in bf16 with the same weights run on the CPU in f32
    through the plain twins, which the CPU tests hold to the JAX package:
-   float, then int8 and int4 LLMs with the int8 cache on the same codes.
+   float, then int8 and int4 LLMs with the int8 cache on the same codes;
+6. train: builds the flagship model for training through `build_training`
+   (LoRA rank 8 on q and v, remat, f32 masters of the trainable weights,
+   seeded random weights with a non-zero LoRA B) and takes four optimizer
+   steps of two micro-steps each on a synthetic batch from the seed (2
+   videos, 2 rows, 16 frames, 4 SAM frames at 1024 x 1024, 129 text tokens,
+   so the LLM sees [2,3456,3072]), with the counters set to 0 just before
+   and read just after. It fails unless every loss component is finite, the
+   last loss is below the first, every frozen parameter is bit-equal to its
+   start and a trainable one moved, K1 causal ran 2 x 32 and K6 32 times a
+   micro-step, and a checkpoint saved and restored repeats the next step's
+   loss. Prints per step the wall seconds, LLM positions/s, the forward /
+   backward / optimizer split and the peak memory;
+7. train check: a narrow model at the real sequence length (so K1 and K6
+   are taken) in bf16 on the card against the same weights in f32 on the
+   CPU through the plain twins: the loss and the gradient of every
+   trainable leaf, by relative L2.
 
 Prints one {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, without
@@ -81,11 +101,32 @@ TOL_LLM_TF_Q = 1e-1     # the same with int8 weights and the int8 cache: the
 TOL_SMALL_REF = 5e-2    # relative L2, bf16 kernels on the card vs f32 plain
                         # twins on the CPU, through a few layers each
 
+TOL_FLASH_BWD = 1e-2    # K6, relative L2 of dq, dk, dv each: kernel and twin
+                        # round p and ds to bf16 at the same place and sum
+                        # in f32 in another order; entries differ by one
+                        # bf16 ulp (2^-8) where a rounding flips
+TOL_LSE = 1e-3          # K1's LSE, max|d|: f32 sums of the same bf16
+                        # products, exp2/log2 against exp/log
+TOL_TRAIN_LOSS = 2e-2   # narrow model, bf16 card vs f32 CPU, relative
+TOL_TRAIN_GRAD = 1.5e-1  # the same, per-leaf relative L2 of the gradients:
+                        # a bf16 backward through two layers and the CE over
+                        # 32065 logits rounds every activation gradient to
+                        # 2^-8 (LoRA leaves: 3e-2); text_hidden_fcs sees
+                        # only the few [SEG] hidden states, so their bf16
+                        # rounding, and the ReLU gates that flip on it, are
+                        # not averaged over positions (9e-2 at width 128)
+TOL_TRAIN_GRAD_ALL = 5e-2   # all trainable leaves together, relative L2
+
 N_REQUESTS = 3          # on the main path (int8 + int8 KV, raw frames)
 MAX_NEW = 64
 S_TEXT = 64
 T_SAM = 8
 RAW_H, RAW_W = 480, 854
+S_TEXT_TRAIN = 129      # + 3328 visual tokens - 1 placeholder = 3456
+T_SAM_TRAIN = 4
+GT_HW = 256             # ground-truth masks at SAM image size / 4
+TRAIN_STEPS = 4
+GRAD_ACCUM = 2
 
 HBM_BYTES_S = 3.35e12   # H100 SXM: device memory rate
 PEAK_OPS = {"bf16": 989e12,    # dense tensor-core rate
@@ -194,7 +235,7 @@ class Kernels:
 
 
 CUDA_SOURCES = ("attention_fwd", "gemm_epilogue", "decode_attention_q8",
-                "dequant_gemv")
+                "dequant_gemv", "flash_bwd")
 
 
 def phase_build():
@@ -222,6 +263,147 @@ def attn_cost(B, H, Sq, Sk, D, pairs=None):
     products of 2*D operations per attended (query, key) pair."""
     pairs = Sq * Sk if pairs is None else pairs
     return 2 * B * H * D * (2 * Sq + 2 * Sk), 4 * B * H * D * pairs
+
+
+def attended_pairs(Sq, Sk, kv_lens, q_start, causal) -> int:
+    """(query, key) pairs per head that the mask lets through, from this
+    run's kv_lens and q_start."""
+    total = 0
+    for kvl, qs in zip(kv_lens, q_start):
+        kvl = min(kvl, Sk)
+        for r in range(Sq):
+            total += max(0, min(kvl, qs + r + 1)) if causal else kvl
+    return total
+
+
+def phase_flash_bwd(K: Kernels, randn):
+    """K6 against `_flash_bwd_plain` and K1's LSE against the twin's, the
+    twin run head by head (a whole [2,32,3456,3456] f32 temporary is 3 GB)."""
+    import torch
+    import torch.nn.functional as F
+    from videoglamm_torch.ops import attention as A
+
+    def by_heads(fn, tensors, n_out):
+        """Apply fn to one (batch, head) slice at a time and stack."""
+        B, H = tensors[0].shape[:2]
+        outs = [[] for _ in range(n_out)]
+        for b in range(B):
+            for h in range(H):
+                res = fn(b, *(t[b:b + 1, h:h + 1] for t in tensors))
+                for o, r in zip(outs, res):
+                    o.append(r)
+        return [torch.cat(o, dim=1).reshape(B, H, *o[0].shape[2:]) for o in outs]
+
+    def case(B, H, Sq, Sk, D, kv, qs, causal, key, time_it):
+        q, k, v = (randn(B, H, s, D) for s in (Sq, Sk, Sk))
+        # a gradient in the layout o.transpose(1, 2).reshape(...) hands back
+        g = randn(B, Sq, H, D).transpose(1, 2)
+        kvl = torch.tensor(kv, device="cuda", dtype=torch.int32)
+        qst = kvl - Sq if qs is None else torch.tensor(
+            qs, device="cuda", dtype=torch.int32)
+        scale = D ** -0.5
+        mode = "causal" if causal else "flash"
+        out = torch.empty_like(q)
+        lse = torch.empty(B, H, Sq, device="cuda", dtype=torch.float32)
+
+        def fwd():
+            A.attention_fwd_kernel(q, k, v, out, causal=causal, sm_scale=scale,
+                                   mode=mode, kv_lens=kvl, q_start=qst, lse=lse)
+            return lse
+
+        def bwd():
+            return A.flash_bwd_kernel(q, k, v, out, lse, g, causal=causal,
+                                      sm_scale=scale, kv_lens=kvl, q_start=qst)
+
+        def plain_fwd():
+            return by_heads(lambda b, q_, k_, v_: A._flash_fwd_plain(
+                q_, k_, v_, kvl[b:b + 1], qst[b:b + 1], causal, scale),
+                (q, k, v), 2)
+
+        def plain_bwd():
+            return by_heads(lambda b, q_, k_, v_, o_, l_, g_: A._flash_bwd_plain(
+                q_, k_, v_, o_, l_[:, :, :, 0], g_, kvl[b:b + 1], qst[b:b + 1],
+                causal, scale), (q, k, v, out, lse[..., None], g), 3)
+
+        label = (f"[{B},{H},{Sq},{D}] over Sk={Sk} "
+                 f"{'causal' if causal else 'full'} kv_lens={tuple(kv)} "
+                 f"q_start={'kv_len-Sq' if qs is None else tuple(qs)}")
+        fwd()
+        ref_out, ref_lse = plain_fwd()
+        torch.cuda.synchronize()
+        live = ref_lse > -1e29
+        lse_err = (lse[live] - ref_lse[live]).abs().max().item()
+        dead_ok = bool((lse[~live] == A.NEG_INF).all())
+        out_rel = rel_err(out, ref_out)[1]
+        log(f"  K1 LSE {label}: max|d|={lse_err:.3e} (tol {TOL_LSE:g}), rows "
+            f"with no key {int((~live).sum())} {'= -1e30' if dead_ok else 'WRONG'}, "
+            f"out rel={out_rel:.3e}")
+        if not (lse_err <= TOL_LSE and dead_ok and out_rel <= TOL_BF16_ATTN):
+            raise AssertionError(f"K1 LSE {label}: disagrees with the plain twin")
+        got = bwd()
+        want = plain_bwd()
+        torch.cuda.synchronize()
+        errs, rels = [], []
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"K6 {label}: non-finite {name}")
+            errs.append((a.float() - b.float()).abs().max().item())
+            rels.append(((a.float() - b.float()).norm()
+                         / b.float().norm()).item())
+        pairs = attended_pairs(Sq, Sk, kv, qst.tolist(), causal)
+        # five products of 2*D operations per attended pair; q, k, v, out,
+        # dO read and dq, dk, dv written once in bf16, lse read and delta
+        # written once in f32
+        ops = 5 * 2 * D * pairs * H
+        nb = 2 * B * H * D * (5 * Sq + 3 * Sk) + 2 * 4 * B * H * Sq
+        t_bytes, t_ops = nb / HBM_BYTES_S * 1e3, ops / PEAK_OPS["bf16"] * 1e3
+        bound_ms, bound_by = max(t_bytes, t_ops), \
+            "bytes" if t_bytes >= t_ops else "operations"
+        ok = max(rels) <= TOL_FLASH_BWD
+        line = (f"  K6 {label}: rel L2 dq={rels[0]:.3e} dk={rels[1]:.3e} "
+                f"dv={rels[2]:.3e} (tol {TOL_FLASH_BWD:g}) "
+                f"max_abs_err={max(errs):.3e}")
+        if time_it:
+            ms = time_ms(bwd)
+            fwd_ms = time_ms(fwd)
+            plain_ms = time_ms(plain_bwd, reps=3, warmup=1)
+            ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+
+            def lib_fwd():
+                with torch.no_grad():
+                    return F.scaled_dot_product_attention(ql, kl, vl,
+                                                          is_causal=causal)
+
+            def lib_fwd_bwd():
+                o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+                return torch.autograd.grad(o, (ql, kl, vl), g)
+
+            lib_f = time_ms(lib_fwd)
+            lib_fb = time_ms(lib_fwd_bwd)
+            library_ms = lib_fb - lib_f
+            line += (f" kernel={ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s of the "
+                     f"five products) plain={plain_ms:.4f} ms library="
+                     f"{library_ms:.4f} ms (forward+backward {lib_fb:.4f} - "
+                     f"forward {lib_f:.4f}) bound={bound_ms:.4f} ms ({bound_by}); "
+                     f"K1 forward with LSE at this shape {fwd_ms:.4f} ms "
+                     f"({4 * D * pairs * H / fwd_ms / 1e9:.1f} TFLOP/s)")
+            if key is not None:
+                K.rows[key] = dict(max_abs_err=max(errs), ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, library_ms=library_ms)
+        log(line + (" ok" if ok else " MISS"))
+        if not ok:
+            raise AssertionError(f"K6 {label}: disagrees with its plain twin")
+
+    case(2, 32, 3456, 3456, 96, (3456, 3300), (0, 0), True, "flash_bwd", True)
+    case(2, 32, 3456, 3456, 96, (3456, 3300), (0, 0), False, None, True)
+    # the three cases of the JAX package's backward test (tests/test_ops.py:489)
+    case(2, 2, 200, 320, 64, (320, 260), (0, 0), True, None, False)
+    case(2, 2, 200, 320, 64, (320, 260), None, True, None, False)
+    case(2, 2, 200, 320, 64, (320, 260), None, False, None, False)
+    # rows with no valid key (q_start < 0) and a zero-padded head dim
+    case(1, 2, 96, 200, 80, (200,), (-40,), True, None, False)
 
 
 def phase_kernels(K: Kernels):
@@ -264,6 +446,7 @@ def phase_kernels(K: Kernels):
               nbytes=nb, ops=ops,
               library_fn=lambda: F.scaled_dot_product_attention(gq, gk, gv))
     del q, k, v, qkv, gq, gk, gv
+    phase_flash_bwd(K, randn)
     # K1 BSHD: CLIP [16,577,16,64]; InternVideo2 fused qkv [4,1025,3,16,88]
     cq, ck, cv = (randn(16, 577, 16, 64) for _ in range(3))
     nb, ops = attn_cost(16, 16, 577, 577, 64)
@@ -583,6 +766,7 @@ def read_counts() -> dict:
         "decode_attention_q8": attention["decode_q8"],
         "dequant_gemv[int8]": quant["int8"],
         "dequant_gemv[int4]": quant["int4"],
+        "flash_bwd": attention["flash_bwd"],
     }
 
 
@@ -591,7 +775,15 @@ def read_counts() -> dict:
 # 42 fused Hiera window blocks of 4 K2 GEMMs each
 EXPECTED_TOWERS = {"attention_fwd[causal]": 32, "attention_fwd[flash]": 3,
                    "attention_fwd[bshd]": 62, "attention_fwd[window]": 42,
-                   "fused_window_block": 42, "gemm_epilogue": 168}
+                   "fused_window_block": 42, "gemm_epilogue": 168,
+                   "flash_bwd": 0}
+# one training micro-step: the towers once, without a gradient; with remat
+# every LLM layer runs K1 causal twice (forward and recompute) and K6 once;
+# no decode kernels
+EXPECTED_PER_MICRO_STEP = dict(
+    EXPECTED_TOWERS, **{"attention_fwd[causal]": 2 * 32, "flash_bwd": 32,
+                        "decode_attention_q8": 0, "dequant_gemv[int8]": 0,
+                        "dequant_gemv[int4]": 0})
 # int8 cache: one K4 launch per layer and decode step. Quantised weights:
 # four K5 launches per layer and one for the lm_head per decode step, plus
 # the lm_head on the last prompt position after the prefill. The prefill's
@@ -865,6 +1057,273 @@ def phase_small_reference():
             del dev_q, ref_q
 
 
+def make_train_batch(cfg, seed: int, device="cuda", dtype=None, rows=2,
+                     videos=2, text_lens=(S_TEXT_TRAIN, 73)):
+    """One synthetic micro-batch in the shapes the data layer's collate
+    gives: `videos` clips of 16 frames (4 of them for SAM), `rows`
+    conversations of S_TEXT_TRAIN ids with one image placeholder and one or
+    two [SEG] tokens, labels that ignore the prompt, and binary masks at
+    GT_HW with all-ignore padding for the unused [SEG] slots."""
+    import torch
+    from videoglamm_torch.constants import (IGNORE_INDEX, IMAGE_TOKEN_INDEX,
+                                            MASK_IGNORE_INDEX)
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+    T = cfg.num_frames
+    S = S_TEXT_TRAIN
+    ims, cls_, sam_s = (cfg.internvideo.image_size, cfg.clip.image_size,
+                        cfg.sam2.image_size)
+    frames = torch.randn(videos, T, ims, ims, 3, generator=g)
+    context = torch.randn(videos, T, cls_, cls_, 3, generator=g)
+    frames_sam = torch.randn(videos, T_SAM_TRAIN, sam_s, sam_s, 3, generator=g)
+    ids = torch.randint(1, 32000, (rows, S), generator=g)
+    ids[:, 2] = IMAGE_TOKEN_INDEX
+    gt = torch.full((rows, cfg.max_seg_tokens, T_SAM_TRAIN, GT_HW, GT_HW),
+                    float(MASK_IGNORE_INDEX))
+    for r in range(rows):
+        n_seg = 1 + r % 2
+        for j in range(n_seg):
+            ids[r, 20 + 9 * j] = cfg.seg_token_idx
+        gt[r, :n_seg] = (torch.rand(n_seg, T_SAM_TRAIN, GT_HW, GT_HW,
+                                    generator=g) > 0.5).float()
+    labels = ids.clone()
+    labels[labels < 0] = IGNORE_INDEX
+    labels[:, :10] = IGNORE_INDEX                   # the prompt
+    lens = torch.tensor(text_lens[:rows])
+    batch = dict(frames=frames.to(dtype), context_images=context.to(dtype),
+                 frames_sam=frames_sam.to(dtype), input_ids=ids, text_lens=lens,
+                 labels=labels, video_idx=torch.arange(rows) % videos,
+                 gt_masks=gt)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def phase_train(cfg, seed: int):
+    """Four optimizer steps at flagship width through `build_training` and
+    its train step; returns the launch counts of the four steps."""
+    import tempfile
+    import torch
+    from videoglamm_torch.config import TrainConfig
+    from videoglamm_torch.io.checkpoint import CheckpointManager
+    from videoglamm_torch.training import build_training
+
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                       grad_accum_steps=GRAD_ACCUM)
+    t0 = time.perf_counter()
+    tr = build_training(
+        cfg, tcfg, device="cuda", dtype=torch.bfloat16,
+        init=lambda m: seeded_init(
+            m, torch.Generator(device="cuda").manual_seed(0)))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    params = tr.state.params
+    trainable = set(tr.tx.trainable)
+    n_train = sum(params[n].numel() for n in trainable)
+    n_all = sum(p.numel() for p in params.values())
+    lora_b = [p for n, p in params.items() if "lora_b" in n]
+    if not lora_b or not all(float(p.detach().abs().max()) > 0 for p in lora_b):
+        raise AssertionError("train: LoRA B is zero (A would get no gradient)")
+    log(f"  flagship VideoGLaMM for training: {n_all / 1e9:.3f} B parameters, "
+        f"{n_train / 1e9:.3f} B trainable in {len(trainable)} leaves (f32 "
+        f"masters), LoRA rank {tcfg.lora.r}, remat, bf16 compute, built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    micro = [make_train_batch(cfg, seed + i) for i in range(GRAD_ACCUM)]
+    batch = {k: torch.stack([m[k] for m in micro]) for k in micro[0]}
+    positions = GRAD_ACCUM * batch["input_ids"].shape[1] * (
+        S_TEXT_TRAIN - 1 + 16 * (144 + 64))
+    t0 = time.perf_counter()
+    frozen0 = {n: p.detach().cpu() for n, p in params.items()
+               if n not in trainable}
+    moved0 = {n: params[n].detach().clone() for n in
+              ("llm.lm_head.weight", "llm.model.layers.0.self_attn.q_lora_a.weight",
+               "text_hidden_fcs.0.0.weight",
+               "visual_model.sam_mask_decoder.mask_tokens.weight")}
+    log(f"  copy of the {len(frozen0)} frozen leaves on the host: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    state = tr.state
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for i in range(TRAIN_STEPS):
+        timings = {}
+        t0 = time.perf_counter()
+        state, metrics = tr.train_step(state, batch, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m["loss"])
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train step {i}: non-finite loss {m}")
+        log(f"  train step {i}: wall {wall:.3f} s, {positions / wall:.1f} LLM "
+            f"positions/s ({positions} positions in {GRAD_ACCUM} micro-steps), "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+            + ", " + ", ".join(f"{k} {v:.4f}" for k, v in m.items()))
+    counts = read_counts()
+    log(f"  train: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB at micro-batch "
+        f"{batch['input_ids'].shape[1]} rows x {S_TEXT_TRAIN - 1 + 16 * 208} positions")
+    log(f"  train: launches over {TRAIN_STEPS} optimizer steps: "
+        + json.dumps(counts))
+    n_micro = TRAIN_STEPS * GRAD_ACCUM
+    for name, n in counts.items():
+        per = EXPECTED_PER_MICRO_STEP.get(name)
+        if per is None:
+            if n == 0:
+                raise AssertionError(f"{name} was never launched on the "
+                                     "training path")
+        elif n != per * n_micro:
+            raise AssertionError(f"{name}: {n} launches on the training path, "
+                                 f"expected {per} per micro-step x {n_micro}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    if state.step != TRAIN_STEPS or state.opt_state["count"] != TRAIN_STEPS:
+        raise AssertionError(f"train: step counter {state.step}")
+    t0 = time.perf_counter()
+    changed = [n for n, ref in frozen0.items()
+               if not torch.equal(params[n].detach().cpu(), ref)]
+    if changed:
+        raise AssertionError(f"train: frozen parameters changed: {changed[:4]}")
+    del frozen0
+    still = [n for n, ref in moved0.items() if torch.equal(params[n], ref)]
+    if still:
+        raise AssertionError(f"train: trainable parameters did not move: {still}")
+    log(f"  train: losses {', '.join(f'{x:.4f}' for x in losses)}: last below "
+        f"first; all frozen leaves bit-equal to their start, the sampled "
+        f"trainable leaves moved ({time.perf_counter() - t0:.1f} s)")
+
+    # checkpoint: save, step, restore, step again -> the same loss
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = CheckpointManager(d, max_to_keep=1)
+        t0 = time.perf_counter()
+        ckpt.save(state.step, state, metadata={"epoch": 0})
+        t_save = time.perf_counter() - t0
+        state5, m5 = tr.train_step(state, batch)
+        loss5 = float(m5["loss"])
+        t0 = time.perf_counter()
+        back = ckpt.restore(state5)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        if back.step != TRAIN_STEPS or ckpt.restore_metadata() != {"epoch": 0}:
+            raise AssertionError("train: the checkpoint's step or metadata")
+        loss5b = profile_train_step(tr, back, batch)
+    log(f"  train: checkpoint of the whole state saved in {t_save:.1f} s, "
+        f"restored in {t_load:.1f} s; next-step loss {loss5:.6f} before, "
+        f"{loss5b:.6f} after the restore")
+    if not abs(loss5 - loss5b) <= 1e-6 * abs(loss5):
+        raise AssertionError("train: the restored state does not repeat the "
+                             "next step's loss")
+    return counts
+
+
+def profile_train_step(tr, state, batch) -> float:
+    """One optimizer step under torch.profiler: wall, device-busy share, the
+    device launches and the kernels that take most device time. Returns the
+    step's loss."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = tr.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if _device_us(e) > 0 and "cuda" in str(e.device_type).lower()]
+    if not rows:
+        log(f"  train step under the profiler: {wall_ms:.1f} ms; device time "
+            "not measured (the profiler saw none)")
+        return float(metrics["loss"])
+    busy_ms = sum(_device_us(e) for e in rows) / 1e3
+    top = sorted(rows, key=_device_us, reverse=True)[:8]
+    log(f"  train step under the profiler: {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.2f}), "
+        f"{sum(e.count for e in rows)} device launches; top: "
+        + "; ".join(f"{e.key[:56]} {_device_us(e) / 1e3:.1f} ms x{e.count}"
+                    for e in top))
+    return float(metrics["loss"])
+
+
+def phase_small_train_reference(seed: int):
+    """A narrow model at the real sequence length: one micro-step in bf16 on
+    the card (K1 with LSE, K6, K3) against the same weights in f32 on the
+    CPU through the plain twins; loss and every trainable leaf's gradient."""
+    import torch
+    from videoglamm_torch.config import LoRAConfig, TrainConfig
+    from videoglamm_torch.training import build_training
+
+    cfg = small_config()
+    tcfg = TrainConfig(warmup_steps=0, grad_accum_steps=1, lora=LoRAConfig(r=4))
+    ref = build_training(cfg, tcfg, device="cpu", dtype=torch.float32,
+                         init=lambda m: seeded_init(
+                             m, torch.Generator().manual_seed(5)))
+    dev = build_training(cfg, tcfg, ref.model.state_dict(), device="cuda",
+                         dtype=torch.bfloat16)
+    batch = make_train_batch(cfg, seed, device="cpu", dtype=torch.float32,
+                             rows=1, videos=1)
+    out_ref = ref.model(**batch)
+    out_ref.loss.backward()
+    reset_counts()
+    out = dev.model(**{k: (v.bfloat16() if v.is_floating_point()
+                           and k != "gt_masks" else v).cuda()
+                       for k, v in batch.items()})
+    out.loss.backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    L = cfg.llm.num_layers
+    if counts["attention_fwd[causal]"] != 2 * L or counts["flash_bwd"] != L:
+        raise AssertionError(f"small model (training): K1/K6 launches {counts}")
+    for k in ("loss", "ce_loss", "mask_bce_loss", "mask_dice_loss"):
+        a = float(getattr(out, k).detach())
+        w = float(getattr(out_ref, k).detach())
+        rel = abs(a - w) / max(abs(w), 1e-12)
+        log(f"  small model (training), {k}: card bf16 {a:.5f} vs CPU f32 "
+            f"{w:.5f} rel {rel:.3e} (tol {TOL_TRAIN_LOSS:g})")
+        if not rel <= TOL_TRAIN_LOSS:
+            raise AssertionError(f"small model (training) {k}: the card "
+                                 "disagrees with the CPU reference")
+    got = dict(dev.model.named_parameters())
+
+    def group_of(n):
+        return ("lora" if "lora_" in n else "lm_head" if "lm_head" in n else
+                "embed_tokens" if "embed_tokens" in n else
+                "text_hidden_fcs" if "text_hidden_fcs" in n else "mask_decoder")
+
+    groups = {}     # group -> [sum |d|^2, sum |w|^2, [(|d|^2, |w|^2, name)]]
+    for n in ref.tx.trainable:
+        w = ref.state.params[n].grad
+        if w is None:         # the mask decoder's unused IoU / score heads
+            if got[n].grad is not None:
+                raise AssertionError(f"small model (training): {n} has a "
+                                     "gradient on the card only")
+            continue
+        a = got[n].grad.float().cpu()
+        d2, w2 = float((a - w).norm()) ** 2, float(w.norm()) ** 2
+        g = groups.setdefault(group_of(n), [0.0, 0.0, []])
+        g[0], g[1] = g[0] + d2, g[1] + w2
+        g[2].append((d2, w2, n))
+    leaves = []
+    for grp, (gd, gw, members) in sorted(groups.items()):
+        log(f"  small model (training), gradients of {grp} ({len(members)} "
+            f"leaves): card bf16 vs CPU f32 rel L2 {(gd / gw) ** 0.5:.3e}")
+        # a leaf whose true gradient is zero (a softmax's key bias) holds
+        # rounding on both sides; it counts in its group's total only
+        leaves += [((d2 / w2) ** 0.5, n) for d2, w2, n in members
+                   if w2 ** 0.5 > 1e-4 * gw ** 0.5]
+    rel_all = (sum(g[0] for g in groups.values())
+               / sum(g[1] for g in groups.values())) ** 0.5
+    leaves.sort(reverse=True)
+    worst = leaves[0]
+    log(f"  small model (training), all trainable gradients: rel L2 "
+        f"{rel_all:.3e} (tol {TOL_TRAIN_GRAD_ALL:g}); of {len(leaves)} leaves "
+        f"with a gradient the worst (tol {TOL_TRAIN_GRAD:g}): "
+        + ", ".join(f"{n} {r:.3e}" for r, n in leaves[:3]))
+    if not (rel_all <= TOL_TRAIN_GRAD_ALL and worst[0] <= TOL_TRAIN_GRAD):
+        raise AssertionError("small model (training): gradients on the card "
+                             "disagree with the CPU reference")
+
+
 SOURCES = {
     "attention_fwd": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
     "gemm_epilogue": ("cuda", "videoglamm_torch/csrc/gemm_epilogue.cu"),
@@ -872,6 +1331,7 @@ SOURCES = {
     "fused_window_block": ("cuda", "videoglamm_torch/ops/fused_block.py"),
     "decode_attention_q8": ("cuda", "videoglamm_torch/csrc/decode_attention_q8.cu"),
     "dequant_gemv": ("cuda", "videoglamm_torch/csrc/dequant_gemv.cu"),
+    "flash_bwd": ("cuda", "videoglamm_torch/csrc/flash_bwd.cu"),
 }
 REPLACES = {
     "attention_fwd[causal]": "videoglamm_tpu/ops/attention.py:93",
@@ -885,10 +1345,16 @@ REPLACES = {
     "decode_attention_q8": "videoglamm_tpu/ops/attention.py:1061",
     "dequant_gemv[int8]": "videoglamm_tpu/ops/quant.py:36",
     "dequant_gemv[int4]": "videoglamm_tpu/ops/quant.py:132",
+    "flash_bwd": "videoglamm_tpu/ops/attention.py:302",
 }
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the synthetic training batch")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError as e:
@@ -965,19 +1431,32 @@ def main() -> int:
 
         log("[check] narrow model on the card against the CPU twins")
         phase_small_reference()
+
+        log(f"[train] flagship, {TRAIN_STEPS} optimizer steps of {GRAD_ACCUM} "
+            "micro-steps, LoRA + lm_head + embed_tokens + text_hidden_fcs + "
+            "mask decoder")
+        train_counts = phase_train(cfg, args.seed)
+        torch.cuda.empty_cache()
+        log("[check] narrow model, one training micro-step on the card "
+            "against the CPU twins")
+        phase_small_train_reference(args.seed)
     except Exception:
         traceback.print_exc()
         log("FAIL")
         return 1
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    # launches: the main path's run (int8 + int8 KV from raw frames, 3
-    # requests); the int4 entry's from the int4 path's run (2 requests)
+    # launches: the serving main path's run (int8 + int8 KV from raw frames,
+    # 3 requests); the int4 entry's from the int4 path's run (2 requests);
+    # K6's from the training path's run, whose counts stand beside every
+    # kernel as launches_train (4 optimizer steps of 2 micro-steps)
+    counts["flash_bwd"] = train_counts["flash_bwd"]
     kernels = []
     for key, row in K.rows.items():
         route, source = SOURCES[key.split("[")[0]]
         kernels.append(dict(name=key, route=route, source=source,
-                            replaces=REPLACES[key], launches=counts[key], **row))
+                            replaces=REPLACES[key], launches=counts[key],
+                            launches_train=train_counts[key], **row))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -270,3 +270,102 @@ def test_k5_routing_and_refusals(dev):
         quant.dequant_matmul(x[:2].float(), wq, s)
     with pytest.raises(ValueError):
         quant.dequant4_matmul(x[:2].float(), p4, s4, 128)
+
+
+def _rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm()
+            / ref.float().norm().clamp_min(1e-12)).item()
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,kv,qs,causal", [
+    (2, 2, 200, 320, 64, (320, 260), (0, 0), True),     # prefill q_start
+    (2, 2, 200, 320, 64, (320, 260), None, True),       # decode convention
+    (2, 2, 200, 320, 64, (320, 260), None, False),
+    (2, 4, 300, 300, 96, (300, 211), (0, 0), True),     # Phi-3 head dim
+    (1, 2, 130, 130, 80, (100,), (0,), True),           # zero-padded head dim
+    (1, 2, 96, 200, 128, (200,), (-40,), True),         # rows with no valid key
+])
+def test_k6_flash_backward_matches_plain(dev, B, H, Sq, Sk, D, kv, qs, causal):
+    """K1's LSE output and K6's dq, dk, dv against the plain twins on the same
+    bf16 inputs. Tolerance: relative L2 1e-2; kernel and twin round p and ds
+    to bf16 at the same place and sum in f32 in another order, so single
+    entries differ by one bf16 ulp (2^-8) and the L2 norm by far less."""
+    rng = np.random.default_rng(10)
+    q, k, v = (_randn(rng, (B, H, s, D), dev).requires_grad_(True)
+               for s in (Sq, Sk, Sk))
+    g = _randn(rng, (B, Sq, H, D), dev).transpose(1, 2)   # a strided gradient
+    kv_lens = torch.tensor(kv, dtype=torch.int32, device=dev)
+    q_start = kv_lens - Sq if qs is None else \
+        torch.tensor(qs, dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    attn.LAUNCHES.clear()
+    out = attn.flash_attention(q, k, v, causal=causal, kv_lens=kv_lens,
+                               q_start=None if qs is None else q_start)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES["flash_bwd"] == 1
+    assert attn.LAUNCHES["causal" if causal else "flash"] == 1
+    with torch.no_grad():
+        ref_out, ref_lse = attn._flash_fwd_plain(q, k, v, kv_lens, q_start,
+                                                 causal, scale)
+        lse = torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
+        out2 = torch.empty_like(out)
+        attn.attention_fwd_kernel(q, k, v, out2, causal=causal, sm_scale=scale,
+                                  mode="causal" if causal else "flash",
+                                  kv_lens=kv_lens, q_start=q_start, lse=lse)
+        assert torch.equal(out2, out.detach())
+        _close(out, ref_out, 2e-2, "out")
+        live = ref_lse > -1e29
+        assert torch.equal(lse > -1e29, live)
+        assert (lse[~live] == -1e30).all()
+        assert (lse[live] - ref_lse[live]).abs().max().item() <= 2e-2
+        want = attn._flash_bwd_plain(q, k, v, out, lse, g, kv_lens, q_start,
+                                     causal, scale)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.isfinite(got).all(), name
+        rel = _rel_l2(got, ref)
+        assert rel <= 1e-2, f"{name}: rel L2 {rel:.3e}"
+    if not live.all():
+        assert (dq.transpose(1, 2)[(~live).transpose(1, 2)] == 0).all()
+
+
+def test_bshd_backward_recomputes_through_the_plain_twin(dev):
+    """K1 in BSHD mode under a gradient: the forward is the kernel, the
+    backward autograd through the twin on the saved inputs."""
+    rng = np.random.default_rng(11)
+    q, k, v = (_randn(rng, (2, 577, 4, 64), dev).requires_grad_(True)
+               for _ in range(3))
+    g = _randn(rng, (2, 577, 4, 64), dev)
+    attn.LAUNCHES.clear()
+    out = attn.attention_bshd(q, k, v)
+    assert attn.LAUNCHES["bshd"] == 1
+    got = torch.autograd.grad(out, (q, k, v), g)
+    ref = attn._attention_plain_bshd(q, k, v, 64 ** -0.5)
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    torch.cuda.synchronize()
+    _close(out, ref, 2e-2, "bshd forward")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)      # the same plain backward on both sides
+
+
+@pytest.mark.parametrize("rms,bias", [(True, False), (False, True)])
+def test_k3_backward_recomputes_through_the_plain_twin(dev, rms, bias):
+    rng = np.random.default_rng(12)
+    x = _randn(rng, (600, 3072), dev).requires_grad_(True)
+    w = _randn(rng, (3072,), dev, 0.1, torch.float32).add_(1).requires_grad_(True)
+    b = _randn(rng, (3072,), dev, 0.1, torch.float32).requires_grad_(True) \
+        if bias else None
+    g = _randn(rng, (600, 3072), dev)
+    norms.LAUNCHES.clear()
+    y = norms.rms_norm(x, w, 1e-5) if rms else norms.layer_norm(x, w, b, 1e-5)
+    assert norms.LAUNCHES["rms" if rms else "ln"] == 1
+    ins = [x, w] + ([b] if bias else [])
+    got = torch.autograd.grad(y, ins, g)
+    ref = norms._rms_norm_plain(x, w, 1e-5) if rms else \
+        norms._layer_norm_plain(x, w, b, 1e-5)
+    want = torch.autograd.grad(ref, ins, g)
+    torch.cuda.synchronize()
+    _close(y, ref, 1e-2, "forward")
+    for a, r in zip(got, want):
+        assert a.dtype == r.dtype
+        _close(a, r, 1e-5, "gradient")   # the same f32 twin, atomics aside

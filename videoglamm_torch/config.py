@@ -183,6 +183,9 @@ class VideoGLaMMConfig:
     num_frames: int = 16
     chunk_size: int = 4
     max_seg_tokens: int = 4
+    ce_loss_weight: float = 1.0      # loss = ce*1.0 + bce*2.0 + dice*0.5
+    bce_loss_weight: float = 2.0
+    dice_loss_weight: float = 0.5
     video_pool: Tuple[int, int] = (8, 8)      # 256 -> 64 tokens per frame
     context_pool: Tuple[int, int] = (12, 12)  # 576 -> 144 tokens per frame
 
@@ -204,3 +207,30 @@ class VideoGLaMMConfig:
             video_pool=(2, 2),
             context_pool=(2, 2),
         )
+
+
+@dataclass(frozen=True)
+class LoRAConfig:
+    """LoRA on the LLM's q and v projections."""
+    r: int = 8
+    alpha: int = 16
+    dropout: float = 0.05
+    target_modules: Tuple[str, ...] = ("q_proj", "v_proj")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters."""
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    weight_decay: float = 0.0
+    warmup_steps: int = 100
+    total_steps: int = 5000
+    grad_clip: float = 1.0
+    micro_batch_size: int = 2
+    grad_accum_steps: int = 10
+    steps_per_epoch: int = 500
+    epochs: int = 10
+    lora: LoRAConfig = field(default_factory=LoRAConfig)
+    precision: str = "bf16"

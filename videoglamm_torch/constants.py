@@ -1,7 +1,9 @@
 """Token and preprocessing constants (the values of
 videoglamm_tpu/constants.py that the port reads)."""
 
+IGNORE_INDEX = -100          # label positions excluded from the CE loss
 IMAGE_TOKEN_INDEX = -200     # placeholder id marking where visual tokens splice in
+MASK_IGNORE_INDEX = -1       # padded mask pixels excluded from the dice/BCE loss
 
 # --- canonical image sizes ---
 INTERNVIDEO_IMAGE_SIZE = 224

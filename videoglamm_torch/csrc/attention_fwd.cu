@@ -26,6 +26,9 @@
 // or the window are skipped, as attention.py:113-117 skips blocks. The
 // head dim is zero-padded in shared memory up to the mma K step (16).
 // Rows with no valid key write 0, as the TPU kernel does (:170-174).
+// With an `lse` pointer it also writes each row's log-sum-exp of the scaled
+// logits (:176-180), which training saves for the backward; serving passes
+// none.
 // Later work: cp.async/TMA double buffering and wgmma (see ROADMAP.md).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -49,6 +52,8 @@ struct Params {
   long long o_sb, o_sh, o_ss;
   const int* kv_lens;   // [B] or null (= Sk)
   const int* q_start;   // [B] absolute key position of query 0, or null (= 0)
+  float* lse;           // [B,H,Sq] f32 row log-sum-exp of the scaled logits, or
+                        // null: what the backward (flash_bwd.cu) recomputes from
   int B, H, Sq, Sk, D;
   int causal, win;
   float scale_log2;     // sm_scale * log2(e): the softmax runs on exp2
@@ -242,6 +247,15 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(const Params p) {
     l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
     inv[r] = l_i[r] > 0.f ? 1.f / l_i[r] : 0.f;
   }
+  if (p.lse != nullptr && t == 0) {
+    // m_i is in log2 units; a row with no valid key gets -1e30, as the TPU
+    // kernel writes it (attention.py:178)
+    float* lb = p.lse + ((long long)b * p.H + h) * p.Sq;
+    if (r0 < p.Sq)
+      lb[r0] = l_i[0] > 0.f ? m_i[0] * 0.6931471805599453f + logf(l_i[0]) : -1e30f;
+    if (r1 < p.Sq)
+      lb[r1] = l_i[1] > 0.f ? m_i[1] * 0.6931471805599453f + logf(l_i[1]) : -1e30f;
+  }
 #pragma unroll
   for (int dn = 0; dn < DT; ++dn) {
     const int col = dn * 8 + 2 * t;
@@ -277,7 +291,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // Plain C entry (bound with ctypes). Returns a cudaError_t code, 0 = ok.
 // Strides are in elements; the head dim must be contiguous, D % 8 == 0,
 // D <= 128, every stride a multiple of 8 and every pointer 16-byte aligned
-// (checked by the Python wrapper).
+// (checked by the Python wrapper). `lse` is null or a contiguous f32
+// [B,H,Sq].
 extern "C" int vgt_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_sh, long long q_ss,
@@ -286,7 +301,7 @@ extern "C" int vgt_attention_fwd(
     long long o_sb, long long o_sh, long long o_ss,
     const void* kv_lens, const void* q_start,
     int B, int H, int Sq, int Sk, int D, int causal, int win,
-    float sm_scale, void* stream) {
+    float sm_scale, void* lse, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -299,6 +314,7 @@ extern "C" int vgt_attention_fwd(
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.kv_lens = static_cast<const int*>(kv_lens);
   p.q_start = static_cast<const int*>(q_start);
+  p.lse = static_cast<float*>(lse);
   p.B = B; p.H = H; p.Sq = Sq; p.Sk = Sk; p.D = D;
   p.causal = causal; p.win = win;
   p.scale_log2 = sm_scale * 1.4426950408889634f;

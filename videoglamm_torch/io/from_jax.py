@@ -132,7 +132,8 @@ def internvideo2_state_dict(p) -> Dict[str, torch.Tensor]:
 
 def phi3_state_dict(p) -> Dict[str, torch.Tensor]:
     """Phi3ForCausalLM params (scanned `model/layers`) -> HF-named
-    state_dict of the port's Phi3ForCausalLM, float or quantised."""
+    state_dict of the port's Phi3ForCausalLM, float or quantised, with the
+    LoRA leaves where the tree has them."""
     lay = p["model"]["layers"]
     sd = {"model.embed_tokens.weight": _t(p["embed_tokens"]["embedding"]),
           "model.norm.weight": _t(p["model"]["norm"]["scale"])}
@@ -147,6 +148,11 @@ def phi3_state_dict(p) -> Dict[str, torch.Tensor]:
         sd.update(_qlinear(lay["o_proj"], f"{pre}.self_attn.o_proj", i))
         sd.update(_qlinear(lay["gate_up_proj"], f"{pre}.mlp.gate_up_proj", i))
         sd.update(_qlinear(lay["down_proj"], f"{pre}.mlp.down_proj", i))
+        # LoRA leaves of a tree made with lora_rank > 0, stacked on the scan
+        # axis like the rest: [L, in, r] -> per-layer [r, in]
+        for nm in ("q_lora_a", "q_lora_b", "v_lora_a", "v_lora_b"):
+            if nm in lay:
+                sd.update(_linear(lay[nm], f"{pre}.self_attn.{nm}", i))
     return sd
 
 

@@ -102,14 +102,27 @@ class QDense4(nn.Module):
                                      matvec_max_m=self.matvec_max_m)
 
 
-def cast_compute(module: nn.Module, dtype) -> nn.Module:
+def cast_compute(module: nn.Module, dtype, keep=None) -> nn.Module:
     """Store the weights of every linear, conv and embedding in `dtype`.
     Norm scales and parameters that the model reads in f32 are left as
-    they are."""
-    for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.Embedding)):
+    they are. keep: a compiled regex; submodules whose name (relative to
+    `module`) it matches stay as they are (f32 masters of trainable
+    weights, cast at use by `linear_cast`)."""
+    for name, m in module.named_modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.Embedding)) \
+                and not (keep is not None and keep.search(name)):
             m.to(dtype)
     return module
+
+
+def linear_cast(x, lin: nn.Linear):
+    """`lin(x)` with the weight cast to x's dtype at use, as flax `Dense`
+    does with `param_dtype=float32` (common.py:144-152): a trainable weight
+    keeps its f32 master, the product runs in the compute dtype, and the
+    gradient arrives in f32. A weight already stored in x's dtype is used
+    as it is."""
+    bias = lin.bias.to(x.dtype) if lin.bias is not None else None
+    return F.linear(x, lin.weight.to(x.dtype), bias)
 
 
 def gelu_exact(x):

@@ -1,21 +1,24 @@
 """Static-shape splice of the visual prefix into the token stream (PyTorch
 port of videoglamm_tpu/models/multimodal.py): [text[:p], visual,
-text[p+1:]] for the single IMAGE_TOKEN_INDEX placeholder at p. The
-training outputs of the JAX splice (labels, token ids) come with
-training."""
+text[p+1:]] for the single IMAGE_TOKEN_INDEX placeholder at p, the same
+for the labels (IGNORE_INDEX over the visual run and past each row's valid
+length) and the token ids."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
 
-from ..constants import IMAGE_TOKEN_INDEX
+from ..constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 
 
 class SplicedBatch(NamedTuple):
     embeds: torch.Tensor       # [B, S_out, D]
     attn_lens: torch.Tensor    # [B] valid lengths
     positions: torch.Tensor    # [B, S_out]
+    labels: torch.Tensor       # [B, S_out] (IGNORE_INDEX over visual run/pad)
+    is_visual: torch.Tensor    # [B, S_out] bool
+    token_ids: torch.Tensor    # [B, S_out] (visual run = IMAGE_TOKEN_INDEX)
 
 
 def find_image_token_pos(input_ids):
@@ -23,9 +26,11 @@ def find_image_token_pos(input_ids):
     return hit.int().argmax(dim=1), hit.any(dim=1)
 
 
-def splice_visual_prefix(text_embeds, input_ids, visual, text_lens):
+def splice_visual_prefix(text_embeds, input_ids, visual, text_lens,
+                         labels=None):
     """text_embeds [B, S_text, D]; input_ids [B, S_text] with one
-    placeholder per row; visual [B, V, D]; text_lens [B]."""
+    placeholder per row; visual [B, V, D]; text_lens [B]; labels: optional
+    [B, S_text] training labels (multimodal.py:41-95)."""
     B, S_text, D = text_embeds.shape
     V = visual.shape[1]
     S_out = S_text - 1 + V
@@ -44,4 +49,16 @@ def splice_visual_prefix(text_embeds, input_ids, visual, text_lens):
     text_lens = text_lens.to(dev)
     attn_lens = torch.where(has_img, text_lens - 1 + V, text_lens)
     positions = torch.arange(S_out, device=dev)[None, :].expand(B, S_out)
-    return SplicedBatch(embeds=embeds, attn_lens=attn_lens, positions=positions)
+    token_ids = torch.where(is_visual, IMAGE_TOKEN_INDEX,
+                            torch.gather(input_ids, 1, idx_text))
+    if labels is not None:
+        out_labels = torch.where(is_visual, IGNORE_INDEX,
+                                 torch.gather(labels, 1, idx_text))
+    else:
+        out_labels = torch.full((B, S_out), IGNORE_INDEX, dtype=torch.long,
+                                device=dev)
+    out_labels = torch.where(positions < attn_lens[:, None], out_labels,
+                             IGNORE_INDEX)
+    return SplicedBatch(embeds=embeds, attn_lens=attn_lens, positions=positions,
+                        labels=out_labels, is_visual=is_visual,
+                        token_ids=token_ids)

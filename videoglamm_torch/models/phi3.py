@@ -7,18 +7,26 @@ projections of every layer and the lm_head are `QDense` / `QDense4`
 (int8 resp. packed int4 weights through `ops/quant.py`; decode calls run
 on K5). `quantize_llm` turns a float model into that form in place. The
 cache may be bf16 or int8 (`models/kvcache.py`); on the int8 cache a decode
-step hands the stacked buffers, unrepeated for GQA, to K4. No LoRA yet."""
+step hands the stacked buffers, unrepeated for GQA, to K4.
+
+Training: `lora_rank > 0` adds LoRA on the q and v slices of the fused qkv
+output (`{q,v}_lora_{a,b}` on `self_attn`, B initialised to zero;
+phi3.py:92-103), `remat` recomputes every decoder layer in the backward
+(`torch.utils.checkpoint`, phi3.py:182-183). The trainable weights (LoRA,
+embed_tokens, lm_head) may stay f32 while the rest is stored in the
+compute dtype: they are cast at use (`linear_cast`, `act_dtype`)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Phi3Config
 from ..ops.attention import dot_product_attention
 from ..ops.rope import apply_rope, rope_cos_sin
 from . import kvcache
-from .common import QDense, QDense4, RMSNorm
+from .common import QDense, QDense4, RMSNorm, linear_cast
 
 QUANT_MODES = ("none", "int8", "int4")
 
@@ -43,12 +51,26 @@ def _proj(in_features: int, out_features: int, quant: str):
 
 
 class Phi3Attention(nn.Module):
-    def __init__(self, cfg: Phi3Config, quant: str = "none"):
+    def __init__(self, cfg: Phi3Config, quant: str = "none",
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         hd = cfg.head_dim
         self.qkv_proj = _proj(cfg.hidden_size,
                               (cfg.num_heads + 2 * cfg.num_kv_heads) * hd, quant)
         self.o_proj = _proj(cfg.num_heads * hd, cfg.hidden_size, quant)
+        self.lora_scale = lora_alpha / lora_rank if lora_rank > 0 else 0.0
+        if lora_rank > 0:
+            for nm, out in (("q", cfg.num_heads * hd), ("v", cfg.num_kv_heads * hd)):
+                a = nn.Linear(cfg.hidden_size, lora_rank, bias=False)
+                b = nn.Linear(lora_rank, out, bias=False)
+                nn.init.zeros_(b.weight)
+                setattr(self, f"{nm}_lora_a", a)
+                setattr(self, f"{nm}_lora_b", b)
+
+    def lora_delta(self, h, nm: str):
+        """h @ A @ B * alpha / rank for nm in ("q", "v") (phi3.py:92-99)."""
+        a = linear_cast(h, getattr(self, f"{nm}_lora_a"))
+        return linear_cast(a, getattr(self, f"{nm}_lora_b")) * self.lora_scale
 
 
 class Phi3MLP(nn.Module):
@@ -64,11 +86,12 @@ class Phi3MLP(nn.Module):
 
 
 class Phi3DecoderLayer(nn.Module):
-    def __init__(self, cfg: Phi3Config, quant: str = "none"):
+    def __init__(self, cfg: Phi3Config, quant: str = "none",
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.cfg = cfg
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.self_attn = Phi3Attention(cfg, quant)
+        self.self_attn = Phi3Attention(cfg, quant, lora_rank, lora_alpha)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.mlp = Phi3MLP(cfg, quant)
 
@@ -80,8 +103,12 @@ class Phi3DecoderLayer(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        qkv = self.self_attn.qkv_proj(self.input_layernorm(x))
+        h = self.input_layernorm(x)
+        qkv = self.self_attn.qkv_proj(h)
         q, k, v = qkv.split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+        if self.self_attn.lora_scale:
+            q = q + self.self_attn.lora_delta(h, "q")
+            v = v + self.self_attn.lora_delta(h, "v")
         q = q.view(B, S, nh, hd).transpose(1, 2)
         k = k.view(B, S, nkv, hd).transpose(1, 2)
         v = v.view(B, S, nkv, hd).transpose(1, 2)
@@ -113,12 +140,16 @@ class Phi3DecoderLayer(nn.Module):
 
 
 class Phi3Model(nn.Module):
-    def __init__(self, cfg: Phi3Config, vocab: int, quant: str = "none"):
+    def __init__(self, cfg: Phi3Config, vocab: int, quant: str = "none",
+                 remat: bool = False, lora_rank: int = 0,
+                 lora_alpha: float = 16.0):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         self.embed_tokens = nn.Embedding(vocab, cfg.hidden_size)
-        self.layers = nn.ModuleList(Phi3DecoderLayer(cfg, quant)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(
+            Phi3DecoderLayer(cfg, quant, lora_rank, lora_alpha)
+            for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
     def forward(self, embeds, positions, kv_lens, cache=None,
@@ -128,34 +159,52 @@ class Phi3Model(nn.Module):
         # and one int32 copy of kv_lens, the type the K1 and K4 launchers read
         rope = rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
         kv_lens = kv_lens.to(torch.int32)
+        # remat: keep only each layer's input and recompute the layer in the
+        # backward (phi3.py:182-183); only where a gradient is recorded
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, rope, cache, kv_lens, i,
-                      self_contained=self_contained)
+            if remat:
+                x = checkpoint(layer, x, positions, rope, None, kv_lens, i,
+                               use_reentrant=False)
+            else:
+                x = layer(x, positions, rope, cache, kv_lens, i,
+                          self_contained=self_contained)
         return self.norm(x), cache
 
 
 class Phi3ForCausalLM(nn.Module):
     """Embedding + decoder + lm_head. `extra_vocab` rows hold added tokens
     ([SEG]). `quant_int8` / `quant_int4` build the projections and the
-    lm_head in weight-only quantised form (phi3.py:224-243)."""
+    lm_head in weight-only quantised form (phi3.py:224-243). `remat`,
+    `lora_rank` and `lora_alpha` are the training options; LoRA does not
+    combine with a quantised LLM. `act_dtype`: the dtype the embeddings are
+    cast to where the embedding table is an f32 master (None = the
+    table's own)."""
 
     def __init__(self, cfg: Phi3Config, extra_vocab: int = 0,
-                 quant_int8: bool = False, quant_int4: bool = False):
+                 quant_int8: bool = False, quant_int4: bool = False,
+                 remat: bool = False, lora_rank: int = 0,
+                 lora_alpha: float = 16.0):
         super().__init__()
         self.cfg = cfg
         self.quant = "int4" if quant_int4 else "int8" if quant_int8 else "none"
+        if lora_rank > 0 and self.quant != "none":
+            raise ValueError("LoRA needs a float LLM (quant 'none')")
         vocab = cfg.vocab_size + extra_vocab
-        self.model = Phi3Model(cfg, vocab, self.quant)
+        self.model = Phi3Model(cfg, vocab, self.quant, remat, lora_rank,
+                               lora_alpha)
         self.lm_head = _proj(cfg.hidden_size, vocab, self.quant)
+        self.act_dtype = None
 
     def embed(self, input_ids):
         """Negative placeholder ids (IMAGE_TOKEN_INDEX) are clamped: their
         rows get replaced by visual features."""
-        return self.model.embed_tokens(input_ids.clamp(min=0))
+        e = self.model.embed_tokens(input_ids.clamp(min=0))
+        return e if self.act_dtype is None else e.to(self.act_dtype)
 
     def forward(self, embeds, positions, kv_lens, cache=None):
         hidden, cache = self.model(embeds, positions, kv_lens, cache)
-        return self.lm_head(hidden), hidden, cache
+        return self.head(hidden), hidden, cache
 
     def forward_hidden(self, embeds, positions, kv_lens, cache=None):
         """Decoder without lm_head; with a cache this is the prefill entry
@@ -164,7 +213,9 @@ class Phi3ForCausalLM(nn.Module):
                           self_contained=cache is not None)
 
     def head(self, hidden):
-        return self.lm_head(hidden)
+        if self.quant != "none":
+            return self.lm_head(hidden)
+        return linear_cast(hidden, self.lm_head)
 
 
 _QUANT_PROJS = ("self_attn.qkv_proj", "self_attn.o_proj", "mlp.gate_up_proj",

@@ -16,6 +16,15 @@ device. `dot_product_attention` sends every Sq == 1 call with `k_scale` on
 a CUDA tensor to K4 (the TPU's lane-layout condition `_decode_group_plan`
 has no counterpart here).
 
+K6 (`csrc/flash_bwd.cu`) is the backward of K1 for training. It replaces
+the Pallas kernels `_flash_bwd_dq_kernel` (attention.py:302) and
+`_flash_bwd_dkv_kernel` (attention.py:336). `flash_attention` is a
+`torch.autograd.Function` when a gradient is asked for: the forward has K1
+write the row log-sum-exp, the backward launches K6 on CUDA tensors and
+runs K6's plain twin `_flash_bwd_plain` on CPU tensors. The BSHD entries
+get the recompute backward that the JAX package gives them (autograd
+through the plain twin), which is no TPU kernel.
+
 The dispatch mirrors the JAX package. A call site takes K1 exactly where
 the JAX package takes a Pallas kernel on the TPU, and takes the plain
 PyTorch twin where JAX used XLA. Each condition cites its JAX line. The
@@ -40,7 +49,7 @@ NEG_INF = -1e30
 # K1 launches by mode: "causal" (LLM prefill), "flash" (long non-causal,
 # Hiera global blocks), "bshd" (CLIP / InternVideo2 self-attention),
 # "window" (Hiera window attention inside fused_window_block); K4 launches
-# under "decode_q8"
+# under "decode_q8", K6 under "flash_bwd"
 LAUNCHES = collections.Counter()
 
 # K4 splits the cache axis over this many thread blocks per SM (per batch)
@@ -93,6 +102,57 @@ def _attention_plain(q, k, v, *, causal: bool, sm_scale: float,
     return out.to(q.dtype)
 
 
+def _pair_mask(q, k, kv_lens, q_start, causal: bool):
+    """Bool [B,1,Sq,Sk] of attendable pairs as K1 and K6 mask them:
+    key < kv_len, and for causal key <= q_start + row."""
+    B, Sq, Sk = q.shape[0], q.shape[2], k.shape[2]
+    ki = torch.arange(Sk, device=q.device)[None, None, :]
+    mask = (ki < kv_lens.to(q.device).view(B, 1, 1)).expand(B, Sq, Sk)
+    if causal:
+        qi = (torch.arange(Sq, device=q.device)[None, :, None]
+              + q_start.to(q.device).view(B, 1, 1))
+        mask = mask & (qi >= ki)
+    return mask[:, None]
+
+
+def _flash_fwd_plain(q, k, v, kv_lens, q_start, causal: bool, sm_scale: float):
+    """Twin of K1 with its LSE output (`_flash_fwd`, attention.py:203):
+    returns (out, lse). lse [B,H,Sq] f32 is the log-sum-exp of the scaled
+    logits over the attendable keys, NEG_INF for a row with none; such a
+    row's output is 0 (attention.py:170-180)."""
+    mask = _pair_mask(q, k, kv_lens, q_start, causal)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = torch.where(mask, s, NEG_INF)
+    any_valid = mask.any(dim=-1)
+    lse = torch.where(any_valid, torch.logsumexp(s, dim=-1), NEG_INF)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    out = torch.matmul(p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype), lse
+
+
+def _flash_bwd_plain(q, k, v, out, lse, dout, kv_lens, q_start, causal: bool,
+                     sm_scale: float):
+    """Twin of K6 (`_flash_bwd`, attention.py:377, tile math `_bwd_common`
+    :281): the probabilities are recomputed from `lse`, p and ds are rounded
+    to the storage dtype before the three products, which accumulate in f32
+    (:327-329, :364-369). The mask is applied by selection, so a row with
+    lse = NEG_INF (no valid key) gives zeros though its exp overflows.
+    Returns (dq, dk, dv) in q's dtype."""
+    mask = _pair_mask(q, k, kv_lens, q_start, causal)
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), dout.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    ds = torch.where(mask, p * (dp - delta) * sm_scale, 0.0)
+    p = p.to(q.dtype).float()
+    ds = ds.to(q.dtype).float()
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _decode_attention_q8_plain(q, k, v, k_scale, v_scale, *, sm_scale: float,
                                kv_lens=None, layer=None, causal: bool = False,
                                bias=None, kv_mask=None, q_start=None):
@@ -138,7 +198,7 @@ def _kernel_fn():
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [P, P, P, P] + [L] * 12 + [P, P] + [I] * 7 + [
-            ctypes.c_float, P]
+            ctypes.c_float, P, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -151,11 +211,15 @@ def _as_int32(t, B: int, device):
 
 
 def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
-                         mode: str, kv_lens=None, q_start=None, win: int = 0):
+                         mode: str, kv_lens=None, q_start=None, win: int = 0,
+                         lse=None):
     """Launch K1. q: [B,H,Sq,D], k/v: [B,H,Sk,D], out: [B,H,Sq,D] — any
     strides with a contiguous head dim (views of BSHD or fused-qkv tensors
     are read in place). kv_lens/q_start: [B] ints or None. `mode` names the
-    launch counter. Raises unless every operand is a bf16 CUDA tensor."""
+    launch counter. lse: None (serving), or a contiguous f32 [B,H,Sq] that
+    the kernel fills with the row log-sum-exp of the scaled logits (NEG_INF
+    for a row with no valid key). Raises unless every operand is a bf16
+    CUDA tensor."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
@@ -169,6 +233,10 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
                          "(needs D % 8 == 0 and D <= 128)")
     if causal and q_start is None:
         raise ValueError("attention_fwd: causal launches need q_start")
+    if lse is not None and (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+                            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError("attention_fwd: lse must be a contiguous f32 "
+                         f"[{B},{H},{Sq}] on {q.device}")
     kvl = _as_int32(kv_lens, B, q.device)
     qs = _as_int32(q_start, B, q.device)
     err = _kernel_fn()(
@@ -177,10 +245,73 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
         kvl.data_ptr() if kvl is not None else None,
         qs.data_ptr() if qs is not None else None,
         B, H, Sq, Sk, D, int(causal), int(win), float(sm_scale),
-        _cuda.stream_ptr(q))
+        lse.data_ptr() if lse is not None else None, _cuda.stream_ptr(q))
     _cuda.check_launch(err, "attention_fwd")
     LAUNCHES[mode] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K6 launcher
+# ---------------------------------------------------------------------------
+def _flash_bwd_fn():
+    fn = _cuda.load("flash_bwd").lib.vgt_flash_bwd
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(P), ctypes.POINTER(ctypes.c_longlong),
+                       P, P, P, P] + [I] * 6 + [ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool, sm_scale: float,
+                     kv_lens=None, q_start=None):
+    """Launch K6. q, out, dout: [B,H,Sq,D]; k, v: [B,H,Sk,D], bf16 on the
+    card; lse: f32 [B,H,Sq] as K1 wrote it. q, k, v, out and dout are read
+    in place through their (batch, head, token) strides, so the gradient of
+    `o.transpose(1, 2).reshape(...)` arrives with no copy; an operand whose
+    head dim is not contiguous or whose strides are not multiples of 8 (a
+    broadcast gradient) is made contiguous here first. Returns (dq, dk, dv),
+    new contiguous bf16 tensors. Raises on anything else."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if k.shape != (B, H, Sk, D) or v.shape != k.shape or out.shape != q.shape \
+            or dout.shape != q.shape or lse.shape != (B, H, Sq):
+        raise ValueError(f"flash_bwd: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} out{tuple(out.shape)} "
+                         f"dout{tuple(dout.shape)} lse{tuple(lse.shape)}")
+    if D % 8 or D > 128:
+        raise ValueError(f"flash_bwd: head dim {D} unsupported "
+                         "(needs D % 8 == 0 and D <= 128)")
+    if causal and q_start is None:
+        raise ValueError("flash_bwd: causal launches need q_start")
+    if lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash_bwd: lse must be f32 on {q.device}")
+
+    def strided(t):
+        ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and not any(
+            s % 8 for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1)
+        return t if ok else t.contiguous()
+
+    ops = [strided(t) for t in (q, k, v, out, dout)]
+    ops += [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+            for t in (q, k, v)]
+    for name, t in zip(("q", "k", "v", "out", "dout", "dq", "dk", "dv"), ops):
+        _cuda.check_operand(t, name, torch.bfloat16)
+    lse = lse.contiguous()
+    delta = torch.empty_like(lse)
+    kvl = _as_int32(kv_lens, B, q.device)
+    qs = _as_int32(q_start, B, q.device)
+    ptrs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in ops))
+    strides = (ctypes.c_longlong * 24)(*(s for t in ops for s in t.stride()[:3]))
+    err = _flash_bwd_fn()(
+        ptrs, strides, lse.data_ptr(), delta.data_ptr(),
+        kvl.data_ptr() if kvl is not None else None,
+        qs.data_ptr() if qs is not None else None,
+        B, H, Sq, Sk, D, int(causal), float(sm_scale), _cuda.stream_ptr(q))
+    _cuda.check_launch(err, "flash_bwd")
+    LAUNCHES["flash_bwd"] += 1
+    return ops[5], ops[6], ops[7]
 
 
 # ---------------------------------------------------------------------------
@@ -257,11 +388,56 @@ def decode_attention_q8(q, k, v, k_scale, v_scale, kv_lens, layer=None, *,
 # ---------------------------------------------------------------------------
 # entries
 # ---------------------------------------------------------------------------
+def _flash_fwd(q, k, v, kv_lens, q_start, causal: bool, sm_scale: float,
+               need_lse: bool):
+    """(out, lse or None): the plain twin for CPU tensors, K1 on the card."""
+    if q.device.type == "cpu":
+        out, lse = _flash_fwd_plain(q, k, v, kv_lens, q_start, causal, sm_scale)
+        return out, (lse if need_lse else None)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \
+        if need_lse else None
+    attention_fwd_kernel(q, k, v, out, causal=causal, sm_scale=sm_scale,
+                         mode="causal" if causal else "flash",
+                         kv_lens=kv_lens, q_start=q_start, lse=lse)
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Counterpart of `_flash_attention_custom` (attention.py:479-501): the
+    forward saves q, k, v, out and the LSE rows; the backward launches K6
+    on CUDA tensors and runs its plain twin on CPU tensors. The integer
+    inputs get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, q_start, causal, sm_scale):
+        out, lse = _flash_fwd(q, k, v, kv_lens, q_start, causal, sm_scale, True)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens, q_start)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, kv_lens, q_start = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = _flash_bwd_plain(q, k, v, out, lse, dout, kv_lens,
+                                          q_start, ctx.causal, ctx.sm_scale)
+        else:
+            dq, dk, dv = flash_bwd_kernel(q, k, v, out, lse, dout,
+                                          causal=ctx.causal,
+                                          sm_scale=ctx.sm_scale,
+                                          kv_lens=kv_lens, q_start=q_start)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False, kv_lens=None,
                     q_start=None, sm_scale: Optional[float] = None):
     """Port of `flash_attention` (attention.py:504). q/k/v: [B,H,S,D].
     q_start: [B] absolute KV position of query 0 (defaults to
-    kv_lens - Sq, the decode convention)."""
+    kv_lens - Sq, the decode convention). Differentiable in q, k and v:
+    when one of them asks for a gradient the call goes through
+    `_FlashAttention` (K1 with the LSE output, K6 backward); otherwise K1
+    runs alone, as in serving."""
     B, H, Sq, D = q.shape
     if sm_scale is None:
         sm_scale = D ** -0.5
@@ -270,19 +446,48 @@ def flash_attention(q, k, v, *, causal: bool = False, kv_lens=None,
                              device=q.device)
     if q_start is None:
         q_start = kv_lens - Sq
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kv_lens, q_start, bool(causal),
+                                     float(sm_scale))
     if q.device.type == "cpu":
         return _attention_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                                 kv_lens=kv_lens, q_start=q_start)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    return attention_fwd_kernel(q, k, v, out, causal=causal, sm_scale=sm_scale,
-                                mode="causal" if causal else "flash",
-                                kv_lens=kv_lens, q_start=q_start)
+    return _flash_fwd(q, k, v, kv_lens, q_start, bool(causal), float(sm_scale),
+                      False)[0]
+
+
+class _BshdAttention(torch.autograd.Function):
+    """K1 forward in BSHD mode with the recompute backward of
+    `_bshd_bwd_rule` / `_packed_bwd_rule` (attention.py:868-872, :889-897):
+    autograd through the plain twin on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, win):
+        ctx.save_for_backward(q, k, v)
+        ctx.sm_scale, ctx.win = sm_scale, win
+        return _bshd_launch(q, k, v, sm_scale, win)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = _attention_plain_bshd(*qkv, ctx.sm_scale, ctx.win)
+            dq, dk, dv = torch.autograd.grad(out, qkv, dout)
+        return dq, dk, dv, None, None
 
 
 def _bshd_fwd(q, k, v, sm_scale: float, win: int = 0):
     """K1 in BSHD mode: q/k/v [B,S,H,D] (views allowed) -> [B,S,H,D]."""
     if q.device.type == "cpu":
         return _attention_plain_bshd(q, k, v, sm_scale, win)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _BshdAttention.apply(q, k, v, sm_scale, win)
+    return _bshd_launch(q, k, v, sm_scale, win)
+
+
+def _bshd_launch(q, k, v, sm_scale: float, win: int = 0):
     B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     attention_fwd_kernel(q.transpose(1, 2), k.transpose(1, 2),

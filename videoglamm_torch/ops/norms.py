@@ -9,6 +9,11 @@ with `BLOCK_D = next_pow2(d)` cover the widths that are not powers of two
 (1408, 1152, 144) with coalesced access. A few rows go to each program
 when rows are narrow. `triton` is imported inside the launcher, so this
 module imports on machines that have no Triton.
+
+Training: the JAX package has no Pallas backward for the norms. Its
+`custom_vjp` rules recompute through the reference (`_rms_bwd` norms.py:100,
+`_ln_bwd` norms.py:167), so here `_RowNorm` runs K3 forward and takes the
+gradient of the plain twin on the saved input.
 """
 from __future__ import annotations
 
@@ -111,11 +116,46 @@ def row_norm(x, weight, bias, eps: float, *, rms: bool):
     return out.view(x.shape)
 
 
+class _RowNorm(torch.autograd.Function):
+    """K3 forward; backward = autograd through the plain twin on the saved
+    x, weight and bias (gradients to all three)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, rms):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps, ctx.rms = eps, rms
+        return row_norm(x, weight, bias, eps, rms=rms)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weight, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip((x, weight, bias), ctx.needs_input_grad)
+                   if t is not None]
+            y = _rms_norm_plain(ins[0], ins[1], ctx.eps) if ctx.rms else \
+                _layer_norm_plain(ins[0], ins[1],
+                                  ins[2] if bias is not None else None, ctx.eps)
+            wanted = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, dout))
+        out = [next(grads) if t.requires_grad else None for t in ins]
+        if bias is None:
+            out.append(None)
+        return (*out, None, None)
+
+
+def _kernel_norm(x, weight, bias, eps, rms):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias)):
+        return _RowNorm.apply(x, weight, bias, eps, rms)
+    return row_norm(x, weight, bias, eps, rms=rms)
+
+
 def rms_norm(x, weight, eps: float = 1e-6):
     """RMSNorm over the last dim. x: [..., d], weight: [d]."""
     # norms.py:111: the kernel only pays off from 64K elements
     if x.is_cuda and x.numel() >= (1 << 16):
-        return row_norm(x, weight, None, eps, rms=True)
+        return _kernel_norm(x, weight, None, eps, True)
     return _rms_norm_plain(x, weight, eps)
 
 
@@ -123,5 +163,5 @@ def layer_norm(x, weight, bias=None, eps: float = 1e-5):
     """LayerNorm over the last dim, optional bias."""
     # norms.py:189: lane-aligned widths big enough to amortize a launch
     if x.is_cuda and x.shape[-1] % 128 == 0 and x.numel() >= (1 << 16):
-        return row_norm(x, weight, bias, eps, rms=False)
+        return _kernel_norm(x, weight, bias, eps, False)
     return _layer_norm_plain(x, weight, bias, eps)

@@ -1,5 +1,6 @@
 """1-D resize matrices (the numpy builders of videoglamm_tpu/ops/resize.py
-that preprocessing reads).
+that preprocessing reads) and `resize_bilinear`, the differentiable resize
+of mask logits to the ground-truth size in the training forward.
 
 Every resize of the preprocessing front is a separable linear map with a
 static (in_size, out_size) matrix, so `ops/preprocess.py` applies it as two
@@ -11,6 +12,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 @functools.lru_cache(maxsize=256)
@@ -75,3 +77,25 @@ def pil_resize_matrix(in_size: int, out_size: int,
                       mode: str = "bilinear") -> np.ndarray:
     """The PIL-semantics 1-D resize matrix [out_size, in_size]."""
     return _pil_matrix(in_size, out_size, mode)
+
+
+def _apply_separable(x, mh, mw):
+    """x: [..., H, W, C] -> f32 [..., oh, ow, C] (resize.py:127)."""
+    y = torch.einsum("oh,...hwc->...owc", mh, x.float())
+    return torch.einsum("pw,...owc->...opc", mw, y)
+
+
+def resize_bilinear(x, out_hw, channels_last: bool = True):
+    """Bilinear resize matching torch align_corners=False (resize.py:135), as
+    two matrix products, so autograd passes through it. x: [..., H, W, C],
+    or [..., C, H, W] with channels_last=False."""
+    oh, ow = out_hw
+    if not channels_last:
+        x = x.movedim(-3, -1)
+    H, W = x.shape[-3], x.shape[-2]
+    mh = torch.from_numpy(_linear_matrix(H, oh)).to(x.device)
+    mw = torch.from_numpy(_linear_matrix(W, ow)).to(x.device)
+    y = _apply_separable(x, mh, mw).to(x.dtype)
+    if not channels_last:
+        y = y.movedim(-1, -3)
+    return y
