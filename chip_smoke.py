@@ -7,11 +7,12 @@ Run from the root of a checkout. Phases, each fatal on failure:
 
 1. device: needs CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off for matmuls and cuDNN;
-2. build: compiles the five CUDA sources of videoglamm_torch/csrc (K1
+2. build: compiles the seven CUDA sources of videoglamm_torch/csrc (K1
    attention_fwd, K2 gemm_epilogue, K4 decode_attention_q8, K5
-   dequant_gemv, K6 flash_bwd) from the checkout with one nvcc process
-   each, all started together, and JIT-compiles K3 (the Triton row norm),
-   printing build seconds and the -Xptxas -v lines;
+   dequant_gemv, K6 flash_bwd, K7 window_attention, K8 smallwin_attention)
+   from the checkout with one nvcc process each, all started together, and
+   JIT-compiles K3 (the Triton row norm), printing build seconds and the
+   -Xptxas -v lines (registers and spills of every instantiation);
 3. kernels: holds every kernel against its plain PyTorch twin on the same
    inputs at the main path's shapes, with the stated tolerance, and times
    the kernel, the twin and, where one PyTorch call computes the same
@@ -24,7 +25,11 @@ Run from the root of a checkout. Phases, each fatal on failure:
    flash-attention backward) is held against its twin at the training shape
    [2,32,3456,96] causal and non-causal and at the three small cases of
    the JAX package's own test, dq, dk and dv each by relative L2; K1's LSE
-   output against the log-sum-exp of the twin's logits;
+   output against the log-sum-exp of the twin's logits. K7 at the memory
+   self-attention of the 32x32 grid [4,1,1024,256] f32 and at the two tower
+   shapes its dispatch branch names, K8 at Hiera's stage-1 and stage-2
+   windows over 8 frames and at an odd window count, K1 at head dim 256
+   ([4,1,4096,256], f32 and bf16);
 4. serve: builds the flagship VideoGLaMM (seeded random weights, normal
    std 0.02, norm scales 1) on the card through `build_inference` and
    serves, with every launch counter set to 0 just before each path and
@@ -33,11 +38,21 @@ Run from the root of a checkout. Phases, each fatal on failure:
    b. the main path, the int8 LLM with the int8 KV cache from RAW uint8
       [1,16,480,854,3] frames (3 requests), then its decode step timed and
       profiled alone,
-   c. the int4 LLM with the int8 KV cache from raw frames (1 warm-up + 1
-      timed request);
-   each request is 16 frames, 8 SAM frames, 64 prompt ids and 64 new
-   tokens; a kernel of a path that was never launched, or launched another
-   number of times than the path must, fails the run;
+   c. the video branch on the main path's model: 2 requests from raw
+      frames with `use_video_branch=True`, all 16 frames to SAM, the 4
+      [SEG] slots tracked through them by the SAM-2 memory tracker (K1 at
+      head dim 256: 4 layers x 15 frames a request),
+   d. the int4 LLM with the int8 KV cache from raw frames (1 warm-up + 1
+      timed request),
+   e. the tracker at SAM image size 512 (a 32x32 memory grid, so that the
+      memory self-attention takes K7), full width, bf16 LLM, 2 requests;
+   each request is 16 frames, 8 SAM frames (16 when tracking), 64 prompt
+   ids and 64 new tokens; a kernel of a path that was never launched, or
+   launched another number of times than the path must, fails the run.
+   Then the Hiera trunk of the 1024 model on 8 frames with
+   `hoist_layout=False` against the hoisted encoder of the same weights:
+   10 K8 launches and 32 super-window launches of K1 a forward, outputs
+   equal within the stated bf16 tolerance;
 5. check: the served outputs are finite and of the expected shapes; the
    cached decode (bf16 cache: plain attention; int8 cache and weights: K4
    and K5) agrees with one uncached forward (K1 causal) over the same
@@ -46,6 +61,10 @@ Run from the root of a checkout. Phases, each fatal on failure:
    agrees on the card in bf16 with the same weights run on the CPU in f32
    through the plain twins, which the CPU tests hold to the JAX package:
    float, then int8 and int4 LLMs with the int8 cache on the same codes;
+   and a narrow tracker (narrow Hiera, full-width memory modules, 4 frames,
+   2 objects, at 1024 and at 512) on the card against the CPU twins in
+   f32, step by step on the reference's memory bank: all mask candidates,
+   IoUs, object scores and the encoded memories;
 6. train: builds the flagship model for training through `build_training`
    (LoRA rank 8 on q and v, remat, f32 masters of the trainable weights,
    seeded random weights with a non-zero LoRA B) and takes four optimizer
@@ -117,10 +136,38 @@ TOL_TRAIN_GRAD = 1.5e-1  # the same, per-leaf relative L2 of the gradients:
                         # not averaged over positions (9e-2 at width 128)
 TOL_TRAIN_GRAD_ALL = 5e-2   # all trainable leaves together, relative L2
 
+TOL_F32_ATTN = 2e-2     # K1 and K7 on f32 operands against the f32 twin:
+                        # q, k, v and p are rounded to bf16 on the way in, so
+                        # the error is bf16-class, a few 2^-9 of the output
+TOL_ATTN_L2 = 1e-2      # relative L2 of every attention kernel's output. An
+                        # output over S keys of unit variance is far below 1
+                        # (deviation about sqrt(e / S): 0.026 at 4096 keys),
+                        # so the floor of 1 under the max-norm ratio above
+                        # holds it to nothing; the relative L2 does. A
+                        # dropped 32-key tile, a softmax scale off by a tenth
+                        # or a last tile left unmasked each move it by 2e-2
+                        # and more. K1 and K4 round exp(s - m) to bf16 before
+                        # the row sum is known and K1 / K7 round f32 operands
+                        # to bf16, where the twin rounds the normalised
+                        # probability or nothing: 3e-3 measured
+TOL_ATTN_L2_EXACT = 5e-4  # K7 on bf16 operands and K8 round where the twin
+                        # rounds; what is left is a bf16 ulp of an output
+                        # where the summation order flips a rounding: 4e-5
+                        # to 1.3e-4 measured
+TOL_HOIST = 5e-2        # relative L2, unhoisted Hiera (K8, super-windows,
+                        # plain norms and linears) against the hoisted one
+                        # (fused blocks): other bf16 rounding points over 48
+                        # blocks
+TOL_TRACK_REF = 2e-2    # relative L2, narrow tracker, bf16 image encoder and
+                        # bf16-rounded attention operands on the card against
+                        # the f32 twins on the CPU, step by step on the
+                        # reference's bank and running free on its own
+
 N_REQUESTS = 3          # on the main path (int8 + int8 KV, raw frames)
 MAX_NEW = 64
 S_TEXT = 64
 T_SAM = 8
+N_TRACK_REQUESTS = 2    # video branch: all 16 frames go to SAM
 RAW_H, RAW_W = 480, 854
 S_TEXT_TRAIN = 129      # + 3328 visual tokens - 1 placeholder = 3456
 T_SAM_TRAIN = 4
@@ -195,6 +242,15 @@ def rel_err(got, ref) -> tuple:
     return d, d / max(1.0, ref.float().abs().max().item())
 
 
+def rel_l2(got, ref) -> float:
+    """|got - ref| / |ref| over all elements: unlike `rel_err` it has no
+    floor of 1 under it, so it also holds outputs far smaller than 1 (an
+    attention output over S keys of unit variance has a deviation of about
+    sqrt(e / S))."""
+    g, r = got.double(), ref.double()
+    return ((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+
+
 class Kernels:
     """Collects the kernel-versus-plain measurements."""
 
@@ -202,8 +258,11 @@ class Kernels:
         self.rows = {}
 
     def compare(self, key, label, kernel_fn, plain_fn, tol, *, nbytes, ops,
-                rate="bf16", library_fn=None, timed_fn=None, graphed=False):
-        """nbytes: each input read once and each output written once; ops:
+                rate="bf16", library_fn=None, timed_fn=None, graphed=False,
+                tol_l2=None):
+        """tol holds max|d| / max(1, max|ref|); tol_l2, where given, also
+        holds the relative L2 error, which is printed for every kernel.
+        nbytes: each input read once and each output written once; ops:
         the operations this run's data needs, of type `rate`. timed_fn: the
         launch to time where it differs from the one compared (operands
         rotated past the L2 cache). graphed: time the kernel and the
@@ -213,6 +272,7 @@ class Kernels:
         ref = plain_fn()
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
+        l2 = rel_l2(got, ref)
         del got, ref
         ms = time_ms(timed_fn or kernel_fn, graphed=graphed)
         plain_ms = time_ms(plain_fn)
@@ -221,10 +281,11 @@ class Kernels:
         t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / PEAK_OPS[rate] * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        ok = rel <= tol
+        ok = rel <= tol and (tol_l2 is None or l2 <= tol_l2)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        held = "" if tol_l2 is None else f" tol={tol_l2:g}"
         log(f"  {label}: max_abs_err={err:.3e} rel={rel:.3e} tol={tol:g} "
-            f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms library={lib} "
+            f"rel_l2={l2:.3e}{held} kernel={ms:.4f} ms plain={plain_ms:.4f} ms library={lib} "
             f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'MISS'}")
         if not ok:
             raise AssertionError(f"{label}: kernel disagrees with its plain twin")
@@ -235,7 +296,8 @@ class Kernels:
 
 
 CUDA_SOURCES = ("attention_fwd", "gemm_epilogue", "decode_attention_q8",
-                "dequant_gemv", "flash_bwd")
+                "dequant_gemv", "flash_bwd", "window_attention",
+                "smallwin_attention")
 
 
 def phase_build():
@@ -247,10 +309,16 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s")
     for name, b in built.items():
         log(f"  built {name}: {b.seconds:.1f} s -> {b.path.name}")
+        spills = 0
         for line in b.ptxas_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line \
                     or "Compiling entry" in line:
                 log("   ", line.strip())
+            if "bytes spill stores" in line and \
+                    "0 bytes spill stores, 0 bytes spill loads" not in line:
+                spills += 1
+        if spills:
+            raise AssertionError(f"{name}: {spills} instantiations spill")
     t0 = time.perf_counter()
     x = torch.randn(8, 256, device="cuda")
     norms.row_norm(x, torch.ones(256, device="cuda"), None, 1e-6, rms=True)
@@ -258,11 +326,12 @@ def phase_build():
     log(f"  K3 Triton JIT (first shape): {time.perf_counter() - t0:.1f} s")
 
 
-def attn_cost(B, H, Sq, Sk, D, pairs=None):
-    """(bytes, ops) of bf16 attention: q, k, v read and o written once; two
-    products of 2*D operations per attended (query, key) pair."""
+def attn_cost(B, H, Sq, Sk, D, pairs=None, elt=2):
+    """(bytes, ops) of attention over `elt`-byte operands: q, k, v read and
+    o written once; two products of 2*D operations per attended (query,
+    key) pair."""
     pairs = Sq * Sk if pairs is None else pairs
-    return 2 * B * H * D * (2 * Sq + 2 * Sk), 4 * B * H * D * pairs
+    return elt * B * H * D * (2 * Sq + 2 * Sk), 4 * B * H * D * pairs
 
 
 def attended_pairs(Sq, Sk, kv_lens, q_start, causal) -> int:
@@ -334,11 +403,12 @@ def phase_flash_bwd(K: Kernels, randn):
         live = ref_lse > -1e29
         lse_err = (lse[live] - ref_lse[live]).abs().max().item()
         dead_ok = bool((lse[~live] == A.NEG_INF).all())
-        out_rel = rel_err(out, ref_out)[1]
+        out_rel, out_l2 = rel_err(out, ref_out)[1], rel_l2(out, ref_out)
         log(f"  K1 LSE {label}: max|d|={lse_err:.3e} (tol {TOL_LSE:g}), rows "
             f"with no key {int((~live).sum())} {'= -1e30' if dead_ok else 'WRONG'}, "
-            f"out rel={out_rel:.3e}")
-        if not (lse_err <= TOL_LSE and dead_ok and out_rel <= TOL_BF16_ATTN):
+            f"out rel={out_rel:.3e} rel_l2={out_l2:.3e} (tol {TOL_ATTN_L2:g})")
+        if not (lse_err <= TOL_LSE and dead_ok and out_rel <= TOL_BF16_ATTN
+                and out_l2 <= TOL_ATTN_L2):
             raise AssertionError(f"K1 LSE {label}: disagrees with the plain twin")
         got = bwd()
         want = plain_bwd()
@@ -367,6 +437,7 @@ def phase_flash_bwd(K: Kernels, randn):
             ms = time_ms(bwd)
             fwd_ms = time_ms(fwd)
             plain_ms = time_ms(plain_bwd, reps=3, warmup=1)
+            plain_fwd_ms = time_ms(plain_fwd, reps=3, warmup=1)
             ql, kl, vl = (t.detach().clone().requires_grad_(True)
                           for t in (q, k, v))
 
@@ -387,7 +458,8 @@ def phase_flash_bwd(K: Kernels, randn):
                      f"{library_ms:.4f} ms (forward+backward {lib_fb:.4f} - "
                      f"forward {lib_f:.4f}) bound={bound_ms:.4f} ms ({bound_by}); "
                      f"K1 forward with LSE at this shape {fwd_ms:.4f} ms "
-                     f"({4 * D * pairs * H / fwd_ms / 1e9:.1f} TFLOP/s)")
+                     f"({4 * D * pairs * H / fwd_ms / 1e9:.1f} TFLOP/s), its "
+                     f"plain twin head by head {plain_fwd_ms:.4f} ms")
             if key is not None:
                 K.rows[key] = dict(max_abs_err=max(errs), ms=ms,
                                    plain_ms=plain_ms, bound_ms=bound_ms,
@@ -432,7 +504,7 @@ def phase_kernels(K: Kernels):
               lambda: A._attention_plain(q, k, v, causal=True,
                                          sm_scale=96 ** -0.5, kv_lens=kvl,
                                          q_start=qs), TOL_BF16_ATTN,
-              nbytes=nb, ops=ops,
+              nbytes=nb, ops=ops, tol_l2=TOL_ATTN_L2,
               library_fn=lambda: F.scaled_dot_product_attention(
                   q, k, v, is_causal=True))
     # K1 flash: Hiera global block, 8 frames [8,8,4096,72] (BSHD views)
@@ -443,7 +515,7 @@ def phase_kernels(K: Kernels):
               lambda: A.flash_attention(gq, gk, gv),
               lambda: A._attention_plain(gq, gk, gv, causal=False,
                                          sm_scale=72 ** -0.5), TOL_BF16_ATTN,
-              nbytes=nb, ops=ops,
+              nbytes=nb, ops=ops, tol_l2=TOL_ATTN_L2,
               library_fn=lambda: F.scaled_dot_product_attention(gq, gk, gv))
     del q, k, v, qkv, gq, gk, gv
     phase_flash_bwd(K, randn)
@@ -453,7 +525,7 @@ def phase_kernels(K: Kernels):
     K.compare("attention_fwd[bshd]", "K1 CLIP BSHD [16,577,16,64]",
               lambda: A.attention_bshd(cq, ck, cv),
               lambda: A._attention_plain_bshd(cq, ck, cv, 64 ** -0.5),
-              TOL_BF16_ATTN, nbytes=nb, ops=ops,
+              TOL_BF16_ATTN, nbytes=nb, ops=ops, tol_l2=TOL_ATTN_L2,
               library_fn=lambda: F.scaled_dot_product_attention(
                   cq.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2)))
     iv = randn(4, 1025, 3 * 16 * 88)
@@ -464,7 +536,7 @@ def phase_kernels(K: Kernels):
               lambda: A._attention_plain_bshd(iv5[:, :, 0], iv5[:, :, 1],
                                               iv5[:, :, 2], 88 ** -0.5
                                               ).reshape(4, 1025, 16 * 88),
-              TOL_BF16_ATTN, nbytes=nb, ops=ops,
+              TOL_BF16_ATTN, nbytes=nb, ops=ops, tol_l2=TOL_ATTN_L2,
               library_fn=lambda: F.scaled_dot_product_attention(
                   *(iv5[:, :, i].transpose(1, 2) for i in range(3))))
     del cq, ck, cv, iv, iv5
@@ -490,12 +562,68 @@ def phase_kernels(K: Kernels):
         nb, ops = attn_cost(NW, H, Sw, Sw, hd)
         K.compare(key, f"K1 window S={Sw} NW={NW} H={H} (fold {fold}, win {win})",
                   kernel, lambda: A._attention_plain_bshd(*views, hd ** -0.5, win),
-                  TOL_BF16_ATTN, nbytes=nb, ops=ops,
+                  TOL_BF16_ATTN, nbytes=nb, ops=ops, tol_l2=TOL_ATTN_L2,
                   library_fn=lambda: F.scaled_dot_product_attention(*wins))
 
     window_case(8192, 64, 2, "attention_fwd[window]")
     window_case(8192, 16, 4, None)
     window_case(128, 256, 8, None)
+
+    # K7 (whole-row softmax, two passes): the memory self-attention at the
+    # 32x32 grid in f32, and the two tower shapes its dispatch branch names.
+    # The bound takes the bf16 tensor-core rate for f32 operands too: the
+    # least time any kernel that rounds as this one does could take.
+    def l2_tol(dtype):
+        return TOL_ATTN_L2 if dtype == torch.float32 else TOL_ATTN_L2_EXACT
+
+    def window_attn_case(B, H, S, D, dtype, key, what, tol):
+        q, k, v = (randn(B, H, S, D, dtype=dtype) for _ in range(3))
+        nb, ops = attn_cost(B, H, S, S, D, elt=q.element_size())
+        K.compare(key, f"K7 {what} [{B},{H},{S},{D}] "
+                  f"{'f32' if dtype == torch.float32 else 'bf16'}",
+                  lambda: A.dot_product_attention(q, k, v),
+                  lambda: A._window_attention_plain(q, k, v, D ** -0.5), tol,
+                  nbytes=nb, ops=ops, tol_l2=l2_tol(dtype),
+                  library_fn=lambda: F.scaled_dot_product_attention(q, k, v))
+
+    window_attn_case(4, 1, 1024, 256, torch.float32, "window_attention",
+                     "memory self-attention", TOL_F32_ATTN)
+    window_attn_case(4, 16, 1025, 88, bf, None, "InternVideo2 shape",
+                     TOL_BF16_ATTN)
+    window_attn_case(16, 16, 577, 64, bf, None, "CLIP shape", TOL_BF16_ATTN)
+
+    # K1 at head dim 256: the memory self-attention at the 64x64 grid
+    def d256_case(dtype, key, tol):
+        q, k, v = (randn(4, 1, 4096, 256, dtype=dtype) for _ in range(3))
+        nb, ops = attn_cost(4, 1, 4096, 4096, 256, elt=q.element_size())
+        K.compare(key, "K1 memory self-attention [4,1,4096,256] "
+                  f"{'f32' if dtype == torch.float32 else 'bf16'}",
+                  lambda: A.dot_product_attention(q, k, v),
+                  lambda: A._attention_plain(q, k, v, causal=False,
+                                             sm_scale=256 ** -0.5), tol,
+                  nbytes=nb, ops=ops, tol_l2=TOL_ATTN_L2,
+                  library_fn=lambda: F.scaled_dot_product_attention(q, k, v))
+
+    d256_case(torch.float32, "attention_fwd[flash_d256]", TOL_F32_ATTN)
+    d256_case(bf, None, TOL_BF16_ATTN)
+
+    # K8: Hiera's stage-1 and stage-2 windows over 8 frames, and a window
+    # count that no tile packing divides
+    def smallwin_case(NW, Sw, H, key):
+        hd = 72
+        qkv = randn(NW, Sw, 3 * H * hd)
+        x5 = qkv.view(NW, Sw, 3, H, hd)
+        wins = [x5[:, :, i].transpose(1, 2) for i in range(3)]
+        nb, ops = attn_cost(NW, H, Sw, Sw, hd)
+        K.compare(key, f"K8 windows [{NW},{Sw},{3 * H * hd}] H={H}",
+                  lambda: A.attention_packed_qkv_smallwin(qkv, H, hd),
+                  lambda: A._smallwin_plain(qkv, H, hd ** -0.5), TOL_BF16_ATTN,
+                  nbytes=nb, ops=ops, tol_l2=TOL_ATTN_L2_EXACT,
+                  library_fn=lambda: F.scaled_dot_product_attention(*wins))
+
+    smallwin_case(8192, 64, 2, "smallwin_attention")
+    smallwin_case(8192, 16, 4, None)
+    smallwin_case(1021, 64, 2, None)
 
     # K3: RMS at 3072 and 1408, LN at 1024 (with/without bias), 256 f32.
     # One read and one write per element; ~8 f32 operations per element.
@@ -619,7 +747,7 @@ def phase_kernels(K: Kernels):
         K.compare(key, label, lambda: launch(layer),
                   lambda: A._decode_attention_q8_plain(
                       dq, kc, vc, ks, vs, sm_scale=hd ** -0.5, kv_lens=kvl,
-                      layer=layer), TOL_DECODE_Q8, nbytes=nb,
+                      layer=layer), TOL_DECODE_Q8, tol_l2=TOL_ATTN_L2, nbytes=nb,
                   ops=4 * Hq * kv_len * hd, rate="f32", graphed=True,
                   timed_fn=lambda: launch(next(rot) % L))
 
@@ -757,6 +885,7 @@ def read_counts() -> dict:
     return {
         "attention_fwd[causal]": attention["causal"],
         "attention_fwd[flash]": attention["flash"],
+        "attention_fwd[flash_d256]": attention["flash_d256"],
         "attention_fwd[bshd]": attention["bshd"],
         "attention_fwd[window]": attention["window"],
         "gemm_epilogue": fused_block["gemm"],
@@ -767,6 +896,8 @@ def read_counts() -> dict:
         "dequant_gemv[int8]": quant["int8"],
         "dequant_gemv[int4]": quant["int4"],
         "flash_bwd": attention["flash_bwd"],
+        "window_attention": attention["window_attn"],
+        "smallwin_attention": attention["smallwin"],
     }
 
 
@@ -776,7 +907,12 @@ def read_counts() -> dict:
 EXPECTED_TOWERS = {"attention_fwd[causal]": 32, "attention_fwd[flash]": 3,
                    "attention_fwd[bshd]": 62, "attention_fwd[window]": 42,
                    "fused_window_block": 42, "gemm_epilogue": 168,
-                   "flash_bwd": 0}
+                   "flash_bwd": 0, "attention_fwd[flash_d256]": 0,
+                   "window_attention": 0, "smallwin_attention": 0}
+# the video branch: the memory self-attention runs once a memory-attention
+# layer on every frame but the first (the cross-attention carries a kv_mask
+# and is plain in both packages)
+TRACK_SELF_ATTN = 4 * (16 - 1)
 # one training micro-step: the towers once, without a gradient; with remat
 # every LLM layer runs K1 causal twice (forward and recompute) and K6 once;
 # no decode kernels
@@ -802,12 +938,26 @@ EXPECTED_PER_REQUEST = {
                                      "dequant_gemv[int8]": 0,
                                      "dequant_gemv[int4]": GEMV}),
 }
+# tracking on the main path's model: the towers and the decode as on the
+# int8 path (Hiera takes the 16 frames as one batch, so its launches do not
+# change), plus K1 at head dim 256 for the memory self-attention over the
+# 64x64 grid
+EXPECTED_PER_REQUEST["track"] = dict(
+    EXPECTED_PER_REQUEST["int8"],
+    **{"attention_fwd[flash_d256]": TRACK_SELF_ATTN})
+# tracking at SAM image size 512, bf16 LLM: Hiera's three global blocks see
+# 1024 tokens and take K1's BSHD mode, the memory self-attention over the
+# 32x32 grid takes K7
+EXPECTED_PER_REQUEST["track512"] = dict(
+    EXPECTED_PER_REQUEST["bf16"],
+    **{"attention_fwd[flash]": 0, "attention_fwd[bshd]": 62 + 3,
+       "window_attention": TRACK_SELF_ATTN})
 
 
-def phase_serve(gi, cfg, mode: str, requests, raw: bool):
+def phase_serve(gi, cfg, mode: str, requests, raw: bool, track: bool = False):
     """Serve `requests` through the entry point with the counters set to 0
     just before and read just after; `mode` names the path's expected
-    launches."""
+    launches. track: the video branch, every frame to SAM."""
     import torch
 
     torch.cuda.synchronize()
@@ -817,7 +967,9 @@ def phase_serve(gi, cfg, mode: str, requests, raw: bool):
     for i, req in enumerate(requests):
         timings = {}
         t0 = time.perf_counter()
-        if raw:
+        if track:
+            out = gi.serve_raw(*req, timings=timings, use_video_branch=True)
+        elif raw:
             out = gi.serve_raw(*req, num_sam_frames=T_SAM, timings=timings)
         else:
             out = gi(*req, timings=timings)
@@ -847,11 +999,11 @@ def phase_serve(gi, cfg, mode: str, requests, raw: bool):
     return results, counts
 
 
-def check_outputs(cfg, results, what: str):
+def check_outputs(cfg, results, what: str, t_sam: int = T_SAM):
     import torch
     E4 = 4 * cfg.sam2.low_res_size
     for i, out in enumerate(results):
-        shape = (1, cfg.max_seg_tokens, T_SAM, E4, E4)
+        shape = (1, cfg.max_seg_tokens, t_sam, E4, E4)
         if tuple(out.pred_masks.shape) != shape:
             raise AssertionError(f"{what} request {i}: masks "
                                  f"{tuple(out.pred_masks.shape)}")
@@ -1055,6 +1207,277 @@ def phase_small_reference():
                 raise AssertionError(f"small model ({quant}): K4/K5 launches "
                                      f"{counts}")
             del dev_q, ref_q
+
+
+def profile_track(gi, cfg, raw):
+    """The tracker alone under torch.profiler: `track_masks` on one clip's
+    16 SAM frames and 4 seeded [SEG] prompts; wall, device-busy share,
+    launches and the kernels that take most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from videoglamm_torch.ops.preprocess import preprocess_sam_stream
+
+    m = gi.model
+    g = torch.Generator(device="cuda").manual_seed(41)
+    seg = torch.randn(cfg.max_seg_tokens, cfg.out_dim, generator=g, device="cuda")
+    with torch.no_grad():
+        frames_sam = preprocess_sam_stream(raw, cfg.sam2.image_size,
+                                           torch.bfloat16)[0]
+        m.track_masks(frames_sam, seg)                       # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            masks = m.track_masks(frames_sam, seg)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.isfinite(masks).all():
+        raise AssertionError("profiled tracker: non-finite masks")
+    rows = [e for e in prof.key_averages()
+            if _device_us(e) > 0 and "cuda" in str(e.device_type).lower()]
+    if not rows:
+        log(f"  tracker under the profiler: {wall_ms:.1f} ms; device time not "
+            "measured (the profiler saw none)")
+        return
+    busy_ms = sum(_device_us(e) for e in rows) / 1e3
+    top = sorted(rows, key=_device_us, reverse=True)[:8]
+    log(f"  tracker under the profiler ({tuple(frames_sam.shape)} frames, "
+        f"{cfg.max_seg_tokens} objects): {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.2f}), "
+        f"{sum(e.count for e in rows)} device launches; top: "
+        + "; ".join(f"{e.key[:56]} {_device_us(e) / 1e3:.1f} ms x{e.count}"
+                    for e in top))
+
+
+def phase_unhoisted_hiera(trunk):
+    """`Hiera(hoist_layout=False)` on 8 flagship frames against the hoisted
+    encoder of the same weights: every windowed block partitions on its own
+    and takes the unfused branches (stage 1 and 2: K8; stage 3: K1 under a
+    block-diagonal mask over two folded 256-token windows)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn(8, 1024, 1024, 3, generator=g, device="cuda").bfloat16()
+
+    def run(hoist):
+        trunk.hoist_layout = hoist
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs = trunk(x)
+        torch.cuda.synchronize()
+        return outs, read_counts(), time.perf_counter() - t0
+
+    try:
+        run(True)                                         # warm-up
+        hoisted, c_h, t_h = run(True)
+        run(False)
+        plain, c_p, t_p = run(False)
+    finally:
+        trunk.hoist_layout = True
+    # stage 1: 2 blocks, stage 2: 5 windowed blocks after its pooling block,
+    # stage 4: 3 after its pooling block (128 windows of 64 tokens: K8 takes
+    # any window count) -> 10 K8 launches; stage 3: 36 blocks less 1 pooling
+    # and 3 global -> 32 super-window launches of K1 in BSHD mode; the 3
+    # global blocks stay on K1 flash; no fused block
+    want = {"smallwin_attention": 10, "attention_fwd[bshd]": 32,
+            "attention_fwd[flash]": 3, "fused_window_block": 0,
+            "attention_fwd[window]": 0}
+    for name, n in want.items():
+        if c_p[name] != n:
+            raise AssertionError(f"unhoisted Hiera: {name} launched "
+                                 f"{c_p[name]} times, expected {n}")
+    if c_h["smallwin_attention"] != 0 or c_h["fused_window_block"] != 42:
+        raise AssertionError(f"hoisted Hiera: launches {c_h}")
+    for i, (a, b) in enumerate(zip(plain, hoisted)):
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        ok = rel <= TOL_HOIST and bool(torch.isfinite(a).all())
+        log(f"  unhoisted Hiera stage {i} {tuple(a.shape)}: rel L2 against the "
+            f"hoisted path {rel:.3e} (tol {TOL_HOIST:g}) {'ok' if ok else 'MISS'}")
+        if not ok:
+            raise AssertionError("unhoisted Hiera disagrees with the hoisted path")
+    log(f"  Hiera-L on 8 frames: hoisted {t_h:.3f} s (42 fused blocks), "
+        f"unhoisted {t_p:.3f} s (K8 x{c_p['smallwin_attention']}, K1 "
+        f"super-windows x{c_p['attention_fwd[bshd]']})")
+    return c_p
+
+
+def track_config(image_size: int):
+    """A narrow Hiera under full-width memory modules (d_model 256, mem_dim
+    64, one 256-wide attention head), one memory-attention layer: the
+    memory self-attention takes K1 at head dim 256 (image size 1024, a
+    64x64 grid) or K7 (512, a 32x32 grid), in f32."""
+    from videoglamm_torch.config import HieraConfig, SAM2Config
+    return SAM2Config(hiera=HieraConfig(embed_dim=16, num_heads=1,
+                                        stages=(1, 2, 3, 1),
+                                        global_att_blocks=(5,)),
+                      image_size=image_size, memory_attention_layers=1)
+
+
+def phase_small_track_reference(image_size: int):
+    """The narrow tracker on the card (bf16 image encoder, f32 memory
+    modules with K1 / K7 on the self-attention) against the same weights on
+    the CPU in f32 through the plain twins, over 4 frames and 2 objects.
+    First teacher-forced, frame by frame on the reference's memory bank, so
+    that each step's error stands alone: all mask candidates, their IoUs,
+    the object scores and the encoded memories. Then both trackers run
+    free, each on its own bank written in place: the frames held by the two
+    rings must be equal, the object-score gate must fall the same way on
+    every frame, and for each object the chosen mask, its object score and
+    the ring's memory and pointer are held on the frames up to which every
+    multimask argmax agreed with the reference's (how many choices differed
+    is printed). The free run's conditioning memory is printed and not
+    held: frame 0's mask is binarised before it is encoded, a step function
+    of logits that differ by rounding, and the same memory is held above on
+    the reference's mask. `track_video` then runs for its launch count and
+    must repeat the free run's masks bit for bit."""
+    import torch
+    from videoglamm_torch.models.common import cast_compute
+    from videoglamm_torch.models.sam2 import video_predictor as VP
+    from videoglamm_torch.models.sam2.sam2_base import SAM2Base
+
+    cfg = track_config(image_size)
+    T, B = 4, 2
+    ref = seeded_init(SAM2Base(cfg), torch.Generator().manual_seed(21)).eval()
+    with torch.no_grad():
+        # the object-score gate decided by a margin far above bf16 rounding
+        ref.sam_mask_decoder.pred_obj_score_head.layers[-1].bias.fill_(2.0)
+    dev = SAM2Base(cfg)
+    dev.load_state_dict(ref.state_dict())
+    dev = dev.cuda().eval()
+    cast_compute(dev.image_encoder, torch.bfloat16)
+    dev.sam_mask_decoder.conv_s0.to(torch.bfloat16)
+    dev.sam_mask_decoder.conv_s1.to(torch.bfloat16)
+    g = torch.Generator().manual_seed(22)
+    frames = torch.randn(T, image_size, image_size, 3, generator=g)
+    text = torch.randn(B, 1, cfg.d_model, generator=g)
+
+    def hold(got, want, what, tol=TOL_TRACK_REF):
+        a, w = got.float().cpu(), want.float()
+        rel = ((a - w).norm() / w.norm().clamp_min(1e-12)).item()
+        ok = rel <= tol and bool(torch.isfinite(a).all())
+        log(f"  narrow tracker {image_size}, {what} {tuple(w.shape)}: card vs "
+            f"CPU f32 rel L2 {rel:.3e} (tol {tol:g})"
+            f"{'' if ok else ' MISS'}")
+        if not ok:
+            raise AssertionError(f"narrow tracker {image_size}, {what}: the "
+                                 "card disagrees with the CPU reference")
+
+    def per_obj(feats, t):
+        return [f[t][None].expand(B, *f.shape[1:]) for f in feats]
+
+    def bank_to(bank, device):
+        return VP.MemoryBank(*(x.clone().to(device) for x in bank))
+
+    with torch.no_grad():
+        rfeats, rpos = ref.forward_image(frames)
+        dfeats, dpos = dev.forward_image(frames.cuda().bfloat16())
+        reset_counts()
+        rheads, rbank = VP.track_init_frame(ref, per_obj(rfeats, 0), rpos[-1], text)
+        dheads, _ = VP.track_init_frame(dev, per_obj(dfeats, 0), dpos[-1],
+                                        text.cuda())
+        for name in ("low_res_multimasks", "ious", "object_score_logits",
+                     "obj_ptr"):
+            hold(getattr(dheads, name), getattr(rheads, name), f"frame 0 {name}")
+        mem, _ = dev.encode_new_memory(
+            dfeats[-1][:1].expand(B, *dfeats[-1].shape[1:]),
+            rheads.high_res_masks.permute(0, 2, 3, 1).cuda(),
+            rheads.object_score_logits.cuda(), binarize=True)
+        hold(mem, rbank.cond_mem, "frame 0 memory (binarised)")
+        for t in range(1, T):
+            dbank = bank_to(rbank, "cuda")
+            rheads, rbank = VP.track_step(ref, per_obj(rfeats, t), rpos[-1],
+                                          rbank, t, T)
+            dheads, dbank = VP.track_step(dev, per_obj(dfeats, t), dpos[-1],
+                                          dbank, t, T)
+            for name in ("low_res_multimasks", "ious", "object_score_logits"):
+                hold(getattr(dheads, name), getattr(rheads, name),
+                     f"frame {t} {name}")
+            mem, _ = dev.encode_new_memory(
+                dfeats[-1][t:t + 1].expand(B, *dfeats[-1].shape[1:]),
+                rheads.high_res_masks.permute(0, 2, 3, 1).cuda(),
+                rheads.object_score_logits.cuda())
+            hold(mem, rbank.mem_ring[:, t % rbank.mem_ring.shape[1]],
+                 f"frame {t} memory")
+        stepped = read_counts()
+
+        def free_run(sam, feats, pos, txt):
+            heads, bank = VP.track_init_frame(sam, per_obj(feats, 0), pos[-1], txt)
+            frames_ = [heads]
+            for t in range(1, T):
+                heads, bank = VP.track_step(sam, per_obj(feats, t), pos[-1],
+                                            bank, t, T)
+                frames_.append(heads)
+            return frames_, bank
+
+        rfree, rbank = free_run(ref, rfeats, rpos, text)
+        dfree, dbank = free_run(dev, dfeats, dpos, text.cuda())
+        reset_counts()
+        res = VP.track_video(dev, dfeats, dpos, text.cuda())
+        torch.cuda.synchronize()
+        counts = read_counts()
+    key = "attention_fwd[flash_d256]" if image_size == 1024 else "window_attention"
+    n = cfg.memory_attention_layers * (T - 1)
+    if counts[key] != n or stepped[key] != n:
+        raise AssertionError(f"narrow tracker {image_size}: {key} launched "
+                             f"{stepped[key]} and {counts[key]} times, expected {n}")
+    E4 = 4 * cfg.low_res_size
+    if tuple(res.low_res_masks.shape) != (B, T, E4, E4) \
+            or not torch.isfinite(res.low_res_masks).all():
+        raise AssertionError(f"narrow tracker {image_size}: free-running masks")
+    if not torch.equal(res.low_res_masks, torch.stack(
+            [h.low_res_masks[:, 0] for h in dfree], dim=1)):
+        raise AssertionError(f"narrow tracker {image_size}: track_video does "
+                             "not repeat the step-by-step free run")
+
+    # the free runs, each on its own bank
+    for name in ("mem_frame", "ptr_frame"):
+        got, want = getattr(dbank, name).cpu(), getattr(rbank, name)
+        if not torch.equal(got, want):
+            raise AssertionError(f"narrow tracker {image_size}: free run's "
+                                 f"{name} {got.tolist()} != {want.tolist()}")
+    pick = lambda run: torch.stack([h.ious.argmax(dim=-1).cpu() for h in run], 1)
+    gate = lambda run: torch.stack(
+        [h.object_score_logits[:, 0].float().cpu() > 0 for h in run], 1)
+    same = pick(dfree) == pick(rfree)                        # [B, T]
+    if not torch.equal(gate(dfree), gate(rfree)):
+        raise AssertionError(f"narrow tracker {image_size}: the object-score "
+                             "gate fell differently on the card")
+    agreed = same.long().cumprod(dim=1).bool()    # every argmax so far agreed
+    flipped = ((dfree[0].high_res_masks.cpu() > 0)
+               != (rfree[0].high_res_masks > 0)).float().mean().item()
+    log(f"  narrow tracker {image_size}, free run: ring frames "
+        f"{dbank.mem_frame[0].tolist()}, pointer frames "
+        f"{dbank.ptr_frame[0].tolist()} equal to the reference's; "
+        f"{int((~same).sum())} of {B * T} (object, frame) argmax choices "
+        f"differed, {int(agreed.sum())} compared")
+    if not agreed[:, 0].all():
+        raise AssertionError(f"narrow tracker {image_size}: the conditioning "
+                             "frame's argmax differs, nothing to compare")
+    S_ring, P_ring = rbank.mem_ring.shape[1], rbank.ptr_ring.shape[1]
+    for t in range(T):
+        objs = agreed[:, t].nonzero()[:, 0]
+        if not len(objs):
+            continue
+        what = f"free run frame {t} (objects {objs.tolist()})"
+        hold(dfree[t].low_res_masks.cpu()[objs], rfree[t].low_res_masks[objs],
+             f"{what} mask")
+        hold(dfree[t].object_score_logits.cpu()[objs],
+             rfree[t].object_score_logits[objs], f"{what} object score")
+        if t == 0:
+            a, w = dbank.cond_mem.cpu()[objs], rbank.cond_mem[objs]
+            log(f"  narrow tracker {image_size}, {what} conditioning memory, "
+                f"each side from its own binarised mask ({flipped:.3e} of the "
+                f"pixels differ): rel L2 {((a - w).norm() / w.norm()).item():.3e}"
+                ", not held")
+            hold(dbank.cond_ptr.cpu()[objs], rbank.cond_ptr[objs],
+                 f"{what} conditioning pointer")
+        else:
+            hold(dbank.mem_ring.cpu()[objs, t % S_ring],
+                 rbank.mem_ring[objs, t % S_ring], f"{what} ring memory")
+            hold(dbank.ptr_ring.cpu()[objs, t % P_ring],
+                 rbank.ptr_ring[objs, t % P_ring], f"{what} ring pointer")
+    log(f"  narrow tracker {image_size}: track_video finite masks "
+        f"{tuple(res.low_res_masks.shape)}, {key} x{counts[key]}")
 
 
 def make_train_batch(cfg, seed: int, device="cuda", dtype=None, rows=2,
@@ -1332,6 +1755,8 @@ SOURCES = {
     "decode_attention_q8": ("cuda", "videoglamm_torch/csrc/decode_attention_q8.cu"),
     "dequant_gemv": ("cuda", "videoglamm_torch/csrc/dequant_gemv.cu"),
     "flash_bwd": ("cuda", "videoglamm_torch/csrc/flash_bwd.cu"),
+    "window_attention": ("cuda", "videoglamm_torch/csrc/window_attention.cu"),
+    "smallwin_attention": ("cuda", "videoglamm_torch/csrc/smallwin_attention.cu"),
 }
 REPLACES = {
     "attention_fwd[causal]": "videoglamm_tpu/ops/attention.py:93",
@@ -1346,6 +1771,9 @@ REPLACES = {
     "dequant_gemv[int8]": "videoglamm_tpu/ops/quant.py:36",
     "dequant_gemv[int4]": "videoglamm_tpu/ops/quant.py:132",
     "flash_bwd": "videoglamm_tpu/ops/attention.py:302",
+    "attention_fwd[flash_d256]": "videoglamm_tpu/ops/attention.py:93",
+    "window_attention": "videoglamm_tpu/ops/attention.py:523",
+    "smallwin_attention": "videoglamm_tpu/ops/attention.py:605",
 }
 
 
@@ -1416,7 +1844,23 @@ def main() -> int:
         check_teacher_forced(gi.model, frames, context, ids, lens,
                              TOL_LLM_TF_Q, "int8 weights, int8 cache")
         measure_decode(gi.model, frames, context, ids, lens, "int8 + int8 KV")
-        del gi, results
+        del results
+
+        log("[serve] video branch on the main path's model: SAM-2 memory "
+            f"tracker, all {cfg.num_frames} frames to SAM, "
+            f"{cfg.max_seg_tokens} [SEG] objects")
+        results, track_counts = phase_serve(
+            gi, cfg, "track", raw_requests[:N_TRACK_REQUESTS], raw=True,
+            track=True)
+        log("[check] video branch")
+        check_outputs(cfg, results, "video branch", t_sam=cfg.num_frames)
+        profile_track(gi, cfg, raw)
+        del results
+        torch.cuda.empty_cache()
+        log("[check] Hiera(hoist_layout=False) against the hoisted encoder")
+        hoist_counts = phase_unhoisted_hiera(
+            gi.model.visual_model.image_encoder.trunk)
+        del gi
         torch.cuda.empty_cache()
 
         log("[serve] int4 weights, int8 cache, raw frames")
@@ -1426,11 +1870,28 @@ def main() -> int:
         check_outputs(cfg, results, "int4")
         measure_decode(gi.model, frames, context, ids, lens, "int4 + int8 KV")
         counts["dequant_gemv[int4]"] = counts4["dequant_gemv[int4]"]
-        del gi, results, raw_requests, frames, context, raw
+        del gi, results, frames, context, raw
+        torch.cuda.empty_cache()
+
+        log("[serve] video branch at SAM image size 512 (32x32 memory grid), "
+            "bf16 weights, raw frames")
+        cfg512 = dataclasses.replace(
+            cfg, sam2=dataclasses.replace(cfg.sam2, image_size=512))
+        gi = build(cfg512, "none", "bf16", "bf16 LLM, SAM image size 512")
+        results, track512_counts = phase_serve(
+            gi, cfg512, "track512", raw_requests[:N_TRACK_REQUESTS], raw=True,
+            track=True)
+        log("[check] video branch at 512")
+        check_outputs(cfg512, results, "video branch at 512",
+                      t_sam=cfg.num_frames)
+        del gi, results, raw_requests
         torch.cuda.empty_cache()
 
         log("[check] narrow model on the card against the CPU twins")
         phase_small_reference()
+        log("[check] narrow tracker on the card against the CPU twins")
+        for image_size in (1024, 512):
+            phase_small_track_reference(image_size)
 
         log(f"[train] flagship, {TRAIN_STEPS} optimizer steps of {GRAD_ACCUM} "
             "micro-steps, LoRA + lm_head + embed_tokens + text_hidden_fcs + "
@@ -1449,14 +1910,22 @@ def main() -> int:
     # launches: the serving main path's run (int8 + int8 KV from raw frames,
     # 3 requests); the int4 entry's from the int4 path's run (2 requests);
     # K6's from the training path's run, whose counts stand beside every
-    # kernel as launches_train (4 optimizer steps of 2 micro-steps)
+    # kernel as launches_train (4 optimizer steps of 2 micro-steps); K1 at
+    # head dim 256 from the video branch's run on the main path's model (2
+    # requests), whose counts stand beside every kernel as launches_track;
+    # K7's from the video branch at image size 512 (2 requests); K8's from
+    # the unhoisted Hiera forward
     counts["flash_bwd"] = train_counts["flash_bwd"]
+    counts["attention_fwd[flash_d256]"] = track_counts["attention_fwd[flash_d256]"]
+    counts["window_attention"] = track512_counts["window_attention"]
+    counts["smallwin_attention"] = hoist_counts["smallwin_attention"]
     kernels = []
     for key, row in K.rows.items():
         route, source = SOURCES[key.split("[")[0]]
         kernels.append(dict(name=key, route=route, source=source,
                             replaces=REPLACES[key], launches=counts[key],
-                            launches_train=train_counts[key], **row))
+                            launches_train=train_counts[key],
+                            launches_track=track_counts[key], **row))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

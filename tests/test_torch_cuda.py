@@ -49,6 +49,17 @@ def _close(got, ref, tol, what):
     assert err <= tol * scale, f"{what}: max|d|={err:.3e} > {tol}*{scale:.3g}"
 
 
+def _close_l2(got, ref, tol, what):
+    """Relative L2 over all elements. `_close` measures against max(|ref|, 1),
+    which holds an output far below 1 to nothing: attention over S keys of
+    unit variance has a deviation of about sqrt(e / S). A dropped key tile,
+    a softmax scale off by a tenth or an unmasked last tile each move the
+    relative L2 by 2e-2 and more."""
+    g, r = got.double(), ref.double()
+    rel = ((g - r).norm() / r.norm()).item()
+    assert rel <= tol, f"{what}: relative L2 {rel:.3e} > {tol}"
+
+
 @pytest.mark.parametrize("B,H,Sq,Sk,D,kv,qs", [
     (2, 4, 300, 300, 96, (300, 211), (0, 0)),      # prefill, ragged kv_len
     (1, 2, 130, 384, 64, (300,), None),            # decode convention
@@ -369,3 +380,214 @@ def test_k3_backward_recomputes_through_the_plain_twin(dev, rms, bias):
     for a, r in zip(got, want):
         assert a.dtype == r.dtype
         _close(a, r, 1e-5, "gradient")   # the same f32 twin, atomics aside
+
+
+# ---------------------------------------------------------------------------
+# K7 (whole-row-softmax window attention), K8 (tiny-window attention) and
+# K1 at head dim 256 / f32 storage. Tolerance 2e-2 of the output scale: f32
+# operands are rounded to bf16 on the way into shared memory and p is
+# rounded to bf16 before p v, so against the twin (f32 products of the same
+# operands, p rounded at the same place for bf16 operands) entries differ by
+# a few bf16 ulps (2^-8).
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,H,S,D,dtype", [
+    (4, 1, 1024, 256, torch.float32),       # memory self-attention, 32x32 grid
+    (2, 16, 1025, 88, torch.bfloat16),      # InternVideo2
+    (2, 16, 577, 64, torch.bfloat16),       # CLIP
+    (2, 3, 256, 72, torch.float32),         # the JAX test's shapes
+    (1, 2, 577, 64, torch.float32),
+    (1, 1, 130, 88, torch.bfloat16),
+    (1, 2, 1536, 96, torch.bfloat16),
+    (1, 2, 700, 128, torch.bfloat16),
+    (3, 1, 520, 256, torch.bfloat16),
+])
+def test_k7_window_attention_matches_plain(dev, B, H, S, D, dtype):
+    rng = np.random.default_rng(20)
+    q, k, v = (_randn(rng, (B, H, S, D), dev, dtype=dtype) for _ in range(3))
+    before = attn.LAUNCHES["window_attn"]
+    got = attn.window_attention_kernel(q, k, v, sm_scale=D ** -0.5)
+    assert attn.LAUNCHES["window_attn"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = attn._window_attention_plain(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    _close(got, ref, 2e-2, f"window S={S} D={D}")
+    # bf16 operands: the kernel rounds where the twin rounds (1.3e-4
+    # measured); f32 operands are rounded to bf16 on the way in (3.4e-3)
+    _close_l2(got, ref, 1e-2 if dtype == torch.float32 else 1e-3,
+              f"window S={S} D={D}")
+
+
+def test_k7_is_the_medium_branch_of_the_dispatcher(dev):
+    """Non-causal self-attention with 512 < S <= 1536 launches K7, through
+    strided [B,S,H,D] views too; under a gradient the backward recomputes
+    through the plain twin."""
+    rng = np.random.default_rng(21)
+    x = _randn(rng, (2, 640, 3, 4, 64), dev)
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    attn.LAUNCHES.clear()
+    got = attn.dot_product_attention(q, k, v)
+    assert attn.LAUNCHES["window_attn"] == 1 and attn.LAUNCHES["flash"] == 0
+    ref = attn._window_attention_plain(q, k, v, 64 ** -0.5)
+    _close(got, ref, 2e-2, "dispatcher")
+    _close_l2(got, ref, 1e-3, "dispatcher")
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    g = _randn(rng, tuple(got.shape), dev)
+    out = attn.dot_product_attention(qg, kg, vg)
+    assert attn.LAUNCHES["window_attn"] == 2
+    grads = torch.autograd.grad(out, (qg, kg, vg), g)
+    want = torch.autograd.grad(
+        attn._window_attention_plain(qg, kg, vg, 64 ** -0.5), (qg, kg, vg), g)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)      # the same plain backward on both sides
+
+
+@pytest.mark.parametrize("NW,S,H,hd", [
+    (1024, 64, 2, 72), (1024, 16, 4, 72),     # Hiera stages 1 and 2
+    (16, 64, 2, 72), (32, 16, 4, 72), (8, 64, 16, 72), (6, 64, 2, 40),
+    (24, 16, 1, 88), (3, 64, 2, 72), (7, 16, 4, 72), (5, 32, 3, 128),
+    (9, 32, 2, 32),
+])
+def test_k8_smallwin_attention_matches_plain(dev, NW, S, H, hd):
+    rng = np.random.default_rng(22)
+    qkv = _randn(rng, (NW, S, 3 * H * hd), dev)
+    before = attn.LAUNCHES["smallwin"]
+    got = attn.attention_packed_qkv_smallwin(qkv, H, hd)
+    assert attn.LAUNCHES["smallwin"] == before + 1
+    ref = attn._smallwin_plain(qkv, H, hd ** -0.5)
+    torch.cuda.synchronize()
+    _close(got, ref, 2e-2, f"smallwin NW={NW} S={S} H={H} hd={hd}")
+    _close_l2(got, ref, 1e-3, f"smallwin NW={NW} S={S} H={H} hd={hd}")
+
+
+def test_k8_backward_recomputes_through_the_plain_twin(dev):
+    rng = np.random.default_rng(23)
+    qkv = _randn(rng, (4, 64, 3 * 2 * 72), dev).requires_grad_(True)
+    g = _randn(rng, (4, 64, 2 * 72), dev)
+    out = attn.attention_packed_qkv_smallwin(qkv, 2, 72)
+    (got,) = torch.autograd.grad(out, qkv, g)
+    (want,) = torch.autograd.grad(attn._smallwin_plain(qkv, 2, 72 ** -0.5), qkv, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,dtype,causal", [
+    (2, 1, 2048, 2048, 256, torch.float32, False),   # memory self-attention
+    (1, 2, 1100, 1100, 256, torch.bfloat16, False),
+    (1, 1, 300, 500, 200, torch.bfloat16, True),     # padded to 256
+    (2, 4, 300, 300, 96, torch.float32, True),       # f32 at a narrow head
+    (1, 2, 2100, 2100, 72, torch.float32, False),
+])
+def test_k1_head_dim_256_and_f32_match_plain(dev, B, H, Sq, Sk, D, dtype, causal):
+    rng = np.random.default_rng(24)
+    q, k, v = (_randn(rng, (B, H, s, D), dev, dtype=dtype) for s in (Sq, Sk, Sk))
+    attn.LAUNCHES.clear()
+    got = attn.flash_attention(q, k, v, causal=causal)
+    mode = "causal" if causal else ("flash_d256" if D > 128 else "flash")
+    assert attn.LAUNCHES[mode] == 1
+    assert got.dtype == dtype
+    kvl = torch.full((B,), Sk, dtype=torch.int32, device=dev)
+    ref = attn._attention_plain(q, k, v, causal=causal, sm_scale=D ** -0.5,
+                                kv_lens=kvl, q_start=kvl - Sq)
+    torch.cuda.synchronize()
+    _close(got, ref, 2e-2, f"K1 D={D} {dtype}")
+    _close_l2(got, ref, 1e-2, f"K1 D={D} {dtype}")
+
+
+def test_k1_k7_k8_refuse_unsupported_operands(dev):
+    rng = np.random.default_rng(25)
+    q = _randn(rng, (1, 1, 600, 264), dev)
+    with pytest.raises(ValueError):                 # D > 256
+        attn.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        attn.window_attention_kernel(q, q, q, sm_scale=1.0)
+    h = _randn(rng, (1, 1, 600, 64), dev, dtype=torch.float16)
+    with pytest.raises(ValueError):                 # fp16
+        attn.window_attention_kernel(h, h, h, sm_scale=1.0)
+    with pytest.raises(ValueError):                 # mixed dtypes
+        attn.flash_attention(q[..., :64].contiguous().float(),
+                             q[..., :64].contiguous(), q[..., :64].contiguous())
+    long = _randn(rng, (1, 1, 1600, 64), dev)
+    with pytest.raises(ValueError):                 # S > 1536
+        attn.window_attention_kernel(long, long, long, sm_scale=1.0)
+    x = _randn(rng, (4, 24, 3 * 2 * 72), dev)
+    with pytest.raises(ValueError):                 # 24-token windows
+        attn.attention_packed_qkv_smallwin(x, 2, 72)
+    with pytest.raises(ValueError):                 # f32 qkv
+        attn.attention_packed_qkv_smallwin(
+            _randn(rng, (4, 16, 3 * 2 * 72), dev, dtype=torch.float32), 2, 72)
+    with pytest.raises(ValueError):                 # head dim 136
+        attn.attention_packed_qkv_smallwin(
+            _randn(rng, (4, 16, 3 * 136), dev), 1, 136)
+
+
+@pytest.mark.parametrize("image_size,counter", [(512, "window_attn"),
+                                                (1024, "flash_d256")])
+def test_narrow_tracker_on_the_card_matches_cpu(dev, image_size, counter):
+    """The tracker's memory path on the card against the CPU twins in f32:
+    a narrow Hiera under full-width memory modules (d_model 256, one
+    memory-attention layer), two objects, the conditioning frame and one
+    memory-conditioned step on the reference's bank. Both sides get the
+    reference's f32 image features, so the card runs the f32 memory
+    attention through K7 (32x32 grid) or K1 at head dim 256 (64x64 grid),
+    whose operands are rounded to bf16: 2e-2 of the output scale on every
+    mask candidate, IoU, object score and the conditioned features."""
+    from videoglamm_torch.config import HieraConfig, SAM2Config
+    from videoglamm_torch.models.common import LayerNorm
+    from videoglamm_torch.models.sam2 import video_predictor as vp
+    from videoglamm_torch.models.sam2.sam2_base import SAM2Base
+
+    cfg = SAM2Config(hiera=HieraConfig(embed_dim=16, num_heads=1,
+                                       stages=(1, 1, 1, 1),
+                                       global_att_blocks=(2,)),
+                     image_size=image_size, memory_attention_layers=1)
+    g = torch.Generator().manual_seed(30)
+    ref = SAM2Base(cfg).eval()
+    with torch.no_grad():
+        norms_ = {id(p) for m in ref.modules() if isinstance(m, LayerNorm)
+                  for p in m.parameters()}
+        for p in ref.parameters():
+            if id(p) not in norms_:
+                p.normal_(0.0, 0.05, generator=g)
+        # the object-score gate decided by a margin far above the rounding
+        ref.sam_mask_decoder.pred_obj_score_head.layers[-1].bias.fill_(2.0)
+    card = SAM2Base(cfg).eval()
+    card.load_state_dict(ref.state_dict())
+    card.to(dev)
+    T, B = 2, 2
+    frames = torch.randn(T, image_size, image_size, 3, generator=g)
+    text = torch.randn(B, 1, cfg.d_model, generator=g)
+
+    def per_obj(feats, t, device):
+        return [f[t][None].expand(B, *f.shape[1:]).to(device) for f in feats]
+
+    with torch.no_grad():
+        feats, pos = ref.forward_image(frames)
+        heads0, bank = vp.track_init_frame(ref, per_obj(feats, 0, "cpu"),
+                                           pos[-1], text)
+        cheads0, _ = vp.track_init_frame(card, per_obj(feats, 0, dev),
+                                         pos[-1].to(dev), text.to(dev))
+        cbank = vp.MemoryBank(*(x.clone().to(dev) for x in bank))
+        memory, mem_pos, kv_mask, n_ptr = vp.assemble_memory(ref, bank, 1, T)
+        want_cond = ref.condition_features(
+            per_obj(feats, 1, "cpu")[-1], pos[-1].expand(B, *pos[-1].shape),
+            memory, mem_pos, n_ptr, kv_mask)
+        attn.LAUNCHES.clear()
+        got_cond = card.condition_features(
+            per_obj(feats, 1, dev)[-1], pos[-1].to(dev).expand(B, *pos[-1].shape),
+            memory.to(dev), mem_pos.to(dev), n_ptr, kv_mask.to(dev))
+        assert attn.LAUNCHES[counter] == 1
+        heads1, _ = vp.track_step(ref, per_obj(feats, 1, "cpu"), pos[-1], bank,
+                                  1, T)
+        cheads1, _ = vp.track_step(card, per_obj(feats, 1, dev), pos[-1].to(dev),
+                                   cbank, 1, T)
+    torch.cuda.synchronize()
+    _close(got_cond.cpu(), want_cond, 2e-2, "conditioned features")
+    _close_l2(got_cond.cpu(), want_cond, 2e-2, "conditioned features")
+    for t, (c, r) in enumerate(((cheads0, heads0), (cheads1, heads1))):
+        for name in ("low_res_multimasks", "ious", "object_score_logits"):
+            _close(getattr(c, name).cpu(), getattr(r, name), 2e-2,
+                   f"frame {t} {name}")
+            _close_l2(getattr(c, name).cpu(), getattr(r, name), 2e-2,
+                      f"frame {t} {name}")
+    assert attn.LAUNCHES[counter] == 2

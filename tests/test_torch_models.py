@@ -195,9 +195,7 @@ def test_mask_decoder_matches_jax():
 
     tcfg = from_jax.port_config(cfg)
     tp = PromptEncoder(tcfg)
-    tp.load_state_dict({
-        "pe_layer.positional_encoding_gaussian_matrix": _t(pp["params"]["pe_gauss"]),
-        "no_mask_embed.weight": _t(pp["params"]["no_mask_embed"])[None]})
+    tp.load_state_dict(from_jax.prompt_encoder_state_dict(pp["params"]))
     td = MaskDecoder(tcfg)
     conv_s = [{"kernel": rng.randn(C, C // r).astype(np.float32),
                "bias": rng.randn(C // r).astype(np.float32)} for r in (8, 4)]
@@ -205,6 +203,14 @@ def test_mask_decoder_matches_jax():
     tsparse, tdense = tp(_t(text))
     _close(tsparse, sparse, 0)
     _close(tdense, dense, 0)
+    # point prompts: every label, padding (-1) included, plus the padding
+    # point that the encoder appends (prompt_encoder.py:60-71,:92-99)
+    coords = rng.rand(B, 5, 2).astype(np.float32) * cfg.image_size
+    labels = np.tile(np.array([[-1, 0, 1, 2, 3]], np.int32), (B, 1))
+    psparse, _ = jp.apply(pp, points=(coords, labels), text_embeds=text)
+    tpsparse, _ = tp(_t(text), points=(_t(coords), torch.from_numpy(labels)))
+    assert tpsparse.shape == (B, 5 + 1 + 1, C)
+    _close(tpsparse, psparse, 1e-5, "point prompts")
     _close(tp.get_dense_pe(), image_pe, 1e-5)
     with torch.no_grad():
         for training in (False, True):

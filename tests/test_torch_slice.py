@@ -89,7 +89,7 @@ def slice_setup():
     ref = jax.jit(lambda p, *a: jm.apply(p, *a, method=_jax_slice))(params, *args)
     ref = [np.asarray(r, np.float32) for r in ref]
     tm = VideoGLaMM(port_config(CFG)).eval()
-    tm.load_state_dict(videoglamm_state_dict(params, CFG))
+    tm.load_weights(videoglamm_state_dict(params, CFG))
     inputs = [torch.from_numpy(a) for a in (frames, ctx, sam, ids)]
     return tm, inputs, ref
 
@@ -149,9 +149,10 @@ def test_grounded_inference_contract(slice_setup):
 
 def test_port_imports_and_runs_without_jax():
     """videoglamm_torch imports neither jax nor videoglamm_tpu: with both
-    blocked, import the package, the pipeline and the quantisation and
-    preprocessing modules, and serve a tiny model on the CPU, bf16-mode from
-    streams and int8 (weights + KV cache) from raw frames."""
+    blocked, import the package, the pipeline, the quantisation and
+    preprocessing modules and the tracker's modules, and serve a tiny model
+    on the CPU: bf16-mode from streams, int8 (weights + KV cache) from raw
+    frames, and the video branch (the memory tracker) from raw frames."""
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'videoglamm_tpu'): sys.modules[name] = None\n"
@@ -159,7 +160,9 @@ def test_port_imports_and_runs_without_jax():
         "from videoglamm_torch.inference.pipeline import GroundedInference\n"
         "from videoglamm_torch.models.videoglamm import VideoGLaMM\n"
         "from videoglamm_torch.io import from_jax\n"
-        "from videoglamm_torch.ops import preprocess, quant, resize\n"
+        "from videoglamm_torch.ops import preprocess, quant, resize, rope\n"
+        "from videoglamm_torch.models.sam2 import (memory, sam2_base,\n"
+        "    video_predictor, prompt_encoder, transformer, hiera)\n"
         "from videoglamm_torch.inference.pipeline import build_inference\n"
         "from videoglamm_torch.config import VideoGLaMMConfig\n"
         "cfg = VideoGLaMMConfig.tiny(num_frames=4)\n"
@@ -174,6 +177,9 @@ def test_port_imports_and_runs_without_jax():
         "raw = torch.randint(0, 256, (1, 4, 48, 85, 3), dtype=torch.uint8)\n"
         "out = gi.serve_raw(raw, ids, torch.tensor([8]), num_sam_frames=1)\n"
         "assert out.pred_masks.shape == (1, 4, 1, 32, 32)\n"
+        "out = gi.serve_raw(raw, ids, torch.tensor([8]), use_video_branch=True)\n"
+        "assert out.pred_masks.shape == (1, 4, 4, 32, 32)\n"
+        "assert torch.isfinite(out.pred_masks).all()\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'videoglamm_tpu')\n"
         "               and v is not None\n"
         "               for k, v in sys.modules.items())\n"

@@ -136,15 +136,30 @@ class HieraConfig:
 
 @dataclass(frozen=True)
 class SAM2Config:
-    """SAM-2 image path: Hiera + FPN, prompt encoder, mask decoder. The
-    memory and tracking fields come with the tracking branch."""
+    """SAM-2: Hiera + FPN, prompt encoder, mask decoder, and the memory
+    machinery of the video-branch tracker."""
     hiera: HieraConfig = field(default_factory=HieraConfig.hiera_l)
     image_size: int = 1024
     d_model: int = 256                 # FPN/neck and two-way transformer width
     backbone_scalp: int = 1            # drop the lowest-resolution level
     fpn_top_down_levels: Tuple[int, ...] = (2, 3)
+    # memory machinery
+    num_maskmem: int = 7
+    mem_dim: int = 64
+    memory_attention_layers: int = 4
+    memory_attention_dim_feedforward: int = 2048
+    memory_rope_theta: float = 10000.0
+    max_obj_ptrs_in_encoder: int = 16
+    # the memory bank's temporal stride at evaluation (the `r` of XMem)
+    memory_temporal_stride_for_eval: int = 1
+    # prompted-frame masks are hard-thresholded before memory encoding
+    binarize_mask_from_pts_for_mem_enc: bool = True
+    sigmoid_scale_for_mem_enc: float = 20.0
+    sigmoid_bias_for_mem_enc: float = -10.0
     use_high_res_features_in_sam: bool = True
+    multimask_output_in_sam: bool = True
     iou_prediction_use_sigmoid: bool = True
+    multimask_output_for_tracking: bool = True
     use_multimask_token_for_obj_ptr: bool = True
     dynamic_multimask_via_stability: bool = True
     dynamic_multimask_stability_delta: float = 0.05
@@ -164,7 +179,9 @@ class SAM2Config:
 
     @staticmethod
     def tiny() -> "SAM2Config":
-        return SAM2Config(hiera=HieraConfig.tiny(), image_size=128, d_model=32)
+        return SAM2Config(hiera=HieraConfig.tiny(), image_size=128, d_model=32,
+                          memory_attention_layers=1,
+                          memory_attention_dim_feedforward=64, mem_dim=16)
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,5 @@
-// K1: online-softmax attention forward for Hopper (sm_90a), bf16 in/out,
-// f32 accumulation, mma.sync m16n8k16 tensor-core tiles.
+// K1: online-softmax attention forward for Hopper (sm_90a), bf16 or f32
+// in/out, f32 accumulation, mma.sync m16n8k16 bf16 tensor-core tiles.
 //
 // Replaces two Pallas TPU kernels of videoglamm_tpu/ops/attention.py:
 //   * _flash_kernel (:93, launched by _flash_fwd :245): blockwise
@@ -29,6 +29,20 @@
 // With an `lse` pointer it also writes each row's log-sum-exp of the scaled
 // logits (:176-180), which training saves for the backward; serving passes
 // none.
+// Head dim 256 (one 256-wide head: SAM-2 memory self-attention). With Q held
+// as A fragments (DP/16 x 4 registers) and the output accumulator (DP/8 x 4
+// floats) a thread would need 64 + 128 registers before anything else, over
+// the 255 limit. The 256 instantiation therefore reloads each Q fragment
+// from shared memory at the K step that uses it (the Q tile stays resident
+// there anyway) and takes 32-key tiles, which halves the logits registers;
+// narrower heads keep Q in registers and 64-key tiles.
+// f32 operands (the f32 memory modules of SAM-2): q, k and v are rounded to
+// bf16 on the way into shared memory, which is what the bf16 model does at
+// every other product; accumulation, softmax and the output stay f32. Against
+// the f32 plain twin that costs bf16-class error (a few 2^-9 of the output
+// scale); TF32 tiles or a bf16 hi/lo split would cost a second fragment
+// layout resp. three products for one, and are left for when a caller needs
+// them.
 // Later work: cp.async/TMA double buffering and wgmma (see ROADMAP.md).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -37,15 +51,16 @@
 
 namespace {
 
+#include "mma_common.cuh"
+
 constexpr int BM = 64;        // queries per CTA (4 warps x 16 rows)
-constexpr int BN = 64;        // keys per shared-memory tile
 constexpr int NTHREADS = 128;
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* o;
+  const void* q;        // bf16 or f32 (the kernel's T), strides in elements
+  const void* k;
+  const void* v;
+  void* o;
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -59,25 +74,9 @@ struct Params {
   float scale_log2;     // sm_scale * log2(e): the softmax runs on exp2
 };
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int DP>
+// DP: padded head dim; BN: keys per shared-memory tile; QREG: Q fragments
+// live in registers (else reloaded from shared memory per K step).
+template <int DP, int BN, bool QREG, typename T>
 __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(const Params p) {
   constexpr int LDS = DP + 8;   // padded row stride (elements): no bank conflicts
   constexpr int LDV = BN + 8;
@@ -104,10 +103,10 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(const Params p) {
   const int kv_len = p.kv_lens ? min(p.kv_lens[b], p.Sk) : p.Sk;
   const int q_off = p.q_start ? p.q_start[b] : 0;
 
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   // live key range of this query tile (tiles outside it are skipped)
   const int last_row = min(m0 + BM, p.Sq) - 1;
@@ -125,21 +124,23 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(const Params p) {
     const int r = idx / CH, d0 = (idx % CH) * 8;
     const int row = m0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < p.Sq && d0 < p.D)
-      val = *reinterpret_cast<const uint4*>(qb + row * p.q_ss + d0);
+    if (row < p.Sq && d0 < p.D) val = Io<T>::load8(qb + row * p.q_ss + d0);
     *reinterpret_cast<uint4*>(sQ + r * LDS + d0) = val;
   }
   __syncthreads();
 
   const int qr = warp * 16;
-  uint32_t qf[KS][4];
+  const __nv_bfloat16* qbase = sQ + (qr + g) * LDS + 2 * t;
+  uint32_t qf[QREG ? KS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const __nv_bfloat16* base = sQ + (qr + g) * LDS + ks * 16 + 2 * t;
-    qf[ks][0] = ld32(base);
-    qf[ks][1] = ld32(base + 8 * LDS);
-    qf[ks][2] = ld32(base + 8);
-    qf[ks][3] = ld32(base + 8 * LDS + 8);
+    for (int ks = 0; ks < KS; ++ks) {
+      const __nv_bfloat16* base = qbase + ks * 16;
+      qf[ks][0] = ld32(base);
+      qf[ks][1] = ld32(base + 8 * LDS);
+      qf[ks][2] = ld32(base + 8);
+      qf[ks][3] = ld32(base + 8 * LDS + 8);
+    }
   }
 
   const int r0 = m0 + qr + g;   // this thread's two query rows
@@ -159,8 +160,8 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(const Params p) {
       const int key = k0 + r;
       uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = make_uint4(0u, 0u, 0u, 0u);
       if (key < kv_len && d0 < p.D) {   // rows past kv_len read as zeros
-        kv4 = *reinterpret_cast<const uint4*>(kb + key * p.k_ss + d0);
-        vv4 = *reinterpret_cast<const uint4*>(vb + key * p.v_ss + d0);
+        kv4 = Io<T>::load8(kb + key * p.k_ss + d0);
+        vv4 = Io<T>::load8(vb + key * p.v_ss + d0);
       }
       *reinterpret_cast<uint4*>(sK + r * LDS + d0) = kv4;
       const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
@@ -169,15 +170,26 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(const Params p) {
     }
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
+    // S = Q K^T for this warp's 16 rows x BN keys
     float s[NT][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      if constexpr (QREG) {
+        a[0] = qf[ks][0]; a[1] = qf[ks][1]; a[2] = qf[ks][2]; a[3] = qf[ks][3];
+      } else {
+        const __nv_bfloat16* base = qbase + ks * 16;
+        a[0] = ld32(base);
+        a[1] = ld32(base + 8 * LDS);
+        a[2] = ld32(base + 8);
+        a[3] = ld32(base + 8 * LDS + 8);
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
         const __nv_bfloat16* kbase = sK + (n * 8 + g) * LDS + ks * 16 + 2 * t;
-        mma_bf16(s[n], qf[ks], ld32(kbase), ld32(kbase + 8));
+        mma_bf16(s[n], a, ld32(kbase), ld32(kbase + 8));
       }
     }
 
@@ -261,38 +273,49 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(const Params p) {
     const int col = dn * 8 + 2 * t;
     if (col < p.D) {
       if (r0 < p.Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * p.o_ss + col) =
-            __floats2bfloat162_rn(acc[dn][0] * inv[0], acc[dn][1] * inv[0]);
+        Io<T>::store2(ob + r0 * p.o_ss + col, acc[dn][0] * inv[0], acc[dn][1] * inv[0]);
       if (r1 < p.Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + r1 * p.o_ss + col) =
-            __floats2bfloat162_rn(acc[dn][2] * inv[1], acc[dn][3] * inv[1]);
+        Io<T>::store2(ob + r1 * p.o_ss + col, acc[dn][2] * inv[1], acc[dn][3] * inv[1]);
     }
   }
 }
 
-template <int DP>
+template <int DP, int BN, bool QREG, typename T>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int smem = (BM * (DP + 8) + BN * (DP + 8) + DP * (BN + 8)) * 2;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        attn_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        attn_fwd_kernel<DP, BN, QREG, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const long long nmt = (p.Sq + BM - 1) / BM;
   const long long blocks = nmt * p.H * p.B;
-  attn_fwd_kernel<DP><<<(unsigned)blocks, NTHREADS, smem, stream>>>(p);
+  attn_fwd_kernel<DP, BN, QREG, T><<<(unsigned)blocks, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const Params& p, cudaStream_t s) {
+  const int D = p.D;
+  if (D <= 32) return launch<32, 64, true, T>(p, s);
+  if (D <= 64) return launch<64, 64, true, T>(p, s);
+  if (D <= 80) return launch<80, 64, true, T>(p, s);
+  if (D <= 96) return launch<96, 64, true, T>(p, s);
+  if (D <= 128) return launch<128, 64, true, T>(p, s);
+  if (D <= 256) return launch<256, 32, false, T>(p, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entry (bound with ctypes). Returns a cudaError_t code, 0 = ok.
-// Strides are in elements; the head dim must be contiguous, D % 8 == 0,
-// D <= 128, every stride a multiple of 8 and every pointer 16-byte aligned
-// (checked by the Python wrapper). `lse` is null or a contiguous f32
-// [B,H,Sq].
+// q, k, v and o are bf16, or f32 when `is_f32` is set. Strides are in
+// elements; the head dim must be contiguous, D % 8 == 0, D <= 256, every
+// stride a multiple of 8 and every pointer 16-byte aligned (checked by the
+// Python wrapper). `lse` is null or a contiguous f32 [B,H,Sq].
 extern "C" int vgt_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_sh, long long q_ss,
@@ -301,13 +324,10 @@ extern "C" int vgt_attention_fwd(
     long long o_sb, long long o_sh, long long o_ss,
     const void* kv_lens, const void* q_start,
     int B, int H, int Sq, int Sk, int D, int causal, int win,
-    float sm_scale, void* lse, void* stream) {
+    float sm_scale, void* lse, int is_f32, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
+  p.q = q; p.k = k; p.v = v; p.o = o;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
@@ -319,12 +339,6 @@ extern "C" int vgt_attention_fwd(
   p.causal = causal; p.win = win;
   p.scale_log2 = sm_scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (D <= 32) e = launch<32>(p, s);
-  else if (D <= 64) e = launch<64>(p, s);
-  else if (D <= 80) e = launch<80>(p, s);
-  else if (D <= 96) e = launch<96>(p, s);
-  else if (D <= 128) e = launch<128>(p, s);
-  else e = cudaErrorInvalidValue;
-  return static_cast<int>(e);
+  return static_cast<int>(is_f32 ? dispatch<float>(p, s)
+                                : dispatch<__nv_bfloat16>(p, s));
 }

@@ -1,8 +1,10 @@
-"""End-to-end grounded inference, framewise (PyTorch port of
+"""End-to-end grounded inference (PyTorch port of
 videoglamm_tpu/inference/pipeline.py): raw uint8 frames -> the three
 preprocessed streams -> encode video -> generate text with [SEG] tokens ->
-project the [SEG] hidden states -> encode every SAM frame -> one batched
-mask decode over every ([SEG], frame) pair.
+project the [SEG] hidden states -> masks. Framewise: encode every SAM frame,
+then one batched mask decode over every ([SEG], frame) pair. With
+`use_video_branch=True`: the SAM-2 memory tracker, every [SEG] an object
+prompted on frame 0 and propagated through the frames.
 
 `build_inference` is the port's model construction (counterpart of
 `load_model`, videoglamm_tpu/cli/common.py:53): it builds on the card
@@ -67,8 +69,8 @@ def prepare_vision_inputs(raw_frames, cfg, *, num_sam_frames=None,
 
 
 class GroundedInference:
-    """Grounded video chat / GCG pipeline: framewise (the SAM-2 memory
-    tracker of `use_video_branch` is not ported yet) and greedy. The LLM's
+    """Grounded video chat / GCG pipeline, greedy; masks framewise or, with
+    `use_video_branch=True`, from the SAM-2 memory tracker. The LLM's
     serving mode (bf16, int8 or int4 weights; bf16 or int8 KV cache) is the
     model's (`build_inference`)."""
 
@@ -80,10 +82,16 @@ class GroundedInference:
 
     @torch.no_grad()
     def __call__(self, frames, context_images, frames_sam, input_ids,
-                 text_lens, timings: Optional[dict] = None) -> InferenceResult:
+                 text_lens, timings: Optional[dict] = None,
+                 use_video_branch: bool = False) -> InferenceResult:
         """frames [B,T,224,224,3]; context [B,T,336,336,3]; frames_sam
         [B,T_sam,S,S,3]; input_ids [B,S_text]. With a `timings` dict, each
-        stage is synchronised and its wall seconds recorded there."""
+        stage is synchronised and its wall seconds recorded there.
+        use_video_branch=True runs the SAM-2 memory tracker (stage `track`)
+        in place of the independent per-frame decoding (stages `sam_encode`
+        and `mask_decode`); the rows of a batch are tracked one after the
+        other, where the JAX pipeline maps its tracker over them
+        (pipeline.py:94-97)."""
         m = self.model
         clock = _StageClock(timings, frames.device)
         visual = m.encode_visual_prefix(frames, context_images)
@@ -93,12 +101,18 @@ class GroundedInference:
                                    eos_id=self.eos_id)
         clock("generate")
         seg = extract_seg_from_generation(m, gen)
-        sam_feats, _ = m.encode_sam_features(frames_sam)
-        clock("sam_encode")
-        vidx = torch.arange(frames_sam.shape[0], device=frames_sam.device)
-        masks = m.decode_masks(sam_feats, seg, vidx)
-        masks = torch.where(seg.valid[:, :, None, None, None], masks, -1e4)
-        clock("mask_decode")
+        if use_video_branch:
+            masks = torch.stack([m.track_masks(f, e)
+                                 for f, e in zip(frames_sam, seg.embeds)])
+            masks = torch.where(seg.valid[:, :, None, None, None], masks, -1e4)
+            clock("track")
+        else:
+            sam_feats, _ = m.encode_sam_features(frames_sam)
+            clock("sam_encode")
+            vidx = torch.arange(frames_sam.shape[0], device=frames_sam.device)
+            masks = m.decode_masks(sam_feats, seg, vidx)
+            masks = torch.where(seg.valid[:, :, None, None, None], masks, -1e4)
+            clock("mask_decode")
         return InferenceResult(tokens=gen.tokens, lengths=gen.lengths,
                                seg_valid=seg.valid, pred_masks=masks)
 
@@ -106,10 +120,12 @@ class GroundedInference:
     @torch.no_grad()
     def serve_raw(self, raw_frames, input_ids, text_lens, *,
                   num_sam_frames: Optional[int] = None,
-                  timings: Optional[dict] = None) -> InferenceResult:
+                  timings: Optional[dict] = None,
+                  use_video_branch: bool = False) -> InferenceResult:
         """One request from raw decoded frames: raw_frames [B,T,H,W,3] uint8
         on the model's device -> the three streams in the model's compute
-        dtype (`preprocess` stage) -> `__call__`."""
+        dtype (`preprocess` stage) -> `__call__`. num_sam_frames=None sends
+        every frame to SAM, as the tracker is driven."""
         m = self.model
         clock = _StageClock(timings, raw_frames.device)
         dtype = m.llm.model.embed_tokens.weight.dtype
@@ -117,7 +133,8 @@ class GroundedInference:
                                         num_sam_frames=num_sam_frames,
                                         dtype=dtype)
         clock("preprocess")
-        return self(*streams, input_ids, text_lens, timings=timings)
+        return self(*streams, input_ids, text_lens, timings=timings,
+                    use_video_branch=use_video_branch)
 
 
 def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
@@ -156,7 +173,7 @@ def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
                            quant_kv_int8=kv_cache == "int8")
     model.to(dev)     # tensors made from numpy ignore the device context
     if state_dict is not None:
-        model.load_state_dict(state_dict)
+        model.load_weights(state_dict)
     elif init is not None:
         init(model)
     if quant != "none" and not prequant:

@@ -22,8 +22,11 @@ multiple of 8, as `QDense` holds it) resp. [out, in/2] and [out, in/group].
 The transpose keeps the nibble order along K: packed byte r of a row still
 holds k = 2r low and k = 2r + 1 high.
 
-Parameters the port does not build (the SAM-2 memory machinery, the point,
-box and mask prompt embeddings) are skipped.
+Parameters the port does not build (the mask-prompt convs of the SAM-2
+prompt encoder) are skipped. A tree initialised without the tracker has no
+leaves for the memory encoder, the memory attention, `obj_ptr_proj` or
+`mask_downsample`; the state dict then has none either
+(`VideoGLaMM.load_weights` takes such a one).
 """
 from __future__ import annotations
 
@@ -253,17 +256,88 @@ def image_encoder_state_dict(p) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def prompt_encoder_state_dict(p) -> Dict[str, torch.Tensor]:
+    """PromptEncoder params -> port PromptEncoder (the random-Fourier
+    matrix, the four point-label embeddings, the not-a-point and no-mask
+    embeddings; the mask-prompt convs are not built)."""
+    sd = {"pe_layer.positional_encoding_gaussian_matrix": _t(p["pe_gauss"]),
+          "not_a_point_embed.weight": _t(np.asarray(p["not_a_point_embed"])[None]),
+          "no_mask_embed.weight": _t(np.asarray(p["no_mask_embed"])[None])}
+    for i, row in enumerate(np.asarray(p["point_embeddings"])):
+        sd[f"point_embeddings.{i}.weight"] = _t(row[None])
+    return sd
+
+
+def _conv(p, prefix: str) -> Dict[str, torch.Tensor]:
+    """flax nn.Conv (HWIO; a depthwise kernel is [kh, kw, 1, C]) -> Conv2d."""
+    return {f"{prefix}.weight": _conv_hwio(p["kernel"]),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
+def memory_encoder_state_dict(p) -> Dict[str, torch.Tensor]:
+    """MemoryEncoder params -> port MemoryEncoder, under the reference
+    checkpoint's names (mask_downsampler.encoder.{0,1,3,...,12},
+    fuser.layers.*, the layer scale as `weight`)."""
+    sd = {}
+    enc = "mask_downsampler.encoder"
+    for i in range(4):
+        sd.update(_conv(p[f"mask_down_{i}"], f"{enc}.{3 * i}"))
+        sd.update(_norm(p[f"mask_down_ln_{i}"], f"{enc}.{3 * i + 1}"))
+    sd.update(_conv(p["mask_down_out"], f"{enc}.12"))
+    sd.update(_conv1x1(p["pix_feat_proj"], "pix_feat_proj"))
+    sd.update(_conv1x1(p["out_proj"], "out_proj"))
+    i = 0
+    while f"fuser_{i}" in p:
+        fp, pre = p[f"fuser_{i}"], f"fuser.layers.{i}"
+        sd.update(_conv(fp["dwconv"], f"{pre}.dwconv"))
+        sd.update(_norm(fp["norm"], f"{pre}.norm"))
+        sd.update(_linear(fp["pwconv1"], f"{pre}.pwconv1"))
+        sd.update(_linear(fp["pwconv2"], f"{pre}.pwconv2"))
+        sd[f"{pre}.weight"] = _t(fp["gamma"])
+        i += 1
+    return sd
+
+
+def memory_attention_state_dict(p) -> Dict[str, torch.Tensor]:
+    """MemoryAttention params -> port MemoryAttention (layers.{i}.*)."""
+    sd = _norm(p["norm"], "norm")
+    i = 0
+    while f"layers_{i}" in p:
+        lp, pre = p[f"layers_{i}"], f"layers.{i}"
+        for nm in ("self_attn", "cross_attn_image"):
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                sd.update(_linear(lp[nm][proj], f"{pre}.{nm}.{proj}"))
+        sd.update(_linear(lp["linear1"], f"{pre}.linear1"))
+        sd.update(_linear(lp["linear2"], f"{pre}.linear2"))
+        for nm in ("norm1", "norm2", "norm3"):
+            sd.update(_norm(lp[nm], f"{pre}.{nm}"))
+        i += 1
+    return sd
+
+
 def sam2_state_dict(p) -> Dict[str, torch.Tensor]:
-    """SAM2Base params -> port SAM2Base state_dict (image encoder, text
-    prompt path and mask decoder)."""
+    """SAM2Base params -> port SAM2Base state_dict. The tracker's submodules
+    are converted where the tree has them."""
     sd = _prefixed("image_encoder", image_encoder_state_dict(p["image_encoder"]))
-    pe = p["sam_prompt_encoder"]
-    sd["sam_prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"] = \
-        _t(pe["pe_gauss"])
-    sd["sam_prompt_encoder.no_mask_embed.weight"] = _t(
-        np.asarray(pe["no_mask_embed"])[None])
+    sd.update(_prefixed("sam_prompt_encoder",
+                        prompt_encoder_state_dict(p["sam_prompt_encoder"])))
     sd.update(_prefixed("sam_mask_decoder", mask_decoder_state_dict(
         p["sam_mask_decoder"], p.get("conv_s0"), p.get("conv_s1"))))
+    if "memory_encoder" in p:
+        sd.update(_prefixed("memory_encoder",
+                            memory_encoder_state_dict(p["memory_encoder"])))
+    if "memory_attention" in p:
+        sd.update(_prefixed("memory_attention",
+                            memory_attention_state_dict(p["memory_attention"])))
+    if "obj_ptr_proj" in p:
+        sd.update(_mlp_block(p["obj_ptr_proj"], "obj_ptr_proj"))
+    if "mask_downsample" in p:
+        sd.update(_conv(p["mask_downsample"], "mask_downsample"))
+    sd["no_mem_embed"] = _t(p["no_mem_embed"])
+    sd["no_mem_pos_enc"] = _t(p["no_mem_pos_enc"])
+    tpos = np.asarray(p["maskmem_tpos_enc"])             # [num_maskmem, 1, md]
+    sd["maskmem_tpos_enc"] = _t(tpos[:, :, None, :])
+    sd["no_obj_ptr"] = _t(np.asarray(p["no_obj_ptr"])[None])
     return sd
 
 

@@ -7,7 +7,13 @@ windowed non-pooling blocks then take `fused_window_block` (K3/K2/K1 on the
 card) exactly where the JAX package takes its fused Pallas block
 (hiera.py:305-309). Global blocks attend over the window-major token order
 (attention is permutation-invariant), which at 1024^2 is the K1 flash path.
-Frames run as one batch. Parameter names follow the reference checkpoint.
+With `Hiera(hoist_layout=False)` every windowed block partitions and
+unpartitions on its own and its attention takes the unfused branches of the
+JAX module: tiny windows of 16 or 64 tokens go to K8
+(`attention_packed_qkv_smallwin`), windows of 256 tokens and more are
+folded into super-windows of up to 512 tokens under a block-diagonal mask
+(K1's `win` mode). Frames run as one batch. Parameter names follow the
+reference checkpoint.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ from torch import nn
 
 from ...config import HieraConfig
 from ...ops.attention import (attention_bshd, attention_bshd_cross,
+                              attention_packed_qkv_padded,
+                              attention_packed_qkv_smallwin,
                               dot_product_attention)
 from ...ops.fused_block import fused_window_block
 from ..common import LayerNorm, Mlp
@@ -43,6 +51,21 @@ def window_unpartition(wins, ws: int, pad_hw, hw):
     return x.reshape(B, Hp, Wp, -1)[:, :H, :W]
 
 
+# folded super-window token target and the smallest window that takes the
+# super-window branch (hiera.py:132,141 without their environment knobs)
+_SUPERWIN_TARGET = 512
+_SUPERWIN_MIN = 256
+
+
+def _superwindow_fold(n_windows: int, win_tokens: int) -> int:
+    """Windows folded per attention row: the largest divisor of n_windows
+    whose folded token count stays <= _SUPERWIN_TARGET (hiera.py:144-152)."""
+    f = max(1, _SUPERWIN_TARGET // win_tokens)
+    while f > 1 and n_windows % f:
+        f -= 1
+    return f
+
+
 def _max_pool_2x(x):
     """2x2 max pool, stride 2, channels-last."""
     B, H, W, C = x.shape
@@ -63,11 +86,26 @@ class MultiScaleAttention(nn.Module):
         nh, d = self.num_heads, self.dim_out
         hd = d // nh
         S = H * W
-        # hiera.py:216-239. Windowed non-pooling blocks never get here at
-        # the supported image sizes: layout hoisting applies and they take
-        # the fused block. (JAX's tiny-window and super-window branches,
-        # hiera.py:168-209, serve the unhoisted layout; here such windows
-        # take attention_bshd.)
+        windowed = not self.q_pool and self.window_size > 0 and hd <= 128
+        # hiera.py:168-189: tiny windows (stages 1/2: 64 and 16 tokens)
+        # straight from the fused projection. The JAX module also asks for
+        # a window count that fills its packed tiles; K8 packs nothing, so
+        # any count takes it.
+        if windowed and S in (16, 64):
+            qkv = self.qkv(x.reshape(B * S, x.shape[-1]))
+            o = attention_packed_qkv_smallwin(qkv.view(B, S, 3 * d), nh, hd)
+            return self.proj(o.reshape(B * S, d)).view(B, H, W, d)
+        # hiera.py:191-209: windows of 256 tokens and more, folded into
+        # super-windows under a block-diagonal mask. The JAX module pads the
+        # heads to 128 lanes in the projection weights, a TPU layout device;
+        # here the unpadded fused qkv goes in.
+        if windowed and _SUPERWIN_MIN <= S <= 1536:
+            qkv = self.qkv(x.reshape(B * S, x.shape[-1]))
+            f = _superwindow_fold(B, S)
+            o = attention_packed_qkv_padded(qkv.view(B // f, f * S, 3 * d), nh,
+                                            hd, win=S if f > 1 else 0)
+            return self.proj(o.reshape(B * S, d)).view(B, H, W, d)
+        # hiera.py:211-239: pooling blocks, global blocks, other geometries
         qkv = self.qkv(x.reshape(B * S, x.shape[-1]))
         q = qkv[:, :d].reshape(B, S, nh, hd)
         k = qkv[:, d:2 * d].reshape(B, S, nh, hd)
@@ -167,9 +205,14 @@ class _PatchEmbed(nn.Module):
 
 
 class Hiera(nn.Module):
-    def __init__(self, cfg: HieraConfig):
+    """hoist_layout: keep runs of same-window blocks in the partitioned
+    layout (the serving path). False makes every block partition on its
+    own, so that both layouts can be compared (hiera.py:388-391)."""
+
+    def __init__(self, cfg: HieraConfig, hoist_layout: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.hoist_layout = hoist_layout
         self.patch_embed = _PatchEmbed(cfg)
         bh, bw = cfg.window_pos_embed_bkg_spatial_size
         w0 = cfg.window_spec[0]
@@ -221,7 +264,8 @@ class Hiera(nn.Module):
                     x = window_unpartition(x, layout_ws, (cur_h, cur_w),
                                            (cur_h, cur_w))
                     layout_ws = 0
-            if (not blk.q_pool and ws > 0 and layout_ws == 0
+            if (self.hoist_layout and not blk.q_pool and ws > 0
+                    and layout_ws == 0
                     and x.shape[1] % ws == 0 and x.shape[2] % ws == 0):
                 x, _ = window_partition(x, ws)
                 layout_ws = ws

@@ -1,24 +1,64 @@
-"""SAM-2 composition for framewise decoding (PyTorch port of the image
-encoder, prompt encoder and mask decoder parts of
-videoglamm_tpu/models/sam2/sam2_base.py; memory encoder, memory attention
-and the tracking parameters come with the video branch)."""
+"""SAM-2 base model (PyTorch port of videoglamm_tpu/models/sam2/
+sam2_base.py): the image encoder, prompt encoder, mask decoder, memory
+encoder and memory attention, composed functionally, with the VideoGLaMM
+text-prompt extension (`text_inputs` threaded into the prompt encoder) and
+the object-score / object-pointer handling. The per-frame state of tracking
+lives in video_predictor.py as a fixed-shape memory bank, consumed here by
+`condition_features` through a boolean attention mask.
+
+The image encoder runs in the compute dtype (bf16); the prompt encoder,
+the mask decoder, the memory encoder, the memory attention, `obj_ptr_proj`
+and the memory parameters stay f32, as sam2_base.py:49-75 keeps them.
+`use_mask_as_output` and mask prompts come with the interactive predictor;
+`mask_downsample` is carried so that the state dict is whole.
+"""
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import torch
 from torch import nn
 
 from ...config import SAM2Config
+from ...ops.resize import resize_bilinear
+from ..common import MLPBlock
 from .fpn import SAM2ImageEncoder, conv1x1_nhwc
 from .mask_decoder import MaskDecoder
+from .memory import MemoryAttention, MemoryEncoder
 from .prompt_encoder import PromptEncoder
+
+NO_OBJ_SCORE = -1024.0
+
+
+class SamHeadsOutput(NamedTuple):
+    low_res_multimasks: torch.Tensor   # [B, M, 4E, 4E]
+    high_res_multimasks: torch.Tensor  # [B, M, S, S]
+    ious: torch.Tensor                 # [B, M]
+    low_res_masks: torch.Tensor        # [B, 1, 4E, 4E] best mask
+    high_res_masks: torch.Tensor       # [B, 1, S, S]
+    obj_ptr: torch.Tensor              # [B, C]
+    object_score_logits: torch.Tensor  # [B, 1]
 
 
 class SAM2Base(nn.Module):
     def __init__(self, cfg: SAM2Config):
         super().__init__()
         self.cfg = cfg
+        C = cfg.d_model
         self.image_encoder = SAM2ImageEncoder(cfg)
         self.sam_prompt_encoder = PromptEncoder(cfg)
         self.sam_mask_decoder = MaskDecoder(cfg)
+        self.memory_encoder = MemoryEncoder(cfg)
+        self.memory_attention = MemoryAttention(cfg)
+        # memory parameters (sam2_base.py:59-75), with the reference
+        # checkpoint's shapes
+        self.no_mem_embed = nn.Parameter(torch.zeros(1, 1, C))
+        self.no_mem_pos_enc = nn.Parameter(torch.zeros(1, 1, C))
+        self.maskmem_tpos_enc = nn.Parameter(
+            torch.zeros(cfg.num_maskmem, 1, 1, cfg.mem_dim))
+        self.no_obj_ptr = nn.Parameter(torch.zeros(1, C))
+        self.obj_ptr_proj = MLPBlock(C, C, C, 3)
+        self.mask_downsample = nn.Conv2d(1, 1, 4, stride=4)
 
     def forward_image(self, images):
         """images [B, S, S, 3] (SAM-normalised) -> (feats, pos): 3 levels,
@@ -29,3 +69,81 @@ class SAM2Base(nn.Module):
         feats = [conv1x1_nhwc(feats[0], dec.conv_s0),
                  conv1x1_nhwc(feats[1], dec.conv_s1), feats[2]]
         return feats, pos
+
+    def forward_sam_heads(self, backbone_features, text_inputs=None,
+                          high_res_features=None,
+                          multimask_output: bool = False,
+                          training: bool = False) -> SamHeadsOutput:
+        """Prompt encoder + mask decoder (sam2_base.py:87-148): one padding
+        point (label -1) and the text prompts; multimask argmax; the mask
+        logits of an absent object set to NO_OBJ_SCORE; the object pointer
+        mixed hard with `no_obj_ptr`."""
+        cfg = self.cfg
+        B = backbone_features.shape[0]
+        dev = backbone_features.device
+        coords = torch.zeros(B, 1, 2, device=dev)
+        labels = -torch.ones(B, 1, dtype=torch.int32, device=dev)
+        sparse, dense = self.sam_prompt_encoder(text_embeds=text_inputs,
+                                                points=(coords, labels))
+        dec = self.sam_mask_decoder(
+            backbone_features, self.sam_prompt_encoder.get_dense_pe(), sparse,
+            dense, multimask_output=multimask_output,
+            high_res_features=high_res_features, training=training)
+
+        is_obj_appearing = dec.object_score_logits > 0          # [B, 1]
+        low_res_multimasks = torch.where(is_obj_appearing[:, None, None],
+                                         dec.masks.float(), NO_OBJ_SCORE)
+        high_res_multimasks = resize_bilinear(
+            low_res_multimasks.permute(0, 2, 3, 1),
+            (cfg.image_size, cfg.image_size)).permute(0, 3, 1, 2)
+
+        sam_output_token = dec.sam_tokens_out[:, 0]
+        if multimask_output:
+            best = dec.iou_pred.argmax(dim=-1)
+            bidx = torch.arange(B, device=dev)
+            low_res_masks = low_res_multimasks[bidx, best][:, None]
+            high_res_masks = high_res_multimasks[bidx, best][:, None]
+            if dec.sam_tokens_out.shape[1] > 1:
+                sam_output_token = dec.sam_tokens_out[bidx, best]
+        else:
+            low_res_masks, high_res_masks = low_res_multimasks, high_res_multimasks
+
+        obj_ptr = self.obj_ptr_proj(sam_output_token)
+        lam = is_obj_appearing.float()
+        obj_ptr = lam * obj_ptr + (1.0 - lam) * self.no_obj_ptr
+        return SamHeadsOutput(low_res_multimasks, high_res_multimasks,
+                              dec.iou_pred, low_res_masks, high_res_masks,
+                              obj_ptr, dec.object_score_logits)
+
+    def encode_new_memory(self, pix_feat, high_res_masks, object_score_logits,
+                          binarize: bool = False):
+        """pix_feat [B, E, E, C]; high_res_masks [B, S, S, 1] logits ->
+        (memory [B, E*E, mem_dim], pos [E*E, mem_dim]). binarize=True
+        thresholds the logits at 0 instead of the sigmoid, as the video
+        predictor does for prompted frames (sam2_base.py:177-197).
+        `object_score_logits` is accepted and unused, as in the JAX
+        method."""
+        cfg = self.cfg
+        if binarize:
+            m = (high_res_masks > 0).float()
+        else:
+            m = torch.sigmoid(high_res_masks.float())
+        m = m * cfg.sigmoid_scale_for_mem_enc + cfg.sigmoid_bias_for_mem_enc
+        mem, pos = self.memory_encoder(pix_feat, m)
+        B, E = mem.shape[0], mem.shape[1]
+        return mem.reshape(B, E * E, cfg.mem_dim), pos.reshape(E * E, cfg.mem_dim)
+
+    def condition_features(self, curr_feat, curr_pos, memory, memory_pos,
+                           num_obj_ptr_tokens: int, kv_mask):
+        """The current frame's features conditioned on the memory.
+        curr_feat/curr_pos [B, E, E, C]; memory [B, M, mem_dim] (spatial
+        memories, then the object-pointer tokens); kv_mask [B, M] bool.
+        (sam2_base.py:200-220 with use_memory all true, which is how the
+        tracker calls it; the no-memory init frame adds `no_mem_embed`
+        itself, video_predictor.py:190.)"""
+        B, E, _, C = curr_feat.shape
+        conditioned = self.memory_attention(
+            curr_feat.reshape(B, E * E, C).float(),
+            curr_pos.reshape(B, E * E, C).float(), memory.float(),
+            memory_pos.float(), num_obj_ptr_tokens, kv_mask)
+        return conditioned.reshape(B, E, E, C).to(curr_feat.dtype)

@@ -1,12 +1,16 @@
-"""SAM two-way transformer (PyTorch port of
-videoglamm_tpu/models/sam2/transformer.py without the RoPE attention of
-memory attention). Runs in f32 inside the mask decoder."""
+"""SAM two-way transformer and the RoPE attention of memory attention
+(PyTorch port of videoglamm_tpu/models/sam2/transformer.py). Both run in
+f32, inside the mask decoder and the memory attention."""
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import dot_product_attention
+from ...ops.rope import apply_axial_rope, axial_rope_cos_sin
 from ..common import LayerNorm, Mlp
 
 
@@ -30,6 +34,49 @@ class SAMAttention(nn.Module):
         q, k, v = self.q_proj(q), self.k_proj(k), self.v_proj(v)
         o = dot_product_attention(split(q), split(k), split(v))
         o = o.transpose(1, 2).reshape(o.shape[0], -1, q.shape[-1])
+        return self.out_proj(o)
+
+
+class RoPEAttention(nn.Module):
+    """Attention with the 2-D axial rotary embedding on the queries and on
+    the spatial keys over a `feat_sizes` grid (transformer.py:47-85). The
+    last `num_k_exclude_rope` keys (object pointers) are not rotated; keys
+    longer than the grid (several memory frames) see the table tiled.
+    `kv_in_dim`: width of the keys and values that come in (mem_dim)."""
+
+    def __init__(self, embedding_dim: int, num_heads: int, feat_sizes,
+                 rope_theta: float = 10000.0, kv_in_dim: Optional[int] = None):
+        super().__init__()
+        kv = embedding_dim if kv_in_dim is None else kv_in_dim
+        self.num_heads = num_heads
+        self.feat_sizes = tuple(feat_sizes)
+        self.rope_theta = rope_theta
+        self.q_proj = nn.Linear(embedding_dim, embedding_dim)
+        self.k_proj = nn.Linear(kv, embedding_dim)
+        self.v_proj = nn.Linear(kv, embedding_dim)
+        self.out_proj = nn.Linear(embedding_dim, embedding_dim)
+
+    def forward(self, q, k, v, num_k_exclude_rope: int = 0, kv_mask=None):
+        nh = self.num_heads
+
+        def split(t):
+            return t.view(t.shape[0], t.shape[1], nh, -1).transpose(1, 2)
+
+        qh, kh, vh = (split(self.q_proj(q)), split(self.k_proj(k)),
+                      split(self.v_proj(v)))
+        ex, ey = self.feat_sizes
+        assert qh.shape[2] == ex * ey, \
+            f"RoPE grid {ex}x{ey} != q len {qh.shape[2]}"
+        cos, sin = axial_rope_cos_sin(qh.shape[-1], ex, ey, self.rope_theta,
+                                      q.device)
+        qh = apply_axial_rope(qh, cos, sin)
+        n_rope = kh.shape[2] - num_k_exclude_rope
+        if n_rope > 0:
+            k_rot = apply_axial_rope(kh[:, :, :n_rope], cos, sin)
+            kh = torch.cat([k_rot, kh[:, :, n_rope:]], dim=2) \
+                if num_k_exclude_rope > 0 else k_rot
+        o = dot_product_attention(qh, kh, vh, kv_mask=kv_mask)
+        o = o.transpose(1, 2).reshape(o.shape[0], -1, qh.shape[1] * qh.shape[3])
         return self.out_proj(o)
 
 

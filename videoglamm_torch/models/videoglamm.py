@@ -1,6 +1,7 @@
 """VideoGLaMM composite (PyTorch port of videoglamm_tpu/models/
 videoglamm.py): the inference methods `encode_visual_prefix`,
-`encode_sam_features`, `decode_masks`, and the training forward with its
+`encode_sam_features`, `decode_masks`, `track_masks` (the SAM-2 video
+branch), and the training forward with its
 three losses (`forward`, `lm_forward`, `extract_seg`, `ce_loss_fn`,
 `sigmoid_ce_loss`, `dice_loss`): loss = ce*1.0 + bce*2.0 + dice*0.5 with
 the MASK_IGNORE_INDEX semantics of the reference.
@@ -30,6 +31,14 @@ from .multimodal import SplicedBatch, splice_visual_prefix
 from .phi3 import Phi3ForCausalLM
 from .projectors import TextHiddenFCs, build_vision_projector, build_visual_prefix
 from .sam2.sam2_base import SAM2Base
+
+
+# Submodules that only the tracker runs. A flax parameter tree initialised
+# through the framewise or the training forward holds none of their leaves
+# (flax makes a submodule's parameters when it is first called), and the JAX
+# model runs those paths with such a tree.
+TRACKER_MODULES = ("memory_encoder", "memory_attention", "obj_ptr_proj",
+                   "mask_downsample")
 
 
 class SegExtraction(NamedTuple):
@@ -114,11 +123,31 @@ class VideoGLaMM(nn.Module):
         self.text_hidden_fcs = nn.ModuleList([TextHiddenFCs(hidden, cfg.out_dim)])
         self.visual_model = SAM2Base(cfg.sam2)
 
+    def load_weights(self, state_dict, allow_missing=None):
+        """`load_state_dict`, strict but for two things: a tracker submodule
+        (`TRACKER_MODULES`) may be absent as a whole, in which case it keeps
+        its initial values, and keys that the compiled regex `allow_missing`
+        matches may be absent. Anything else missing or unexpected raises."""
+        res = self.load_state_dict(state_dict, strict=False)
+        missing = [k for k in res.missing_keys
+                   if not (allow_missing is not None and allow_missing.search(k))]
+        own = list(self.state_dict())
+        for name in TRACKER_MODULES:
+            pre = f"visual_model.{name}."
+            if sum(k.startswith(pre) for k in missing) \
+                    == sum(k.startswith(pre) for k in own):
+                missing = [k for k in missing if not k.startswith(pre)]
+        if missing or res.unexpected_keys:
+            raise ValueError(f"state_dict does not fit: missing {missing}, "
+                             f"unexpected {res.unexpected_keys}")
+        return self
+
     def to_compute_dtype(self, dtype, keep_masters: bool = False):
         """Store the compute weights in `dtype` (bf16). The SAM prompt
-        encoder, mask decoder and text_hidden_fcs stay f32, as in the JAX
-        model, except the skip projections conv_s0/s1, which run in the
-        image-encoder dtype. keep_masters (training): the LLM's trainable
+        encoder, mask decoder, memory encoder, memory attention,
+        `obj_ptr_proj`, the memory parameters and text_hidden_fcs stay f32,
+        as in the JAX model, except the skip projections conv_s0/s1, which
+        run in the image-encoder dtype. keep_masters (training): the LLM's trainable
         weights (LoRA, embed_tokens, lm_head) stay f32 masters and are cast
         at use; a bf16 master would drop updates of size lr * g."""
         for m in (self.vision_tower, self.image_vision_tower, self.mm_projector,
@@ -214,6 +243,17 @@ class VideoGLaMM(nn.Module):
                                    training=training)
         m = dec.masks[:, 0]
         return m.reshape(R, ms, T, m.shape[-2], m.shape[-1])
+
+    def track_masks(self, frames_sam, seg_embeds):
+        """SAM-2 video-branch tracking of ONE video (videoglamm.py:278-290):
+        every [SEG] slot is an object prompted on frame 0 and propagated
+        with memory attention. frames_sam [T, S, S, 3]; seg_embeds [ms, C]
+        -> low-res mask logits [ms, T, 4E, 4E]. The frames' features are
+        held once and shared by the objects."""
+        from .sam2.video_predictor import track_video
+        feats, pos = self.visual_model.forward_image(frames_sam)
+        return track_video(self.visual_model, feats, pos,
+                           seg_embeds[:, None, :]).low_res_masks
 
     def forward(self, frames, context_images, frames_sam, input_ids, text_lens,
                 labels, video_idx, gt_masks, freeze_towers: bool = True,

@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface. At first use it is compiled
 with nvcc for Hopper (sm_90a) into a shared library under `build/kernels/`
-beside the package (listed in .gitignore), keyed by a hash of the source and
-the flags, and loaded with ctypes. Nothing is compiled at import time: the
+beside the package (listed in .gitignore), keyed by a hash of the source, the
+shared headers `csrc/*.cuh` and the flags, and loaded with ctypes. Nothing is compiled at import time: the
 CPU tests import every module on a machine with no nvcc.
 """
 from __future__ import annotations
@@ -57,8 +57,10 @@ def load(name: str) -> Built:
         if name in _built:
             return _built[name]
         src = CSRC / f"{name}.cu"
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            src.read_bytes() + headers
+            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"lib{name}-{digest}.so"
         log, seconds = "", 0.0

@@ -5,7 +5,24 @@ the place of two Pallas kernels: the flash kernel `_flash_kernel`
 (attention.py:93) and the BSHD single-block kernel `_bshd_kernel`
 (attention.py:738). It reads q, k, v and writes o through element strides,
 so the [B,H,S,D], [B,S,H,D] and fused [B,S,3,H,D] layouts all go in with
-no copies.
+no copies. It takes bf16 or f32 operands (f32 is rounded to bf16 on the way
+into shared memory) and head dims up to 256: the SAM-2 memory
+self-attention [4,1,4096,256] f32 is its "flash_d256" mode.
+
+K7 (`csrc/window_attention.cu`) is the whole-row-softmax kernel for medium
+non-causal self-attention (512 < S <= 1536). It replaces the Pallas kernel
+`_window_kernel` (attention.py:523): two passes over the key tiles, first
+the exact row maximum and sum from q k^T alone, then exp(s - m) / l into
+p v, so no accumulator is rescaled. `dot_product_attention` takes it where
+the JAX package takes `_window_attention` (attention.py:1308-1310).
+
+K8 (`csrc/smallwin_attention.cu`) is the attention inside 16-, 32- or
+64-token windows straight from a fused qkv projection. It replaces the
+Pallas kernel `_smallwin_kernel` (attention.py:605): a (window, head) pair
+is a unit of S/16 warps, a window's keys are one tile, and the softmax is a
+single pass in registers; nothing is packed or masked. K7 and K8 get the
+recompute backward of the JAX `custom_vjp`s (autograd through the plain
+twin, attention.py:588-599 and :709-714).
 
 K4 (`csrc/decode_attention_q8.cu`) is the single-query attention over the
 int8 token-major KV cache. It replaces the Pallas kernel `_decode_q_kernel`
@@ -48,8 +65,10 @@ NEG_INF = -1e30
 
 # K1 launches by mode: "causal" (LLM prefill), "flash" (long non-causal,
 # Hiera global blocks), "bshd" (CLIP / InternVideo2 self-attention),
-# "window" (Hiera window attention inside fused_window_block); K4 launches
-# under "decode_q8", K6 under "flash_bwd"
+# "flash_d256" (the same at head dims above 128: SAM-2 memory
+# self-attention), "window" (Hiera window attention inside
+# fused_window_block); K4 launches under "decode_q8", K6 under "flash_bwd",
+# K7 under "window_attn", K8 under "smallwin"
 LAUNCHES = collections.Counter()
 
 # K4 splits the cache axis over this many thread blocks per SM (per batch)
@@ -189,18 +208,55 @@ def _attention_plain_bshd(q, k, v, sm_scale: float, win: int = 0):
     return out.to(q.dtype)
 
 
+def _window_attention_plain(q, k, v, sm_scale: float):
+    """Twin of K7 and of the reference its backward recomputes through
+    (`_attention_xla` with no mask, attention.py:588-595). q/k/v:
+    [B,H,S,D]."""
+    return _attention_plain(q, k, v, causal=False, sm_scale=sm_scale)
+
+
+def _smallwin_plain(qkv, num_heads: int, sm_scale: float):
+    """Twin of K8 and of `_smallwin_xla` (attention.py:697-701).
+    qkv: [NW,S,3*H*hd] -> [NW,S,H*hd]."""
+    NW, S, C3 = qkv.shape
+    x = qkv.reshape(NW, S, 3, num_heads, C3 // (3 * num_heads))
+    return _attention_plain_bshd(x[:, :, 0], x[:, :, 1], x[:, :, 2],
+                                 sm_scale).reshape(NW, S, C3 // 3)
+
+
 # ---------------------------------------------------------------------------
 # K1 launcher
 # ---------------------------------------------------------------------------
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _kernel_fn():
     built = _cuda.load("attention_fwd")
     fn = built.lib.vgt_attention_fwd
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [P, P, P, P] + [L] * 12 + [P, P] + [I] * 7 + [
-            ctypes.c_float, P, P]
+            ctypes.c_float, P, I, P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_qkvo(what: str, q, k, v, out, max_d: int):
+    """The operand rules K1 and K7 share: bf16 or f32 CUDA tensors of one
+    dtype, [B,H,S,D] views with a contiguous head dim, D % 8 == 0."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{what}: expected bf16 or f32 operands, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        _cuda.check_operand(t, name, q.dtype)
+    if k.shape != (B, H, Sk, D) or v.shape != k.shape or out.shape != q.shape:
+        raise ValueError(f"{what}: shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} "
+                         f"out{tuple(out.shape)}")
+    if D % 8 or D > max_d:
+        raise ValueError(f"{what}: head dim {D} unsupported "
+                         f"(needs D % 8 == 0 and D <= {max_d})")
 
 
 def _as_int32(t, B: int, device):
@@ -218,19 +274,12 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
     are read in place). kv_lens/q_start: [B] ints or None. `mode` names the
     launch counter. lse: None (serving), or a contiguous f32 [B,H,Sq] that
     the kernel fills with the row log-sum-exp of the scaled logits (NEG_INF
-    for a row with no valid key). Raises unless every operand is a bf16
-    CUDA tensor."""
+    for a row with no valid key). Raises unless the operands are CUDA
+    tensors of one dtype, bf16 or f32, with D % 8 == 0 and D <= 256; the
+    block-diagonal `win` mode serves D <= 128."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        _cuda.check_operand(t, name, torch.bfloat16)
-    if k.shape != (B, H, Sk, D) or v.shape != k.shape or out.shape != q.shape:
-        raise ValueError(f"attention_fwd: shapes q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)} "
-                         f"out{tuple(out.shape)}")
-    if D % 8 or D > 128:
-        raise ValueError(f"attention_fwd: head dim {D} unsupported "
-                         "(needs D % 8 == 0 and D <= 128)")
+    _check_qkvo("attention_fwd", q, k, v, out, 128 if win else 256)
     if causal and q_start is None:
         raise ValueError("attention_fwd: causal launches need q_start")
     if lse is not None and (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
@@ -245,9 +294,76 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
         kvl.data_ptr() if kvl is not None else None,
         qs.data_ptr() if qs is not None else None,
         B, H, Sq, Sk, D, int(causal), int(win), float(sm_scale),
-        lse.data_ptr() if lse is not None else None, _cuda.stream_ptr(q))
+        lse.data_ptr() if lse is not None else None,
+        int(q.dtype == torch.float32), _cuda.stream_ptr(q))
     _cuda.check_launch(err, "attention_fwd")
     LAUNCHES[mode] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8 launchers
+# ---------------------------------------------------------------------------
+def _window_fn():
+    fn = _cuda.load("window_attention").lib.vgt_window_attention
+    if fn.argtypes is None:
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [P, P, P, P] + [L] * 12 + [I] * 4 + [ctypes.c_float, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def window_attention_kernel(q, k, v, *, sm_scale: float):
+    """Launch K7. q/k/v: [B,H,S,D] views with a contiguous head dim, one
+    dtype, bf16 or f32, on the card; non-causal full self-attention with a
+    whole-row softmax. Returns a new contiguous [B,H,S,D] tensor of the
+    operands' dtype. Raises on other operands, on D % 8 != 0 or D > 256,
+    and on S > 1536 (the branch `dot_product_attention` sends here)."""
+    B, H, S, D = q.shape
+    out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    _check_qkvo("window_attention", q, k, v, out, 256)
+    if k.shape[2] != S or S > 1536:
+        raise ValueError(f"window_attention: needs Sq == Sk <= 1536, got "
+                         f"Sq {S}, Sk {k.shape[2]}")
+    err = _window_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        B, H, S, D, float(sm_scale), int(q.dtype == torch.float32),
+        _cuda.stream_ptr(q))
+    _cuda.check_launch(err, "window_attention")
+    LAUNCHES["window_attn"] += 1
+    return out
+
+
+def _smallwin_fn():
+    fn = _cuda.load("smallwin_attention").lib.vgt_smallwin_attention
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P] + [I] * 4 + [ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def smallwin_attention_kernel(qkv, num_heads: int, head_dim: int, *,
+                              sm_scale: float):
+    """Launch K8. qkv: contiguous bf16 [NW,S,3*H*hd] on the card, S in
+    (16, 32, 64), hd % 8 == 0, hd <= 128; any window count. Returns bf16
+    [NW,S,H*hd]. Raises on anything else."""
+    NW, S, C3 = qkv.shape
+    C = num_heads * head_dim
+    _cuda.check_operand(qkv, "qkv", torch.bfloat16)
+    if not qkv.is_contiguous() or C3 != 3 * C:
+        raise ValueError(f"smallwin_attention: qkv {tuple(qkv.shape)} must be "
+                         f"contiguous [NW,S,3*{num_heads}*{head_dim}]")
+    if S not in (16, 32, 64) or head_dim % 8 or head_dim > 128:
+        raise ValueError(f"smallwin_attention: window of {S} tokens, head dim "
+                         f"{head_dim} unsupported (needs S in 16, 32, 64, "
+                         "hd % 8 == 0, hd <= 128)")
+    out = torch.empty((NW, S, C), dtype=qkv.dtype, device=qkv.device)
+    err = _smallwin_fn()(qkv.data_ptr(), out.data_ptr(), NW, S, num_heads,
+                         head_dim, float(sm_scale), _cuda.stream_ptr(qkv))
+    _cuda.check_launch(err, "smallwin_attention")
+    LAUNCHES["smallwin"] += 1
     return out
 
 
@@ -397,9 +513,10 @@ def _flash_fwd(q, k, v, kv_lens, q_start, causal: bool, sm_scale: float,
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \
         if need_lse else None
+    mode = "causal" if causal else \
+        ("flash_d256" if q.shape[-1] > 128 else "flash")
     attention_fwd_kernel(q, k, v, out, causal=causal, sm_scale=sm_scale,
-                         mode="causal" if causal else "flash",
-                         kv_lens=kv_lens, q_start=q_start, lse=lse)
+                         mode=mode, kv_lens=kv_lens, q_start=q_start, lse=lse)
     return out, lse
 
 
@@ -457,34 +574,44 @@ def flash_attention(q, k, v, *, causal: bool = False, kv_lens=None,
                       False)[0]
 
 
-class _BshdAttention(torch.autograd.Function):
-    """K1 forward in BSHD mode with the recompute backward of
-    `_bshd_bwd_rule` / `_packed_bwd_rule` (attention.py:868-872, :889-897):
-    autograd through the plain twin on the saved inputs."""
+class _RecomputeAttention(torch.autograd.Function):
+    """A kernel forward with the recompute backward that the JAX package
+    gives its short-sequence kernels (the `custom_vjp`s of the BSHD
+    entries, attention.py:868-872 and :889-897, of `_window_attention`,
+    :588-599, and of `_smallwin_tpu`, :709-714): autograd through
+    `plain(*tensors)` on the saved inputs. `launch` and `plain` take the
+    same tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale, win):
-        ctx.save_for_backward(q, k, v)
-        ctx.sm_scale, ctx.win = sm_scale, win
-        return _bshd_launch(q, k, v, sm_scale, win)
+    def forward(ctx, launch, plain, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.plain = plain
+        return launch(*tensors)
 
     @staticmethod
     def backward(ctx, dout):
         with torch.enable_grad():
-            qkv = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-            out = _attention_plain_bshd(*qkv, ctx.sm_scale, ctx.win)
-            dq, dk, dv = torch.autograd.grad(out, qkv, dout)
-        return dq, dk, dv, None, None
+            ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            grads = torch.autograd.grad(ctx.plain(*ins), ins, dout)
+        return (None, None, *grads)
+
+
+def _kernel_or_recompute(launch, plain, *tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _RecomputeAttention.apply(launch, plain, *tensors)
+    return launch(*tensors)
 
 
 def _bshd_fwd(q, k, v, sm_scale: float, win: int = 0):
-    """K1 in BSHD mode: q/k/v [B,S,H,D] (views allowed) -> [B,S,H,D]."""
+    """K1 in BSHD mode: q/k/v [B,S,H,D] (views allowed) -> [B,S,H,D]. Under
+    a gradient the backward is the recompute of `_bshd_bwd_rule` /
+    `_packed_bwd_rule` (attention.py:868-872, :889-897)."""
     if q.device.type == "cpu":
         return _attention_plain_bshd(q, k, v, sm_scale, win)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _BshdAttention.apply(q, k, v, sm_scale, win)
-    return _bshd_launch(q, k, v, sm_scale, win)
+    return _kernel_or_recompute(
+        lambda q_, k_, v_: _bshd_launch(q_, k_, v_, sm_scale, win),
+        lambda q_, k_, v_: _attention_plain_bshd(q_, k_, v_, sm_scale, win),
+        q, k, v)
 
 
 def _bshd_launch(q, k, v, sm_scale: float, win: int = 0):
@@ -526,6 +653,37 @@ def attention_packed_qkv_padded(qkv, num_heads: int, head_dim: int, *,
     else:
         o = _attention_plain_bshd(q, k, v, sm_scale, win)
     return o.reshape(B, S, num_heads * head_dim)
+
+
+def _window_attention(q, k, v, sm_scale: float):
+    """Port of `_window_attention` (attention.py:580): medium non-causal
+    self-attention [B,H,S,D] with a whole-row softmax. The plain twin for
+    CPU tensors, K7 on the card."""
+    if q.device.type == "cpu":
+        return _window_attention_plain(q, k, v, sm_scale)
+    return _kernel_or_recompute(
+        lambda q_, k_, v_: window_attention_kernel(q_, k_, v_,
+                                                   sm_scale=sm_scale),
+        lambda q_, k_, v_: _window_attention_plain(q_, k_, v_, sm_scale),
+        q, k, v)
+
+
+def attention_packed_qkv_smallwin(qkv, num_heads: int, head_dim: int, *,
+                                  sm_scale: Optional[float] = None):
+    """Port of attention_packed_qkv_smallwin (attention.py:717).
+    Self-attention inside tiny fixed windows straight from a fused qkv
+    projection: qkv [NW,S,3*H*hd], S tokens a window -> [NW,S,H*hd]. The
+    plain twin for CPU tensors; on the card K8 (S in 16, 32, 64, any window
+    count: nothing is packed) or it raises."""
+    if sm_scale is None:
+        sm_scale = head_dim ** -0.5
+    sm_scale = float(sm_scale)
+    if qkv.device.type == "cpu":
+        return _smallwin_plain(qkv, num_heads, sm_scale)
+    return _kernel_or_recompute(
+        lambda x: smallwin_attention_kernel(x, num_heads, head_dim,
+                                            sm_scale=sm_scale),
+        lambda x: _smallwin_plain(x, num_heads, sm_scale), qkv)
 
 
 def attention_bshd_cross(q, k, v, *, sm_scale: Optional[float] = None):
@@ -575,11 +733,11 @@ def dot_product_attention(q, k, v, *, causal: bool = False, kv_lens=None,
                                 kv_lens=kv_lens, bias=bias, kv_mask=kv_mask,
                                 q_start=q_start)
     Sq, Sk = q.shape[2], k.shape[2]
-    # attention.py:1308-1310 sends medium non-causal self-attention to the
-    # single-block `_window_kernel`; K1 serves that branch here
+    # attention.py:1308-1310: medium non-causal self-attention takes the
+    # whole-row-softmax kernel (K7)
     if (not causal and kv_lens is None and q_start is None and Sq == Sk
             and 512 < Sq <= 1536):
-        return flash_attention(q, k, v, sm_scale=sm_scale)
+        return _window_attention(q, k, v, float(sm_scale))
     # attention.py:1315: short and windowed shapes stay plain
     long_enough = Sq >= 1024 and Sk >= 1024 and (causal or Sq >= 2048)
     if not long_enough:

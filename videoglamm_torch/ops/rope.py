@@ -1,8 +1,11 @@
-"""1D rotary position embeddings for the LLM (PyTorch port of the
-half-rotation RoPE in videoglamm_tpu/ops/rope.py:15-48). The 2-D axial
-RoPE of SAM-2 memory attention comes with the tracking branch."""
+"""Rotary position embeddings (PyTorch port of videoglamm_tpu/ops/rope.py):
+the half-rotation 1-D RoPE of the LLM (rope.py:15-48) and the 2-D axial
+RoPE of SAM-2 memory attention (rope.py:54-92)."""
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -34,3 +37,53 @@ def apply_rope(x, cos, sin):
     cos = cos.to(x.dtype)
     sin = sin.to(x.dtype)
     return x * cos + rotate_half(x) * sin
+
+
+# ---------------------------------------------------------------------------
+# 2-D axial RoPE (SAM-2 memory attention / RoPEAttention)
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=16)
+def _axial_cis_np(dim: int, end_x: int, end_y: int, theta: float):
+    """Complex rotation table over an (end_x, end_y) grid; `dim` is the
+    per-head dim. Half of it rotates with the x coordinate, half with y
+    (rope.py:55-67, f64 on the host, once per geometry)."""
+    freqs = 1.0 / (theta ** (np.arange(0, dim, 4)[: dim // 4].astype(np.float64)
+                             / dim))
+    t = np.arange(end_x * end_y, dtype=np.float64)
+    fx = np.outer(t % end_x, freqs)
+    fy = np.outer(t // end_x, freqs)
+    cis = np.concatenate([np.exp(1j * fx), np.exp(1j * fy)], axis=-1)
+    return cis.astype(np.complex64)                       # [L, dim/2]
+
+
+@functools.lru_cache(maxsize=16)
+def _axial_cos_sin_on(dim: int, end_x: int, end_y: int, theta: float, device):
+    cis = _axial_cis_np(dim, end_x, end_y, theta)
+    return (torch.from_numpy(np.ascontiguousarray(cis.real)).to(device),
+            torch.from_numpy(np.ascontiguousarray(cis.imag)).to(device))
+
+
+def axial_rope_cos_sin(dim: int, end_x: int, end_y: int, theta: float = 10000.0,
+                       device=None):
+    """cos, sin: [end_x*end_y, dim/2] f32 on `device`. The table is copied
+    to a device once and kept: the tracker asks for it at every layer of
+    every frame."""
+    return _axial_cos_sin_on(dim, end_x, end_y, float(theta),
+                             torch.device(device or "cpu"))
+
+
+def apply_axial_rope(x, cos, sin):
+    """Interleaved complex rotation in f32 (rope.py:75-92). x: [B,H,S,D]
+    with D even; the pair (x[2i], x[2i+1]) of token s rotates by table row
+    s % L, so a sequence longer than the table (the k-repeat over memory
+    frames) sees it tiled."""
+    B, H, S, D = x.shape
+    L = cos.shape[0]
+    if S != L:
+        reps = -(-S // L)
+        cos = cos.repeat(reps, 1)[:S]
+        sin = sin.repeat(reps, 1)[:S]
+    xf = x.float().reshape(B, H, S, D // 2, 2)
+    xr, xi = xf[..., 0], xf[..., 1]
+    y = torch.stack([xr * cos - xi * sin, xr * sin + xi * cos], dim=-1)
+    return y.reshape(B, H, S, D).to(x.dtype)

@@ -238,11 +238,7 @@ def build_training(cfg: VideoGLaMMConfig, tcfg: TrainConfig,
                            lora_alpha=float(tcfg.lora.alpha))
     model.to(dev)     # tensors made from numpy ignore the device context
     if state_dict is not None:
-        res = model.load_state_dict(state_dict, strict=False)
-        bad = [k for k in res.missing_keys if not re.search(r"lora_[ab]", k)]
-        if bad or res.unexpected_keys:
-            raise ValueError(f"build_training: state_dict does not fit: "
-                             f"missing {bad}, unexpected {res.unexpected_keys}")
+        model.load_weights(state_dict, allow_missing=re.compile(r"lora_[ab]"))
     elif init is not None:
         init(model)
     if dtype != torch.float32:
