@@ -7,10 +7,10 @@ Run from the root of a checkout. Phases, each fatal on failure:
 
 1. device: needs CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off for matmuls and cuDNN;
-2. build: compiles the seven CUDA sources of videoglamm_torch/csrc (K1
+2. build: compiles the eight CUDA sources of videoglamm_torch/csrc (K1
    attention_fwd, K2 gemm_epilogue, K4 decode_attention_q8, K5
-   dequant_gemv, K6 flash_bwd, K7 window_attention, K8 smallwin_attention)
-   from the checkout with one nvcc process each, all started together, and
+   dequant_gemv, K6 flash_bwd, K7 window_attention, K8 smallwin_attention,
+   K9 decode_fused) from the checkout with one nvcc process each, all started together, and
    JIT-compiles K3 (the Triton row norm), printing build seconds and the
    -Xptxas -v lines (registers and spills of every instantiation);
 3. kernels: holds every kernel against its plain PyTorch twin on the same
@@ -29,7 +29,15 @@ Run from the root of a checkout. Phases, each fatal on failure:
    self-attention of the 32x32 grid [4,1,1024,256] f32 and at the two tower
    shapes its dispatch branch names, K8 at Hiera's stage-1 and stage-2
    windows over 8 frames and at an odd window count, K1 at head dim 256
-   ([4,1,4096,256], f32 and bf16);
+   ([4,1,4096,256], f32 and bf16). K9's four fused decode-layer entries at
+   the Phi-3 widths for 1, 4 and 8 rows and at a narrow case whose N and I
+   are no multiples of 1024, each beside the unfused serving chain's time;
+   the W8A8 entry's s32 sums must EQUAL integer products of its own codes.
+   `flash_attention_bshd` (K1 on BSHD views) at [1,3456,32,96] over 3520
+   keys against its twin and against K1 on the contiguous copy;
+   then the two experiment harnesses (the decode-layer A/B over 32 layers of
+   stacked weights, eager and as CUDA-graph replays, and the BSHD attention
+   harness), with the counters set to 0 just before and read just after;
 4. serve: builds the flagship VideoGLaMM (seeded random weights, normal
    std 0.02, norm scales 1) on the card through `build_inference` and
    serves, with every launch counter set to 0 just before each path and
@@ -45,7 +53,17 @@ Run from the root of a checkout. Phases, each fatal on failure:
    d. the int4 LLM with the int8 KV cache from raw frames (1 warm-up + 1
       timed request),
    e. the tracker at SAM image size 512 (a 32x32 memory grid, so that the
-      memory self-attention takes K7), full width, bf16 LLM, 2 requests;
+      memory self-attention takes K7), full width, bf16 LLM, 2 requests,
+   f. speculative serving on the main path's model (`draft_k=4`, 2 requests
+      from raw frames: the K-row verify forwards take K5 at 4 rows and the
+      plain attention, the epilogue step K4), the 4-row verify forward held
+      against 4 single-row cached steps fed the same tokens and timed beside
+      a plain step,
+   g. sampled serving on the same model (temperature 0.7, a seeded
+      generator: the same seed must give the same tokens twice),
+   h. the Llama-3.1-8B base at full width and depth (bf16 weights, int8 KV
+      cache, 2 requests from raw frames): K4's GQA branch (G = 4, head dim
+      128) launches 32 x 64 times a request, K1 causal 32 times;
    each request is 16 frames, 8 SAM frames (16 when tracking), 64 prompt
    ids and 64 new tokens; a kernel of a path that was never launched, or
    launched another number of times than the path must, fails the run.
@@ -60,7 +78,9 @@ Run from the root of a checkout. Phases, each fatal on failure:
    every kernel (real image sizes and sequence lengths, a few layers)
    agrees on the card in bf16 with the same weights run on the CPU in f32
    through the plain twins, which the CPU tests hold to the JAX package:
-   float, then int8 and int4 LLMs with the int8 cache on the same codes;
+   float, then int8 and int4 LLMs with the int8 cache on the same codes
+   (single-row steps and one 4-row cached forward; on the CPU the
+   speculative and the plain greedy tokens must be equal);
    and a narrow tracker (narrow Hiera, full-width memory modules, 4 frames,
    2 objects, at 1024 and at 512) on the card against the CPU twins in
    f32, step by step on the reference's memory bank: all mask candidates,
@@ -108,6 +128,13 @@ TOL_DECODE_Q8 = 2e-2    # K4: p * v_scale is rounded to bf16 relative to the
                         # probability -> a few bf16 ulps of the output
 TOL_GEMV = 1e-2         # K5: one bf16 rounding of an f32 sum taken in
                         # another order than the twin's -> at most one ulp
+TOL_FUSED_MLP = 2e-2    # K9 mlp: g, u and h are rounded to bf16 where the twin
+                        # rounds them, after f32 sums in another order; a
+                        # flipped rounding moves one of 8192 terms by 2^-8
+TOL_SPEC_VERIFY = 5e-2  # relative L2, the 4-row verify forward (plain
+                        # attention over the dequantised int8 cache, K5 at 4
+                        # rows) against 4 single-row steps (K4 folding the
+                        # scales, K5 at 1 row) through 32 layers of bf16
 TOL_LLM_TF = 5e-2       # relative L2, cached bf16 decode vs uncached
                         # forward after 32 layers of bf16 rounding
 TOL_LLM_TF_Q = 1e-1     # the same with int8 weights and the int8 cache: the
@@ -175,8 +202,14 @@ GT_HW = 256             # ground-truth masks at SAM image size / 4
 TRAIN_STEPS = 4
 GRAD_ACCUM = 2
 
+DRAFT_K = 4             # rows of a speculative iteration
+N_SPEC_REQUESTS = 2
+N_LLAMA_REQUESTS = 2
+HARNESS_REPS = 8        # timed passes of each harness variant
+
 HBM_BYTES_S = 3.35e12   # H100 SXM: device memory rate
 PEAK_OPS = {"bf16": 989e12,    # dense tensor-core rate
+            "int8": 1979e12,   # dense tensor-core rate, s8 x s8 -> s32
             "f32": 67e12}      # outside the tensor cores
 
 
@@ -293,11 +326,12 @@ class Kernels:
             self.rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by,
                                   library_ms=library_ms)
+        return ms
 
 
 CUDA_SOURCES = ("attention_fwd", "gemm_epilogue", "decode_attention_q8",
                 "dequant_gemv", "flash_bwd", "window_attention",
-                "smallwin_attention")
+                "smallwin_attention", "decode_fused")
 
 
 def phase_build():
@@ -795,6 +829,193 @@ def phase_kernels(K: Kernels):
     gemv_case(8, 3072, 9216, None, None, "qkv_proj")
 
 
+def phase_decode_fused(K: Kernels):
+    """K9's four entries and `flash_attention_bshd` against their twins, at
+    the shapes of the Phi-3 decode layer. Each K9 entry is timed as graph
+    replays rotating over stacked weight sets larger than the L2 cache, and
+    beside it the port's unfused serving chain for the same function, timed
+    the same way (no single PyTorch call computes these, so no library
+    time)."""
+    import torch
+    import torch.nn.functional as F
+    from videoglamm_torch.experiments import bench_decode_fused as BD
+    from videoglamm_torch.experiments import decode_mlp as DM
+    from videoglamm_torch.experiments import flash_bshd as FB
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf = torch.bfloat16
+
+    def w8a8_integers(x, w, l, group, what):
+        """The W8A8 entry's integers: exact on its own codes, and its codes
+        the twin's but where an f32 value that differs in its last bits
+        (rsqrt, expf) falls across a rounding tie."""
+        args = (x, w["nw"][l], w["wgu"][l], w["sgu"][l], w["wd"][l], w["sd"][l],
+                BD.EPS)
+        _, tr = DM.mlp_w8a8_kernel(*args, group, trace=True)
+        _, rt = DM._mlp_w8a8_plain(*args, group, trace=True)
+        torch.cuda.synchronize()
+        grp = min(group, w["wd"].shape[-1])
+        ok = torch.equal(tr.gu, DM._int_dot(tr.xq, w["wgu"][l]))
+        for j in range(tr.down.shape[0]):
+            cols = slice(j * grp, (j + 1) * grp)
+            ok = ok and torch.equal(tr.down[j], DM._int_dot(
+                tr.hq[:, cols], w["wd"][l][:, cols]))
+        flips = {n: (a.int() - b.int()).abs() for n, a, b in
+                 (("xq", tr.xq, rt.xq), ("hq", tr.hq, rt.hq))}
+        same_codes = all(int(d.max()) == 0 for d in flips.values())
+        if same_codes:
+            ok = ok and torch.equal(tr.gu, rt.gu) and torch.equal(tr.down, rt.down)
+        near = all(int(d.max()) <= 1 and float((d > 0).float().mean()) <= 2e-3
+                   for d in flips.values())
+        log(f"  K9 mlp_w8a8 {what}: s32 sums of gate/up {tuple(tr.gu.shape)} "
+            f"and of down per group {tuple(tr.down.shape)} "
+            f"{'EQUAL' if ok else 'DIFFER from'} the integer products of the "
+            f"kernel's codes; codes differing from the twin's: "
+            + ", ".join(f"{n} {int((d > 0).sum())} of {d.numel()}"
+                        for n, d in flips.items())
+            + (" (so the twin's sums are equal too)" if same_codes else ""))
+        if not (ok and near):
+            raise AssertionError(f"K9 mlp_w8a8 {what}: integer sums or codes "
+                                 "disagree with the twin")
+
+    def case(M, Kd, Id, Nq, ring, keyed, group=DM.W8A8_GROUP):
+        w = BD.make_weights(ring, Kd, Id, Nq, "cuda", seed=2)
+        x = torch.randn(M, Kd, generator=g, device="cuda").to(bf)
+        o = torch.randn(M, Kd, generator=g, device="cuda").to(bf)
+
+        def rotating(fn):
+            c = itertools.count()
+            return lambda: fn(next(c) % ring)
+
+        def key(name):
+            return f"decode_fused[{name}]" if keyed else None
+
+        def chain_of(key_, variant, ms):
+            chain_ms = time_ms(rotating(lambda l: BD.layer_fn(variant)(x, w, l)),
+                               graphed=True)
+            log(f"    the unfused chain ({variant}) over the same weights: "
+                f"{chain_ms:.4f} ms, the fused entry {ms:.4f} ms")
+            if key_ is not None:
+                K.rows[key_]["chain_ms"] = chain_ms
+
+        shape = f"M={M} K={Kd}"
+        io = lambda n: 2 * M * (Kd + n)
+        # norm_matmul (qkv): weights, scales and the norm weight once
+        ms = K.compare(
+            key("norm_matmul"), f"K9 norm_matmul {shape} N={Nq}",
+            lambda: DM.fused_norm_matmul_int8(x, w["nw"][0], w["wqkv"][0],
+                                              w["sqkv"][0], BD.EPS),
+            lambda: DM._norm_matmul_plain(x, w["nw"][0], w["wqkv"][0],
+                                          w["sqkv"][0], BD.EPS), TOL_GEMV,
+            nbytes=Nq * Kd + 4 * Nq + 4 * Kd + io(Nq), ops=2 * M * Nq * Kd,
+            rate="f32", graphed=True,
+            timed_fn=rotating(lambda l: DM.fused_norm_matmul_int8(
+                x, w["nw"][l], w["wqkv"][l], w["sqkv"][l], BD.EPS)))
+        chain_of(key("norm_matmul"), "qkv_chain", ms)
+        # matmul_residual (o_proj): weights, scales, x, res and out
+        ms = K.compare(
+            key("matmul_residual"), f"K9 matmul_residual {shape} N={Kd}",
+            lambda: DM.matmul_residual_int8(o, w["wo"][0], w["so"][0], x),
+            lambda: DM._matmul_residual_plain(o, w["wo"][0], w["so"][0], x),
+            TOL_GEMV, nbytes=Kd * Kd + 4 * Kd + 2 * M * 3 * Kd,
+            ops=2 * M * Kd * Kd, rate="f32", graphed=True,
+            timed_fn=rotating(lambda l: DM.matmul_residual_int8(
+                o, w["wo"][l], w["so"][l], x)))
+        chain_of(key("matmul_residual"), "o_chain", ms)
+        # the MLP half: gate_up and down weights once
+        mlp_bytes = 3 * Id * Kd + 4 * (2 * Id + Kd) + 4 * Kd + 2 * M * 2 * Kd
+        mlp_args = lambda l: (x, w["nw"][l], w["wgu"][l], w["sgu"][l],
+                              w["wd"][l], w["sd"][l], BD.EPS)
+        ms = K.compare(
+            key("mlp"), f"K9 mlp {shape} I={Id}",
+            lambda: DM.fused_decode_mlp_int8(*mlp_args(0)),
+            lambda: DM._mlp_plain(*mlp_args(0)), TOL_FUSED_MLP,
+            tol_l2=TOL_ATTN_L2, nbytes=mlp_bytes, ops=2 * M * 3 * Id * Kd,
+            rate="f32", graphed=True,
+            timed_fn=rotating(lambda l: DM.fused_decode_mlp_int8(*mlp_args(l))))
+        chain_of(key("mlp"), "chain", ms)
+        w8a8_integers(x, w, 0, group, f"{shape} I={Id} group={min(group, Id)}")
+        K.compare(
+            key("mlp_w8a8"), f"K9 mlp_w8a8 {shape} I={Id} group={min(group, Id)}",
+            lambda: DM.fused_decode_mlp_int8(*mlp_args(0), w8a8=True, group=group),
+            lambda: DM._mlp_w8a8_plain(*mlp_args(0), group), TOL_FUSED_MLP,
+            tol_l2=TOL_ATTN_L2, nbytes=mlp_bytes, ops=2 * M * 3 * Id * Kd,
+            rate="int8", graphed=True,
+            timed_fn=rotating(lambda l: DM.fused_decode_mlp_int8(
+                *mlp_args(l), w8a8=True, group=group)))
+        if keyed:
+            K.rows[key("mlp_w8a8")]["chain_ms"] = K.rows[key("mlp")]["chain_ms"]
+
+    for M in (1, 4, 8):
+        case(M, BD.K, BD.I, BD.N_QKV, ring=3, keyed=M == 1)
+    # N and I that no 1024 divides (three groups of 512, then one of 768)
+    case(4, 256, 1536, 1000, ring=2, keyed=False, group=512)
+    case(8, 256, 768, 1000, ring=2, keyed=False)
+    torch.cuda.empty_cache()
+
+    # flash_attention_bshd: K1 through BSHD strides at the prefill shape
+    B, Sq, Sk, H, D = 1, 3456, 3520, 32, 96
+    q, k, v = (torch.randn(B, s, H, D, generator=g, device="cuda").to(bf)
+               for s in (Sq, Sk, Sk))
+    kvl = torch.full((B,), Sq, device="cuda", dtype=torch.int32)
+    qs = torch.zeros(B, device="cuda", dtype=torch.int32)
+    kw = dict(causal=True, sm_scale=D ** -0.5)
+    nb, ops = attn_cost(B, H, Sq, Sk, D, pairs=Sq * (Sq + 1) // 2)
+    K.compare("flash_bshd", f"flash_attention_bshd [{B},{Sq},{H},{D}] over "
+              f"Sk={Sk} causal (K1 on BSHD views)",
+              lambda: FB.flash_attention_bshd(q, k, v, kvl, qs, **kw),
+              lambda: FB._flash_bshd_plain(q, k, v, kvl, qs, **kw),
+              TOL_BF16_ATTN, nbytes=nb, ops=ops, tol_l2=TOL_ATTN_L2,
+              library_fn=lambda: F.scaled_dot_product_attention(
+                  q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  is_causal=True))
+    via = FB.flash_attention_transposed(q, k, v, kvl, qs, **kw)
+    got = FB.flash_attention_bshd(q, k, v, kvl, qs, **kw)
+    torch.cuda.synchronize()
+    t_ms = time_ms(lambda: FB.flash_attention_transposed(q, k, v, kvl, qs, **kw))
+    same = torch.equal(via, got)
+    log(f"  flash_attention_bshd against K1 on the contiguous [B,H,S,D] copy: "
+        f"{'bit-equal' if same else 'DIFFERENT'}; transpose + contiguous + K1 + "
+        f"transpose back {t_ms:.4f} ms")
+    if not same:
+        raise AssertionError("flash_attention_bshd differs from K1 on the "
+                             "contiguous copy")
+
+
+def phase_experiments():
+    """The two harnesses at their real sizes, with the counters set to 0
+    just before and read just after: the path that launches K9's four
+    entries and `flash_attention_bshd`."""
+    import torch
+    from videoglamm_torch.experiments import bench_decode_fused as BD
+    from videoglamm_torch.experiments import flash_bshd as FB
+
+    reset_counts()
+    rows = BD.run_harness(rows=(1, DRAFT_K), reps=HARNESS_REPS,
+                          log=lambda line: log("  " + line))
+    torch.cuda.empty_cache()
+    res = FB.run_harness(reps=HARNESS_REPS, log=lambda line: log("  " + line))
+    counts = read_counts()
+    if not all(r["finite"] for r in rows):
+        raise AssertionError("decode-layer harness: non-finite activations")
+    if res["max_abs_diff"] != 0.0:
+        raise AssertionError("BSHD harness: the two layouts differ by "
+                             f"{res['max_abs_diff']}")
+    # a variant runs 1 warm-up pass, the timed passes, one under the profiler
+    # and one into the graph, for each of the two row counts; the attention
+    # harness one warm-up chain, the timed chains and the compared call
+    per_entry = 2 * BD.L * (HARNESS_REPS + 3)
+    want = {f"decode_fused[{e}]": per_entry for e in
+            ("norm_matmul", "matmul_residual", "mlp", "mlp_w8a8")}
+    want["flash_bshd"] = 8 * (HARNESS_REPS + 1) + 1
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{name}: {counts[name]} launches in the "
+                                 f"harnesses, expected {n}")
+    log("  harness launches: " + json.dumps({k: counts[k] for k in want}))
+    return counts
+
+
 def seeded_init(model, g):
     """Random weights from a seed: normal std 0.02, norm scales 1, norm
     biases 0, the random-Fourier PE matrix standard normal."""
@@ -870,9 +1091,10 @@ def make_raw_request(cfg, seed: int):
 
 
 def _counters():
+    from videoglamm_torch.experiments import decode_mlp
     from videoglamm_torch.ops import attention, fused_block, norms, quant
     return attention.LAUNCHES, fused_block.LAUNCHES, norms.LAUNCHES, \
-        quant.LAUNCHES
+        quant.LAUNCHES, decode_mlp.LAUNCHES
 
 
 def reset_counts():
@@ -881,7 +1103,7 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    attention, fused_block, norms, quant = _counters()
+    attention, fused_block, norms, quant, fused = _counters()
     return {
         "attention_fwd[causal]": attention["causal"],
         "attention_fwd[flash]": attention["flash"],
@@ -898,6 +1120,11 @@ def read_counts() -> dict:
         "flash_bwd": attention["flash_bwd"],
         "window_attention": attention["window_attn"],
         "smallwin_attention": attention["smallwin"],
+        "decode_fused[norm_matmul]": fused["norm_matmul"],
+        "decode_fused[matmul_residual]": fused["matmul_residual"],
+        "decode_fused[mlp]": fused["mlp"],
+        "decode_fused[mlp_w8a8]": fused["mlp_w8a8"],
+        "flash_bshd": attention["flash_bshd"],
     }
 
 
@@ -908,7 +1135,12 @@ EXPECTED_TOWERS = {"attention_fwd[causal]": 32, "attention_fwd[flash]": 3,
                    "attention_fwd[bshd]": 62, "attention_fwd[window]": 42,
                    "fused_window_block": 42, "gemm_epilogue": 168,
                    "flash_bwd": 0, "attention_fwd[flash_d256]": 0,
-                   "window_attention": 0, "smallwin_attention": 0}
+                   "window_attention": 0, "smallwin_attention": 0,
+                   # K9 and the BSHD launcher are experiments: no serving or
+                   # training path calls them
+                   "decode_fused[norm_matmul]": 0,
+                   "decode_fused[matmul_residual]": 0, "decode_fused[mlp]": 0,
+                   "decode_fused[mlp_w8a8]": 0, "flash_bshd": 0}
 # the video branch: the memory self-attention runs once a memory-attention
 # layer on every frame but the first (the cross-attention carries a kv_mask
 # and is plain in both packages)
@@ -954,10 +1186,31 @@ EXPECTED_PER_REQUEST["track512"] = dict(
        "window_attention": TRACK_SELF_ATTN})
 
 
-def phase_serve(gi, cfg, mode: str, requests, raw: bool, track: bool = False):
+# speculative decoding on the main path's model: every cached forward of the
+# int8 LLM, of 1 row or of DRAFT_K, launches K5 four times a layer and once
+# for the lm_head; only the epilogue step has one row and takes K4 (the
+# K-row verify forwards take the plain attention over the dequantised
+# cache). The number of verify forwards depends on the tokens, so K5's count
+# is left out here and held by `phase_speculative`.
+GEMV_FORWARD = 4 * 32 + 1
+EXPECTED_PER_REQUEST["spec"] = {
+    k: v for k, v in dict(EXPECTED_PER_REQUEST["int8"],
+                          **{"decode_attention_q8": 32}).items()
+    if k != "dequant_gemv[int8]"}
+# the Llama-3.1 base: bf16 weights (no K5), the int8 cache through K4's GQA
+# branch once a layer and decode step, a 32-layer causal prefill on K1
+EXPECTED_PER_REQUEST["llama"] = dict(
+    EXPECTED_PER_REQUEST["bf16"], **{"decode_attention_q8": DECODE_Q8})
+
+
+def phase_serve(gi, cfg, mode: str, requests, raw: bool, track: bool = False,
+                serve_kw=None, timings_out=None):
     """Serve `requests` through the entry point with the counters set to 0
     just before and read just after; `mode` names the path's expected
-    launches. track: the video branch, every frame to SAM."""
+    launches. track: the video branch, every frame to SAM. serve_kw: a
+    callable that makes the further keyword arguments of one request (a
+    fresh seeded generator); timings_out: a list that receives each
+    request's stage seconds."""
     import torch
 
     torch.cuda.synchronize()
@@ -967,15 +1220,18 @@ def phase_serve(gi, cfg, mode: str, requests, raw: bool, track: bool = False):
     for i, req in enumerate(requests):
         timings = {}
         t0 = time.perf_counter()
+        kw = serve_kw() if serve_kw is not None else {}
         if track:
             out = gi.serve_raw(*req, timings=timings, use_video_branch=True)
         elif raw:
-            out = gi.serve_raw(*req, num_sam_frames=T_SAM, timings=timings)
+            out = gi.serve_raw(*req, num_sam_frames=T_SAM, timings=timings, **kw)
         else:
             out = gi(*req, timings=timings)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         results.append(out)
+        if timings_out is not None:
+            timings_out.append(timings)
         masks = out.pred_masks
         log(f"  {mode} request {i}: wall {wall:.3f} s, "
             + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
@@ -1013,7 +1269,7 @@ def check_outputs(cfg, results, what: str, t_sam: int = T_SAM):
         if not (out.pred_masks[0][invalid] <= -1e3).all():
             raise AssertionError(f"{what} request {i}: invalid [SEG] slots "
                                  "not masked")
-        vocab = cfg.llm.vocab_size + 1
+        vocab = cfg.llm_config.vocab_size + 1
         if not ((out.tokens >= 0) & (out.tokens < vocab)).all():
             raise AssertionError(f"{what} request {i}: token ids out of range")
     log(f"  {what} outputs: finite, expected shapes, invalid slots <= -1e3, "
@@ -1061,23 +1317,29 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def measure_decode(model, frames, context, ids, lens, what: str, steps: int = 16):
+def measure_decode(model, frames, context, ids, lens, what: str, steps: int = 16,
+                   rows: int = 1):
     """The decode step alone: host-clock ms per step over `steps` steps
     ending in a synchronise, then the same steps under torch.profiler for
-    the device-busy share and the device launches per step."""
+    the device-busy share and the device launches per step. rows > 1: the
+    step is one cached forward of `rows` tokens, as a speculative iteration
+    makes it. Returns the host-clock ms per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from videoglamm_torch.inference.generate import decode_step, prefill
+    from videoglamm_torch.inference.generate import prefill
 
+    llm = model.llm
     with torch.no_grad():
         visual = model.encode_visual_prefix(frames, context)
-        _, cache, sp, logits = prefill(model.llm, visual, ids, lens, 3 * steps,
-                                       quant_kv=model.quant_kv_int8)
-        tok = logits.argmax(dim=-1)
+        _, cache, sp, logits = prefill(llm, visual, ids, lens, 3 * steps,
+                                       quant_kv=model.quant_kv_int8, slack=rows)
+        block = logits.argmax(dim=-1)[:, None].expand(-1, rows)
+        ar = torch.arange(rows, device=block.device)[None]
 
         def run(first: int):
             for j in range(first, first + steps):
-                decode_step(model.llm, cache, tok, sp.attn_lens + j)
+                pos = sp.attn_lens + j
+                llm(llm.embed(block), pos[:, None] + ar, pos + rows, cache)
             torch.cuda.synchronize()
 
         run(0)                                   # warm-up
@@ -1089,20 +1351,149 @@ def measure_decode(model, frames, context, ids, lens, what: str, steps: int = 16
             run(2 * steps)
             prof_ms = (time.perf_counter() - t0) * 1e3 / steps
     # kernel rows only: an operator's row repeats its kernels' device time
-    rows = [e for e in prof.key_averages()
-            if _device_us(e) > 0 and "cuda" in str(e.device_type).lower()]
-    busy_ms = sum(_device_us(e) for e in rows) / 1e3 / steps
-    launches = sum(e.count for e in rows) / steps
-    if not rows:
-        log(f"  {what} decode step: {host_ms:.3f} ms host clock (mean of "
+    kernels = [e for e in prof.key_averages()
+               if _device_us(e) > 0 and "cuda" in str(e.device_type).lower()]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    what = f"{what} decode step" if rows == 1 else \
+        f"{what} cached forward of {rows} rows"
+    if not kernels:
+        log(f"  {what}: {host_ms:.3f} ms host clock (mean of "
             f"{steps}); device time not measured (the profiler saw none)")
-        return
-    top = sorted(rows, key=_device_us, reverse=True)[:4]
-    log(f"  {what} decode step: {host_ms:.3f} ms host clock (mean of {steps}); "
+        return host_ms
+    top = sorted(kernels, key=_device_us, reverse=True)[:4]
+    log(f"  {what}: {host_ms:.3f} ms host clock (mean of {steps}); "
         f"under the profiler {prof_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"({busy_ms / prof_ms:.2f}), {launches:.0f} device launches a step; top: "
         + "; ".join(f"{e.key[:48]} {_device_us(e) / 1e3 / steps:.3f} ms x"
                     f"{e.count / steps:.0f}" for e in top))
+    return host_ms
+
+
+def phase_speculative(gi, cfg, raw_requests, frames, context, ids, lens,
+                      plain_step_ms: float):
+    """Speculative serving on the main path's model: requests through
+    `serve_raw` with `draft_k=DRAFT_K`, then one verify forward by hand. Seeded random
+    weights accept few drafts and greedy tokens flip under rounding between
+    the K-row and the 1-row kernels, so the tokens are not held to the plain
+    greedy run; held are the launches, the masks, `lengths` against `tokens`,
+    and the K-row verify forward against K single-row steps fed the same
+    tokens."""
+    import torch
+    from videoglamm_torch.inference.generate import (decode_step, prefill,
+                                                     terminators_for)
+    from videoglamm_torch.inference.pipeline import GroundedInference
+
+    model = gi.model
+    spec = GroundedInference(model, max_new_tokens=MAX_NEW, draft_k=DRAFT_K)
+    requests = raw_requests[:N_SPEC_REQUESTS]
+    stages = []
+    results, counts = phase_serve(spec, cfg, "spec", requests, raw=True,
+                                  timings_out=stages)
+    check_outputs(cfg, results, "speculative")
+    # every request: the lm_head on the last prompt position, then one cached
+    # forward an iteration and the epilogue step
+    n = len(requests)
+    forwards, rest = divmod(counts["dequant_gemv[int8]"] - n, GEMV_FORWARD)
+    iterations = forwards - n
+    if rest or not 0 <= iterations <= n * (MAX_NEW - 1):
+        raise AssertionError(f"speculative: {counts['dequant_gemv[int8]']} K5 "
+                             f"launches are no whole number of cached forwards")
+    stop = torch.tensor(terminators_for(cfg.llm_type), device="cuda")
+    emitted = 0
+    for i, out in enumerate(results):
+        length = int(out.lengths[0])
+        toks = out.tokens[0]
+        if (toks[length:] != 0).any() or torch.isin(toks[:length], stop).any():
+            raise AssertionError(f"speculative request {i}: lengths {length} "
+                                 f"against tokens {toks.tolist()}")
+        emitted += length
+    gen_s = sum(t["generate"] for t in stages)
+    log(f"  speculative, draft_k={DRAFT_K}: {iterations} iterations for "
+        f"{emitted} tokens over {n} requests ({emitted / max(iterations, 1):.3f} "
+        f"tokens an iteration), generate stage {gen_s / n:.3f} s a request "
+        "(prefill included)")
+
+    # one verify forward of DRAFT_K rows against DRAFT_K single-row steps fed
+    # the same tokens at the same positions of the same cache
+    g = torch.Generator(device="cuda").manual_seed(8)
+    forced = torch.randint(1, 32000, (1, DRAFT_K), generator=g, device="cuda")
+    llm = model.llm
+    with torch.no_grad():
+        visual = model.encode_visual_prefix(frames, context)
+        _, cache, sp, _ = prefill(llm, visual, ids, lens, DRAFT_K,
+                                  quant_kv=model.quant_kv_int8, slack=DRAFT_K)
+        single = [decode_step(llm, cache, forced[:, j], sp.attn_lens + j)
+                  for j in range(DRAFT_K)]
+        ar = torch.arange(DRAFT_K, device="cuda")[None]
+        reset_counts()
+        lg, h, _ = llm(llm.embed(forced), sp.attn_lens[:, None] + ar,
+                       sp.attn_lens + DRAFT_K, cache)
+        torch.cuda.synchronize()
+        one = read_counts()
+    launched = {k: v for k, v in one.items() if v}
+    log(f"  one verify forward of {DRAFT_K} rows launches: {json.dumps(launched)}")
+    if launched != {"dequant_gemv[int8]": GEMV_FORWARD}:
+        raise AssertionError("speculative: a verify forward must launch K5 "
+                             f"{GEMV_FORWARD} times and no other kernel")
+    for name, got, want in (
+            ("logits", lg, torch.stack([s[0] for s in single], dim=1)),
+            ("hidden", h, torch.stack([s[1] for s in single], dim=1))):
+        rel = rel_l2(got, want)
+        log(f"  verify forward {name} {tuple(got.shape)} vs {DRAFT_K} single-row "
+            f"steps: rel L2 {rel:.3e} (tol {TOL_SPEC_VERIFY:g})")
+        if not rel <= TOL_SPEC_VERIFY:
+            raise AssertionError(f"speculative: the verify forward's {name} "
+                                 "disagree with single-row steps")
+    del cache
+    verify_ms = measure_decode(model, frames, context, ids, lens,
+                               "int8 + int8 KV", rows=DRAFT_K)
+    log(f"  a speculative iteration ({DRAFT_K} rows) {verify_ms:.3f} ms beside a "
+        f"plain step {plain_step_ms:.3f} ms: it pays from "
+        f"{verify_ms / plain_step_ms:.2f} tokens an iteration on")
+    return counts
+
+
+def phase_sampled(gi, cfg, raw_request):
+    """Sampled serving on the main path's model: the same request twice with
+    temperature 0.7 and a generator seeded alike must give the same tokens."""
+    import torch
+    from videoglamm_torch.inference.pipeline import GroundedInference
+
+    sampled = GroundedInference(gi.model, max_new_tokens=MAX_NEW, temperature=0.7)
+    results, _ = phase_serve(
+        sampled, cfg, "int8", [raw_request, raw_request], raw=True,
+        serve_kw=lambda: dict(
+            generator=torch.Generator(device="cuda").manual_seed(11)))
+    check_outputs(cfg, results, "sampled")
+    a, b = (r.tokens for r in results)
+    log(f"  sampled, temperature 0.7, seed 11 twice: tokens "
+        f"{'equal' if torch.equal(a, b) else 'DIFFER'}, "
+        f"{a[0].unique().numel()} distinct ids in {a.shape[1]}")
+    if not torch.equal(a, b):
+        raise AssertionError("sampled: the same seed gave other tokens")
+
+
+def phase_llama(cfg, raw_requests):
+    """The Llama-3.1-8B base at full width and depth, bf16 weights and the
+    int8 KV cache: the first path through K4's GQA branch (4 query heads a
+    KV head, head dim 128)."""
+    import torch
+    from videoglamm_torch.inference.pipeline import prepare_vision_inputs
+
+    lcfg = dataclasses.replace(cfg, llm_type="llama3_1")
+    gi = build(lcfg, "none", "int8", "Llama-3.1-8B bf16 LLM")
+    results, counts = phase_serve(gi, lcfg, "llama",
+                                  raw_requests[:N_LLAMA_REQUESTS], raw=True)
+    check_outputs(lcfg, results, "Llama-3.1")
+    raw, ids, lens = raw_requests[0]
+    with torch.no_grad():
+        frames, context, _ = prepare_vision_inputs(
+            raw, lcfg, num_sam_frames=T_SAM, dtype=torch.bfloat16)
+    check_teacher_forced(gi.model, frames, context, ids, lens, TOL_LLM_TF_Q,
+                         "Llama-3.1, bf16 weights, int8 cache")
+    measure_decode(gi.model, frames, context, ids, lens, "Llama-3.1 bf16 + int8 KV")
+    return counts
 
 
 def small_config():
@@ -1128,7 +1519,9 @@ def small_config():
 
 def phase_small_reference():
     import torch
-    from videoglamm_torch.inference.generate import decode_step, prefill
+    from videoglamm_torch.inference.generate import (decode_step,
+                                                     generate_with_prefix,
+                                                     prefill)
     from videoglamm_torch.inference.pipeline import build_inference
     from videoglamm_torch.models.videoglamm import SegExtraction
     from videoglamm_torch.constants import IMAGE_TOKEN_INDEX
@@ -1172,9 +1565,16 @@ def phase_small_reference():
                                        quant_kv=model.quant_kv_int8)
         out = [decode_step(model.llm, cache, on(forced)[:, j], sp.attn_lens + j)
                for j in range(n_forced)]
+        # the same tokens again as one cached forward of n_forced rows, as a
+        # speculative iteration feeds them (K5 at 4 rows, plain attention)
+        ar = torch.arange(n_forced, device=device)[None]
+        block_logits, block_hidden, _ = model.llm(
+            model.llm.embed(on(forced)), sp.attn_lens[:, None] + ar,
+            sp.attn_lens + n_forced, cache)
         return dict(prefill_logits=logits,
                     step_logits=torch.stack([o[0] for o in out], dim=1),
-                    step_hidden=torch.stack([o[1] for o in out], dim=1))
+                    step_hidden=torch.stack([o[1] for o in out], dim=1),
+                    block_logits=block_logits, block_hidden=block_hidden)
 
     def hold(got, want, what):
         for k, w in want.items():
@@ -1201,11 +1601,24 @@ def phase_small_reference():
             counts = read_counts()
             hold(got, run_llm(ref_q, "cpu", f32, want["visual"]),
                  f" ({quant} LLM, int8 cache)")
-            gemv = n_forced * (4 * cfg.llm.num_layers + 1) + 1
+            gemv = (n_forced + 1) * (4 * cfg.llm.num_layers + 1) + 1
             if counts["decode_attention_q8"] != n_forced * cfg.llm.num_layers \
                     or counts[f"dequant_gemv[{quant}]"] != gemv:
                 raise AssertionError(f"small model ({quant}): K4/K5 launches "
                                      f"{counts}")
+            if quant == "int8":
+                # on the CPU, in f32, speculative decoding gives the plain
+                # greedy tokens
+                gen = [generate_with_prefix(
+                    ref_q, want["visual"], ids, lens, max_new_tokens=12,
+                    eos_id=-1, draft_k=k) for k in (0, n_forced)]
+                same = torch.equal(gen[0].tokens, gen[1].tokens)
+                log(f"  small model (int8 LLM, int8 cache) on the CPU: "
+                    f"speculative (draft_k={n_forced}) and plain greedy tokens "
+                    f"{'equal' if same else 'DIFFER'}: {gen[1].tokens[0].tolist()}")
+                if not same:
+                    raise AssertionError("small model: speculative decoding "
+                                         "changed the greedy tokens on the CPU")
             del dev_q, ref_q
 
 
@@ -1757,6 +2170,9 @@ SOURCES = {
     "flash_bwd": ("cuda", "videoglamm_torch/csrc/flash_bwd.cu"),
     "window_attention": ("cuda", "videoglamm_torch/csrc/window_attention.cu"),
     "smallwin_attention": ("cuda", "videoglamm_torch/csrc/smallwin_attention.cu"),
+    "decode_fused": ("cuda", "videoglamm_torch/csrc/decode_fused.cu"),
+    # K1 through BSHD strides: no device code of its own
+    "flash_bshd": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
 }
 REPLACES = {
     "attention_fwd[causal]": "videoglamm_tpu/ops/attention.py:93",
@@ -1774,6 +2190,11 @@ REPLACES = {
     "attention_fwd[flash_d256]": "videoglamm_tpu/ops/attention.py:93",
     "window_attention": "videoglamm_tpu/ops/attention.py:523",
     "smallwin_attention": "videoglamm_tpu/ops/attention.py:605",
+    "decode_fused[norm_matmul]": "scripts/decode_mlp_experiment.py:304",
+    "decode_fused[matmul_residual]": "scripts/decode_mlp_experiment.py:366",
+    "decode_fused[mlp]": "scripts/decode_mlp_experiment.py:123",
+    "decode_fused[mlp_w8a8]": "scripts/decode_mlp_experiment.py:212",
+    "flash_bshd": "scripts/bench_flash_bshd.py:61",
 }
 
 
@@ -1808,20 +2229,31 @@ def main() -> int:
     log("[device] TF32 off for matmul and cuDNN")
 
     t_start = time.perf_counter()
+
+    def phase(title: str):
+        log(f"{title} (at {time.perf_counter() - t_start:.0f} s)")
+
     K = Kernels()
     cfg = VideoGLaMMConfig.flagship()
     try:
-        log("[build]")
+        phase("[build]")
         phase_build()
-        log("[kernels] kernel vs plain twin at the main path's shapes")
+        phase("[kernels] kernel vs plain twin at the main path's shapes")
         phase_kernels(K)
         torch.cuda.empty_cache()
+        phase("[kernels] the fused decode-layer entries (K9) and K1 on BSHD views")
+        phase_decode_fused(K)
+        torch.cuda.empty_cache()
+        phase("[experiment] decode-layer A/B over 32 layers of stacked weights, "
+            "then the BSHD attention harness")
+        experiment_counts = phase_experiments()
+        torch.cuda.empty_cache()
 
-        log("[serve] bf16 weights, bf16 cache, preprocessed streams")
+        phase("[serve] bf16 weights, bf16 cache, preprocessed streams")
         gi = build(cfg, "none", "bf16", "bf16 LLM")
         requests = [make_request(cfg, 100 + i) for i in range(2)]
         results, _ = phase_serve(gi, cfg, "bf16", requests, raw=False)
-        log("[check] bf16")
+        phase("[check] bf16")
         check_outputs(cfg, results, "bf16")
         frames, context, _, ids, lens = requests[0]
         check_teacher_forced(gi.model, frames, context, ids, lens, TOL_LLM_TF,
@@ -1830,12 +2262,12 @@ def main() -> int:
         del gi, results, requests, frames, context
         torch.cuda.empty_cache()
 
-        log("[serve] main path: int8 weights, int8 cache, raw uint8 "
+        phase("[serve] main path: int8 weights, int8 cache, raw uint8 "
             f"[1,{cfg.num_frames},{RAW_H},{RAW_W},3] frames")
         gi = build(cfg, "int8", "int8", "int8 LLM")
         raw_requests = [make_raw_request(cfg, 200 + i) for i in range(N_REQUESTS)]
         results, counts = phase_serve(gi, cfg, "int8", raw_requests, raw=True)
-        log("[check] int8")
+        phase("[check] int8")
         check_outputs(cfg, results, "int8")
         raw, ids, lens = raw_requests[0]
         with torch.no_grad():
@@ -1843,37 +2275,46 @@ def main() -> int:
                 raw, cfg, num_sam_frames=T_SAM, dtype=torch.bfloat16)
         check_teacher_forced(gi.model, frames, context, ids, lens,
                              TOL_LLM_TF_Q, "int8 weights, int8 cache")
-        measure_decode(gi.model, frames, context, ids, lens, "int8 + int8 KV")
+        step_ms = measure_decode(gi.model, frames, context, ids, lens,
+                                 "int8 + int8 KV")
         del results
 
-        log("[serve] video branch on the main path's model: SAM-2 memory "
+        phase(f"[serve] speculative decoding on the main path's model, "
+            f"draft_k={DRAFT_K}, raw frames")
+        phase_speculative(gi, cfg, raw_requests, frames, context, ids, lens,
+                          step_ms)
+        phase("[serve] sampled decoding on the main path's model, temperature "
+            "0.7, raw frames")
+        phase_sampled(gi, cfg, raw_requests[0])
+
+        phase("[serve] video branch on the main path's model: SAM-2 memory "
             f"tracker, all {cfg.num_frames} frames to SAM, "
             f"{cfg.max_seg_tokens} [SEG] objects")
         results, track_counts = phase_serve(
             gi, cfg, "track", raw_requests[:N_TRACK_REQUESTS], raw=True,
             track=True)
-        log("[check] video branch")
+        phase("[check] video branch")
         check_outputs(cfg, results, "video branch", t_sam=cfg.num_frames)
         profile_track(gi, cfg, raw)
         del results
         torch.cuda.empty_cache()
-        log("[check] Hiera(hoist_layout=False) against the hoisted encoder")
+        phase("[check] Hiera(hoist_layout=False) against the hoisted encoder")
         hoist_counts = phase_unhoisted_hiera(
             gi.model.visual_model.image_encoder.trunk)
         del gi
         torch.cuda.empty_cache()
 
-        log("[serve] int4 weights, int8 cache, raw frames")
+        phase("[serve] int4 weights, int8 cache, raw frames")
         gi = build(cfg, "int4", "int8", "int4 LLM")
         results, counts4 = phase_serve(gi, cfg, "int4", raw_requests[:2], raw=True)
-        log("[check] int4")
+        phase("[check] int4")
         check_outputs(cfg, results, "int4")
         measure_decode(gi.model, frames, context, ids, lens, "int4 + int8 KV")
         counts["dequant_gemv[int4]"] = counts4["dequant_gemv[int4]"]
         del gi, results, frames, context, raw
         torch.cuda.empty_cache()
 
-        log("[serve] video branch at SAM image size 512 (32x32 memory grid), "
+        phase("[serve] video branch at SAM image size 512 (32x32 memory grid), "
             "bf16 weights, raw frames")
         cfg512 = dataclasses.replace(
             cfg, sam2=dataclasses.replace(cfg.sam2, image_size=512))
@@ -1881,24 +2322,30 @@ def main() -> int:
         results, track512_counts = phase_serve(
             gi, cfg512, "track512", raw_requests[:N_TRACK_REQUESTS], raw=True,
             track=True)
-        log("[check] video branch at 512")
+        phase("[check] video branch at 512")
         check_outputs(cfg512, results, "video branch at 512",
                       t_sam=cfg.num_frames)
-        del gi, results, raw_requests
+        del gi, results
         torch.cuda.empty_cache()
 
-        log("[check] narrow model on the card against the CPU twins")
+        phase("[serve] Llama-3.1-8B base at full width and depth, bf16 weights, "
+            "int8 cache, raw frames")
+        phase_llama(cfg, raw_requests)
+        del raw_requests
+        torch.cuda.empty_cache()
+
+        phase("[check] narrow model on the card against the CPU twins")
         phase_small_reference()
-        log("[check] narrow tracker on the card against the CPU twins")
+        phase("[check] narrow tracker on the card against the CPU twins")
         for image_size in (1024, 512):
             phase_small_track_reference(image_size)
 
-        log(f"[train] flagship, {TRAIN_STEPS} optimizer steps of {GRAD_ACCUM} "
+        phase(f"[train] flagship, {TRAIN_STEPS} optimizer steps of {GRAD_ACCUM} "
             "micro-steps, LoRA + lm_head + embed_tokens + text_hidden_fcs + "
             "mask decoder")
         train_counts = phase_train(cfg, args.seed)
         torch.cuda.empty_cache()
-        log("[check] narrow model, one training micro-step on the card "
+        phase("[check] narrow model, one training micro-step on the card "
             "against the CPU twins")
         phase_small_train_reference(args.seed)
     except Exception:
@@ -1914,11 +2361,16 @@ def main() -> int:
     # head dim 256 from the video branch's run on the main path's model (2
     # requests), whose counts stand beside every kernel as launches_track;
     # K7's from the video branch at image size 512 (2 requests); K8's from
-    # the unhoisted Hiera forward
+    # the unhoisted Hiera forward; K9's four entries and the BSHD launcher
+    # from the run of the two experiment harnesses
     counts["flash_bwd"] = train_counts["flash_bwd"]
     counts["attention_fwd[flash_d256]"] = track_counts["attention_fwd[flash_d256]"]
     counts["window_attention"] = track512_counts["window_attention"]
     counts["smallwin_attention"] = hoist_counts["smallwin_attention"]
+    # K9's entries and the BSHD launcher: from the two harnesses' run
+    for key in experiment_counts:
+        if key.startswith("decode_fused") or key == "flash_bshd":
+            counts[key] = experiment_counts[key]
     kernels = []
     for key, row in K.rows.items():
         route, source = SOURCES[key.split("[")[0]]

@@ -14,12 +14,17 @@ but sum in another order, and K1 rounds the unnormalised softmax weights
 few bf16 ulps (2^-8 relative) of the output scale. K4 likewise rounds
 p * v_scale relative to the running maximum where its twin rounds the
 normalised probability. K5 rounds once, after an f32 sum taken in another
-order than the twin's, so it differs by at most one bf16 ulp.
+order than the twin's, so it differs by at most one bf16 ulp. K9's bf16
+entries round where their twins round and sum in another order (a few bf16
+ulps where a rounding of g, u or h flips); its W8A8 entry is held by its
+integers, which are exact.
 """
 import numpy as np
 import pytest
 import torch
 
+from videoglamm_torch.experiments import decode_mlp as dm
+from videoglamm_torch.experiments import flash_bshd as fbshd
 from videoglamm_torch.ops import attention as attn
 from videoglamm_torch.ops import fused_block as fb
 from videoglamm_torch.ops import norms
@@ -591,3 +596,137 @@ def test_narrow_tracker_on_the_card_matches_cpu(dev, image_size, counter):
             _close_l2(getattr(c, name).cpu(), getattr(r, name), 2e-2,
                       f"frame {t} {name}")
     assert attn.LAUNCHES[counter] == 2
+
+
+# ---------------------------------------------------------------------------
+# K9 (csrc/decode_fused.cu) and flash_attention_bshd
+# ---------------------------------------------------------------------------
+def _decode_layer_weights(rng, dev, K, I, N):
+    def q8(rows, cols):
+        return torch.as_tensor(rng.integers(-127, 128, (rows, cols)),
+                               dtype=torch.int8).to(dev)
+
+    def scales(n, fan):
+        return torch.as_tensor((0.5 + rng.random(n)) / (73.0 * fan ** 0.5),
+                               dtype=torch.float32).to(dev)
+
+    return dict(nw=torch.as_tensor(1 + 0.1 * rng.standard_normal(K),
+                                   dtype=torch.float32).to(dev),
+                w=q8(N + (-N % 8), K), s=scales(N, K),
+                wgu=q8(2 * I, K), sgu=scales(2 * I, K),
+                wd=q8(K, I), sd=scales(K, I))
+
+
+K9_SHAPES = [(3072, 8192, 9216), (256, 1536, 1000), (4096, 14336, 6144)]
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("K,I,N", K9_SHAPES)
+def test_k9_bf16_entries_match_plain(dev, M, K, I, N):
+    """norm_matmul, matmul_residual and mlp at the Phi-3 widths, at a narrow
+    case whose N and I are no multiples of 1024, and at the Llama widths."""
+    rng = np.random.default_rng(90 + M)
+    p = _decode_layer_weights(rng, dev, K, I, N)
+    x = _randn(rng, (M, K), dev)
+    res = _randn(rng, (M, N), dev)
+    before = dict(dm.LAUNCHES)
+    got = dm.fused_norm_matmul_int8(x, p["nw"], p["w"], p["s"], 1e-5)
+    _close(got, dm._norm_matmul_plain(x, p["nw"], p["w"], p["s"], 1e-5), 1e-2,
+           "norm_matmul")
+    got = dm.matmul_residual_int8(x, p["w"], p["s"], res)
+    _close(got, dm._matmul_residual_plain(x, p["w"], p["s"], res), 1e-2,
+           "matmul_residual")
+    got = dm.fused_decode_mlp_int8(x, p["nw"], p["wgu"], p["sgu"], p["wd"],
+                                   p["sd"], 1e-5)
+    ref = dm._mlp_plain(x, p["nw"], p["wgu"], p["sgu"], p["wd"], p["sd"], 1e-5)
+    torch.cuda.synchronize()
+    _close(got, ref, 2e-2, "mlp")
+    _close_l2(got, ref, 1e-2, "mlp")
+    for name in ("norm_matmul", "matmul_residual", "mlp"):
+        assert dm.LAUNCHES[name] == before.get(name, 0) + 1
+
+
+@pytest.mark.parametrize("M", [1, 4, 8])
+@pytest.mark.parametrize("K,I,group", [(3072, 8192, 1024), (256, 1536, 512),
+                                       (256, 768, 1024)])
+def test_k9_w8a8_integers_equal(dev, M, K, I, group):
+    """The W8A8 entry's s32 sums are exact: on the kernel's own codes they
+    equal an integer product; the codes equal the twin's but where an f32
+    value that differs in its last bits falls across a rounding tie."""
+    rng = np.random.default_rng(70 + M)
+    p = _decode_layer_weights(rng, dev, K, I, 16)
+    x = _randn(rng, (M, K), dev)
+    args = (x, p["nw"], p["wgu"], p["sgu"], p["wd"], p["sd"], 1e-5)
+    got, tr = dm.mlp_w8a8_kernel(*args, group, trace=True)
+    ref, rt = dm._mlp_w8a8_plain(*args, group, trace=True)
+    torch.cuda.synchronize()
+    g = min(group, I)
+    assert torch.equal(tr.gu, dm._int_dot(tr.xq, p["wgu"]))
+    for j in range(I // g):
+        cols = slice(j * g, (j + 1) * g)
+        assert torch.equal(tr.down[j], dm._int_dot(tr.hq[:, cols],
+                                                   p["wd"][:, cols]))
+    for name, a, b in (("xq", tr.xq, rt.xq), ("hq", tr.hq, rt.hq)):
+        d = (a.int() - b.int()).abs()
+        assert d.max() <= 1 and (d > 0).float().mean() <= 2e-3, name
+    _close(got, ref, 2e-2, "mlp_w8a8")
+    _close_l2(got, ref, 1e-2, "mlp_w8a8")
+    if torch.equal(tr.xq, rt.xq) and torch.equal(tr.hq, rt.hq):
+        assert torch.equal(tr.gu, rt.gu) and torch.equal(tr.down, rt.down)
+
+
+def test_k9_captures_into_a_cuda_graph(dev):
+    rng = np.random.default_rng(5)
+    p = _decode_layer_weights(rng, dev, 3072, 8192, 3072)
+    x = _randn(rng, (4, 3072), dev)
+
+    def layer(x_):
+        qkv = dm.fused_norm_matmul_int8(x_, p["nw"], p["w"], p["s"])
+        y = dm.matmul_residual_int8(qkv, p["w"], p["s"], x_)
+        y = dm.fused_decode_mlp_int8(y, p["nw"], p["wgu"], p["sgu"], p["wd"],
+                                     p["sd"])
+        return dm.fused_decode_mlp_int8(y, p["nw"], p["wgu"], p["sgu"],
+                                        p["wd"], p["sd"], w8a8=True)
+
+    eager = layer(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = layer(x)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_k9_refuses_unsupported_operands(dev):
+    rng = np.random.default_rng(6)
+    p = _decode_layer_weights(rng, dev, 256, 512, 64)
+    x = _randn(rng, (9, 256), dev)
+    with pytest.raises(ValueError):               # more than 8 rows
+        dm.fused_norm_matmul_int8(x, p["nw"], p["w"], p["s"])
+    with pytest.raises(ValueError):               # f32 rows on the card
+        dm.fused_decode_mlp_int8(x[:2].float(), p["nw"], p["wgu"], p["sgu"],
+                                 p["wd"], p["sd"])
+    with pytest.raises(ValueError):               # a group that does not divide I
+        dm.fused_decode_mlp_int8(x[:2], p["nw"], p["wgu"], p["sgu"], p["wd"],
+                                 p["sd"], w8a8=True, group=384)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,kv,qs", [
+    (2, 300, 364, 4, 96, (300, 211), (0, 0)), (1, 130, 384, 2, 64, (300,), (170,))])
+def test_flash_bshd_matches_plain_and_k1(dev, B, Sq, Sk, H, D, kv, qs):
+    rng = np.random.default_rng(8)
+    q, k, v = (_randn(rng, (B, s, H, D), dev) for s in (Sq, Sk, Sk))
+    kv_lens = torch.tensor(kv, dtype=torch.int32, device=dev)
+    q_start = torch.tensor(qs, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, sm_scale=D ** -0.5)
+    n0 = attn.LAUNCHES["flash_bshd"]
+    got = fbshd.flash_attention_bshd(q, k, v, kv_lens, q_start, **kw)
+    assert attn.LAUNCHES["flash_bshd"] == n0 + 1 and got.is_contiguous()
+    ref = fbshd._flash_bshd_plain(q, k, v, kv_lens, q_start, **kw)
+    via_k1 = fbshd.flash_attention_transposed(q, k, v, kv_lens, q_start, **kw)
+    torch.cuda.synchronize()
+    _close(got, ref, 2e-2, "flash_bshd vs plain")
+    _close_l2(got, ref, 1e-2, "flash_bshd vs plain")
+    assert torch.equal(got, via_k1)       # the same kernel on the same values

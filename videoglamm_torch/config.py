@@ -101,6 +101,31 @@ class Phi3Config:
 
 
 @dataclass(frozen=True)
+class LlamaConfig:
+    """Llama-3.1-8B decoder, the alternate LLM base (GQA with 8 KV heads,
+    separate q/k/v and gate/up projections, RoPE theta 5e5 with the
+    Llama-3.1 frequency rescaling)."""
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rope_theta: float = 500000.0
+    rms_norm_eps: float = 1e-5
+
+    @staticmethod
+    def llama3_1_8b() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def tiny() -> "LlamaConfig":
+        return LlamaConfig(vocab_size=512, hidden_size=64, intermediate_size=128,
+                           num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16)
+
+
+@dataclass(frozen=True)
 class HieraConfig:
     """SAM-2 Hiera trunk (Hiera-L by default)."""
     embed_dim: int = 144
@@ -186,10 +211,12 @@ class SAM2Config:
 
 @dataclass(frozen=True)
 class VideoGLaMMConfig:
-    """The composite: InternVideo2 + CLIP towers, projectors, Phi-3, the
-    [SEG] head and SAM-2."""
+    """The composite: InternVideo2 + CLIP towers, projectors, the LLM, the
+    [SEG] head and SAM-2. llm_type selects the base decoder: "phi3" (the
+    default, `llm`) or "llama3_1" (`llama`)."""
     llm_type: str = "phi3"
     llm: Phi3Config = field(default_factory=Phi3Config.phi3_mini_4k)
+    llama: LlamaConfig = field(default_factory=LlamaConfig.llama3_1_8b)
     clip: CLIPVisionConfig = field(default_factory=CLIPVisionConfig.vit_l_336)
     internvideo: InternVideo2Config = field(
         default_factory=InternVideo2Config.internvideo2_1b)
@@ -205,6 +232,11 @@ class VideoGLaMMConfig:
     dice_loss_weight: float = 0.5
     video_pool: Tuple[int, int] = (8, 8)      # 256 -> 64 tokens per frame
     context_pool: Tuple[int, int] = (12, 12)  # 576 -> 144 tokens per frame
+
+    @property
+    def llm_config(self):
+        """The config of the decoder that `llm_type` names."""
+        return self.llm if self.llm_type == "phi3" else self.llama
 
     @staticmethod
     def flagship() -> "VideoGLaMMConfig":

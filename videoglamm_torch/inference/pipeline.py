@@ -21,7 +21,7 @@ from ..models.phi3 import quantize_llm
 from ..models.videoglamm import SegExtraction, VideoGLaMM
 from ..ops.preprocess import (preprocess_clip_stream, preprocess_iv_stream,
                               preprocess_sam_stream, sample_frame_indices)
-from .generate import PHI3_TERMINATORS, GenerateResult, generate_with_prefix
+from .generate import GenerateResult, generate_with_prefix, terminators_for
 
 
 class InferenceResult(NamedTuple):
@@ -69,24 +69,35 @@ def prepare_vision_inputs(raw_frames, cfg, *, num_sam_frames=None,
 
 
 class GroundedInference:
-    """Grounded video chat / GCG pipeline, greedy; masks framewise or, with
+    """Grounded video chat / GCG pipeline; masks framewise or, with
     `use_video_branch=True`, from the SAM-2 memory tracker. The LLM's
     serving mode (bf16, int8 or int4 weights; bf16 or int8 KV cache) is the
-    model's (`build_inference`)."""
+    model's (`build_inference`). Generation is greedy, or sampled with
+    `temperature` > 0; `draft_k` >= 2 turns on n-gram speculative decoding
+    for greedy generation (the same tokens from fewer passes over the
+    weights, `generate.generate_speculative`). eos_id=None takes the stop
+    tokens of the configured LLM (pipeline.py:60-82)."""
 
-    def __init__(self, model, *, max_new_tokens: int = 128,
-                 eos_id=PHI3_TERMINATORS):
+    def __init__(self, model, *, max_new_tokens: int = 128, eos_id=None,
+                 temperature: float = 0.0, draft_k: int = 0):
+        if eos_id is None:
+            eos_id = terminators_for(model.cfg.llm_type)
         self.model = model
         self.max_new_tokens = max_new_tokens
         self.eos_id = eos_id
+        self.temperature = temperature
+        self.draft_k = draft_k
 
     @torch.no_grad()
     def __call__(self, frames, context_images, frames_sam, input_ids,
                  text_lens, timings: Optional[dict] = None,
-                 use_video_branch: bool = False) -> InferenceResult:
+                 use_video_branch: bool = False,
+                 generator: Optional[torch.Generator] = None
+                 ) -> InferenceResult:
         """frames [B,T,224,224,3]; context [B,T,336,336,3]; frames_sam
         [B,T_sam,S,S,3]; input_ids [B,S_text]. With a `timings` dict, each
         stage is synchronised and its wall seconds recorded there.
+        generator: the source of the sampling noise when temperature > 0.
         use_video_branch=True runs the SAM-2 memory tracker (stage `track`)
         in place of the independent per-frame decoding (stages `sam_encode`
         and `mask_decode`); the rows of a batch are tracked one after the
@@ -98,7 +109,9 @@ class GroundedInference:
         clock("visual")
         gen = generate_with_prefix(m, visual, input_ids, text_lens,
                                    max_new_tokens=self.max_new_tokens,
-                                   eos_id=self.eos_id)
+                                   eos_id=self.eos_id,
+                                   temperature=self.temperature,
+                                   generator=generator, draft_k=self.draft_k)
         clock("generate")
         seg = extract_seg_from_generation(m, gen)
         if use_video_branch:
@@ -121,7 +134,9 @@ class GroundedInference:
     def serve_raw(self, raw_frames, input_ids, text_lens, *,
                   num_sam_frames: Optional[int] = None,
                   timings: Optional[dict] = None,
-                  use_video_branch: bool = False) -> InferenceResult:
+                  use_video_branch: bool = False,
+                  generator: Optional[torch.Generator] = None
+                  ) -> InferenceResult:
         """One request from raw decoded frames: raw_frames [B,T,H,W,3] uint8
         on the model's device -> the three streams in the model's compute
         dtype (`preprocess` stage) -> `__call__`. num_sam_frames=None sends
@@ -134,13 +149,13 @@ class GroundedInference:
                                         dtype=dtype)
         clock("preprocess")
         return self(*streams, input_ids, text_lens, timings=timings,
-                    use_video_branch=use_video_branch)
+                    use_video_branch=use_video_branch, generator=generator)
 
 
 def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
                     device="cuda", dtype=torch.bfloat16, quant: str = "none",
                     kv_cache: str = "bf16", max_new_tokens: int = 128,
-                    eos_id=PHI3_TERMINATORS,
+                    eos_id=None, temperature: float = 0.0, draft_k: int = 0,
                     init: Optional[Callable] = None) -> GroundedInference:
     """Build a VideoGLaMM on `device` and wrap it for serving.
 
@@ -152,11 +167,19 @@ def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
     weights) or torch's default initialisation stands in.
     quant: "none", "int8" or "int4" weights for the LLM; float weights are
     quantised here from their f32 values, before the cast to `dtype`.
-    kv_cache: "bf16" (the compute dtype) or "int8"."""
+    kv_cache: "bf16" (the compute dtype) or "int8".
+    eos_id, temperature, draft_k: the generation options of
+    `GroundedInference`.
+    With `cfg.llm_type == "llama3_1"` the LLM is the Llama-3.1 base, which
+    has no quantised projections: any `quant` but "none" raises."""
     if quant not in ("none", "int8", "int4"):
         raise ValueError(f"quant {quant!r}: expected none, int8 or int4")
     if kv_cache not in ("bf16", "int8"):
         raise ValueError(f"kv_cache {kv_cache!r}: expected bf16 or int8")
+    if cfg.llm_type != "phi3" and quant != "none":
+        raise ValueError(f"quant {quant!r}: the {cfg.llm_type} base has no "
+                         "quantised projections; only Phi-3 serves int8 / int4 "
+                         "weights")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -181,7 +204,8 @@ def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
     if dtype != torch.float32:
         model.to_compute_dtype(dtype)
     return GroundedInference(model.eval(), max_new_tokens=max_new_tokens,
-                             eos_id=eos_id)
+                             eos_id=eos_id, temperature=temperature,
+                             draft_k=draft_k)
 
 
 class _StageClock:

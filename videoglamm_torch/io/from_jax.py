@@ -159,6 +159,27 @@ def phi3_state_dict(p) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def llama_state_dict(p) -> Dict[str, torch.Tensor]:
+    """LlamaForCausalLM params (flax scans the layers: every leaf under
+    `layers` has a leading layer axis) -> HF-named state_dict of the port's
+    LlamaForCausalLM, the keys `import_llama` reads (import_torch.py:555)."""
+    lay = p["layers"]
+    sd = {"model.embed_tokens.weight": _t(p["embed_tokens"]["embedding"]),
+          "model.norm.weight": _t(p["norm"]["scale"])}
+    sd.update(_linear(p["lm_head"], "lm_head"))
+    n = np.asarray(lay["input_layernorm"]["scale"]).shape[0]
+    for i in range(n):
+        pre = f"model.layers.{i}"
+        sd.update(_norm(lay["input_layernorm"], f"{pre}.input_layernorm", i))
+        sd.update(_norm(lay["post_attention_layernorm"],
+                        f"{pre}.post_attention_layernorm", i))
+        for nm in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            sd.update(_linear(lay[nm], f"{pre}.self_attn.{nm}", i))
+        for nm in ("gate_proj", "up_proj", "down_proj"):
+            sd.update(_linear(lay[nm], f"{pre}.mlp.{nm}", i))
+    return sd
+
+
 def projector_state_dict(p, projector_type: str) -> Dict[str, torch.Tensor]:
     if projector_type == "identity":
         return {}
@@ -352,7 +373,8 @@ def videoglamm_state_dict(params, cfg) -> Dict[str, torch.Tensor]:
     for name in ("mm_projector", "image_mm_projector"):
         sd.update(_prefixed(name, projector_state_dict(p[name],
                                                        cfg.mm_projector_type)))
-    sd.update(_prefixed("llm", phi3_state_dict(p["llm"])))
+    llm_sd = phi3_state_dict if cfg.llm_type == "phi3" else llama_state_dict
+    sd.update(_prefixed("llm", llm_sd(p["llm"])))
     sd.update(_linear(p["text_hidden_fcs"]["fc0"], "text_hidden_fcs.0.0"))
     sd.update(_linear(p["text_hidden_fcs"]["fc1"], "text_hidden_fcs.0.2"))
     sd.update(_prefixed("visual_model", sam2_state_dict(p["sam"])))

@@ -8,8 +8,9 @@ the MASK_IGNORE_INDEX semantics of the reference.
 
 Submodule names: `vision_tower` (InternVideo2), `image_vision_tower`
 (CLIP), `mm_projector`, `image_mm_projector`, `llm` (HF Phi-3 names
-inside), `text_hidden_fcs` and `visual_model` (SAM-2), so a reference
-export maps onto the port by key prefix (`model.layers.*` ->
+inside, or HF Llama names with `cfg.llm_type == "llama3_1"`),
+`text_hidden_fcs` and `visual_model` (SAM-2), so a reference export maps
+onto the port by key prefix (`model.layers.*` ->
 `llm.model.layers.*`, `model.visual_model.*` -> `visual_model.*`).
 """
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..ops.resize import resize_bilinear
 from .clip_vit import CLIPVisionTower
 from .common import cast_compute
 from .internvideo2 import InternVideo2Tower
+from .llama import LlamaForCausalLM
 from .multimodal import SplicedBatch, splice_visual_prefix
 from .phi3 import Phi3ForCausalLM
 from .projectors import TextHiddenFCs, build_vision_projector, build_visual_prefix
@@ -96,18 +98,21 @@ class VideoGLaMM(nn.Module):
     the LLM (videoglamm.py:107-109). `quant_llm_int8` / `quant_llm_int4`
     build the LLM in weight-only quantised serving form; `quant_kv_int8`
     makes generation use the int8 KV cache (read by inference/generate.py)
-    (videoglamm.py:110-132)."""
+    (videoglamm.py:110-132). `cfg.llm_type` selects the base decoder
+    (videoglamm.py:119-138); the Llama-3.1 base has neither LoRA nor
+    quantised projections, and asking for them raises (the JAX module
+    drops those options without a word)."""
 
     def __init__(self, cfg: VideoGLaMMConfig, *, remat_llm: bool = False,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
                  quant_llm_int8: bool = False,
                  quant_llm_int4: bool = False, quant_kv_int8: bool = False):
         super().__init__()
-        if cfg.llm_type != "phi3":
-            raise NotImplementedError(
-                f"llm_type {cfg.llm_type!r}: only phi3 is ported so far")
+        if cfg.llm_type not in ("phi3", "llama3_1"):
+            raise ValueError(f"llm_type {cfg.llm_type!r}: expected phi3 or "
+                             "llama3_1")
         self.cfg = cfg
-        hidden = cfg.llm.hidden_size
+        hidden = cfg.llm_config.hidden_size
         self.vision_tower = InternVideo2Tower(cfg.internvideo)
         self.image_vision_tower = CLIPVisionTower(cfg.clip)
         self.mm_projector = build_vision_projector(
@@ -115,11 +120,18 @@ class VideoGLaMM(nn.Module):
         self.image_mm_projector = build_vision_projector(
             cfg.mm_projector_type, cfg.clip.hidden_size, hidden)
         self.quant_kv_int8 = quant_kv_int8
-        self.llm = Phi3ForCausalLM(cfg.llm, extra_vocab=1,
-                                   quant_int8=quant_llm_int8,
-                                   quant_int4=quant_llm_int4,
-                                   remat=remat_llm, lora_rank=lora_rank,
-                                   lora_alpha=lora_alpha)
+        if cfg.llm_type == "phi3":
+            self.llm = Phi3ForCausalLM(cfg.llm, extra_vocab=1,
+                                       quant_int8=quant_llm_int8,
+                                       quant_int4=quant_llm_int4,
+                                       remat=remat_llm, lora_rank=lora_rank,
+                                       lora_alpha=lora_alpha)
+        else:
+            if quant_llm_int8 or quant_llm_int4 or lora_rank > 0:
+                raise ValueError("the llama3_1 base has no quantised "
+                                 "projections and no LoRA")
+            self.llm = LlamaForCausalLM(cfg.llama, extra_vocab=1,
+                                        remat=remat_llm)
         self.text_hidden_fcs = nn.ModuleList([TextHiddenFCs(hidden, cfg.out_dim)])
         self.visual_model = SAM2Base(cfg.sam2)
 

@@ -1,5 +1,6 @@
 """Rotary position embeddings (PyTorch port of videoglamm_tpu/ops/rope.py):
-the half-rotation 1-D RoPE of the LLM (rope.py:15-48) and the 2-D axial
+the half-rotation 1-D RoPE of the LLM (rope.py:15-48), its Llama-3.1
+frequency rescaling (videoglamm_tpu/models/llama.py:25) and the 2-D axial
 RoPE of SAM-2 memory attention (rope.py:54-92)."""
 from __future__ import annotations
 
@@ -17,6 +18,46 @@ def rope_cos_sin(positions, head_dim: int, theta: float = 10000.0):
     exps = torch.arange(0, head_dim, 2, dtype=torch.float64,
                         device=positions.device) / head_dim
     inv = (1.0 / theta ** exps).float()
+    ang = positions.float()[..., None] * inv
+    ang = torch.cat([ang, ang], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+@functools.lru_cache(maxsize=8)
+def _llama31_inv_freq_np(head_dim: int, theta: float, factor: float,
+                         low_freq_factor: float, high_freq_factor: float,
+                         original_max_position: int):
+    """The rescaled frequency table, numpy f64 on the host (llama.py:30-40),
+    once per geometry."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+    low_wavelen = original_max_position / low_freq_factor
+    high_wavelen = original_max_position / high_freq_factor
+    wavelen = 2 * np.pi / inv_freq
+    scaled = np.where(wavelen > low_wavelen, inv_freq / factor, inv_freq)
+    smooth = (original_max_position / wavelen - low_freq_factor) / (
+        high_freq_factor - low_freq_factor)
+    mid = (1 - smooth) / factor * inv_freq + smooth * inv_freq
+    is_mid = (wavelen <= low_wavelen) & (wavelen >= high_wavelen)
+    return np.where(is_mid, mid, scaled).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _llama31_inv_freq_on(device, *geometry):
+    return torch.from_numpy(_llama31_inv_freq_np(*geometry)).to(device)
+
+
+def llama31_rope_cos_sin(positions, head_dim: int, theta: float,
+                         factor: float = 8.0, low_freq_factor: float = 1.0,
+                         high_freq_factor: float = 4.0,
+                         original_max_position: int = 8192):
+    """Llama-3.1 RoPE (HF rope_scaling type "llama3", llama.py:25): long
+    wavelengths are slowed by `factor`, short ones kept, the band between
+    blended. positions: [...] int -> cos, sin: [..., head_dim] f32. The
+    table is made once per geometry and kept on the positions' device."""
+    inv = _llama31_inv_freq_on(positions.device, int(head_dim), float(theta),
+                               float(factor), float(low_freq_factor),
+                               float(high_freq_factor),
+                               int(original_max_position))
     ang = positions.float()[..., None] * inv
     ang = torch.cat([ang, ang], dim=-1)
     return torch.cos(ang), torch.sin(ang)
