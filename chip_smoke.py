@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Drive the videoglamm_torch port once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases all|kernels,experiments,serve,train]
 
-Run from the root of a checkout. Phases, each fatal on failure:
+Run from the root of a checkout. `--phases` (default all, as the contract
+runs it) picks phases 3 (kernels), the experiment harnesses, 4-5 (serve and
+check) and 6-7 (train) to run; the build always runs. Phases, each fatal on
+failure:
 
 1. device: needs CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off for matmuls and cuDNN;
 2. build: compiles the eight CUDA sources of videoglamm_torch/csrc (K1
    attention_fwd, K2 gemm_epilogue, K4 decode_attention_q8, K5
    dequant_gemv, K6 flash_bwd, K7 window_attention, K8 smallwin_attention,
-   K9 decode_fused) from the checkout with one nvcc process each, all started together, and
+   K9 decode_fused; K1 and K2 over csrc/sm90_common.cuh, the Hopper
+   helpers) from the checkout with one nvcc process each, all started together, and
    JIT-compiles K3 (the Triton row norm), printing build seconds and the
    -Xptxas -v lines (registers and spills of every instantiation);
 3. kernels: holds every kernel against its plain PyTorch twin on the same
@@ -34,7 +38,13 @@ Run from the root of a checkout. Phases, each fatal on failure:
    are no multiples of 1024, each beside the unfused serving chain's time;
    the W8A8 entry's s32 sums must EQUAL integer products of its own codes.
    `flash_attention_bshd` (K1 on BSHD views) at [1,3456,32,96] over 3520
-   keys against its twin and against K1 on the contiguous copy;
+   keys against its twin and against K1 on the contiguous copy. K1's
+   window mode at all four Hiera stages' windows, K2 at the four products
+   of Hiera stages 1 and 3 (F.linear with the bias as the library time),
+   the fused block at all four stages. K1 counts its launches by route as
+   well as by mode ("wgmma" for bf16 at head dim <= 128, "mma_sync" for f32
+   storage and head dim 256): every serving path must launch K1 on the
+   wgmma route only, except the tracker's f32 memory self-attention;
    then the two experiment harnesses (the decode-layer A/B over 32 layers of
    stacked weights, eager and as CUDA-graph replays, and the BSHD attention
    harness), with the counters set to 0 just before and read just after;
@@ -498,6 +508,15 @@ def phase_flash_bwd(K: Kernels, randn):
                 K.rows[key] = dict(max_abs_err=max(errs), ms=ms,
                                    plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=library_ms)
+                # K1's forward with the LSE output at the training shape
+                f_bytes = 2 * B * H * D * (2 * Sq + 2 * Sk) + 4 * B * H * Sq
+                f_ops = 4 * D * pairs * H
+                tb, to = f_bytes / HBM_BYTES_S * 1e3, f_ops / PEAK_OPS["bf16"] * 1e3
+                K.rows[f"attention_fwd[{mode}]@train_lse"] = dict(
+                    max_abs_err=(out.float() - ref_out.float()).abs().max().item(),
+                    ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=max(tb, to),
+                    bound_by="bytes" if tb >= to else "operations",
+                    library_ms=lib_f)
         log(line + (" ok" if ok else " MISS"))
         if not ok:
             raise AssertionError(f"K6 {label}: disagrees with its plain twin")
@@ -565,7 +584,7 @@ def phase_kernels(K: Kernels):
     iv = randn(4, 1025, 3 * 16 * 88)
     iv5 = iv.view(4, 1025, 3, 16, 88)
     nb, ops = attn_cost(4, 16, 1025, 1025, 88)
-    K.compare(None, "K1 InternVideo2 fused qkv [4,1025,3*16*88]",
+    K.compare("attention_fwd[bshd]@iv2", "K1 InternVideo2 fused qkv [4,1025,3*16*88]",
               lambda: A.attention_packed_qkv_padded(iv, 16, 88),
               lambda: A._attention_plain_bshd(iv5[:, :, 0], iv5[:, :, 1],
                                               iv5[:, :, 2], 88 ** -0.5
@@ -575,10 +594,11 @@ def phase_kernels(K: Kernels):
                   *(iv5[:, :, i].transpose(1, 2) for i in range(3))))
     del cq, ck, cv, iv, iv5
 
-    # K1 window mode as fused_window_block drives it (16/64/256 tokens)
+    # K1 window mode as fused_window_block drives it (16/64/256 tokens),
+    # windows folded into 128-row query tiles by FB.window_fold
     def window_case(NW, Sw, H, key):
         hd = 72
-        fold = 64 // Sw if Sw < 64 else 1
+        fold = FB.window_fold(NW, Sw)
         B_, S_ = NW // fold, Sw * fold
         qkv5 = randn(B_, S_, 3, H, hd)
         out = torch.empty(B_, S_, H, hd, dtype=bf, device="cuda")
@@ -600,8 +620,9 @@ def phase_kernels(K: Kernels):
                   library_fn=lambda: F.scaled_dot_product_attention(*wins))
 
     window_case(8192, 64, 2, "attention_fwd[window]")
-    window_case(8192, 16, 4, None)
-    window_case(128, 256, 8, None)
+    window_case(8192, 16, 4, "attention_fwd[window]@stage2")
+    window_case(128, 256, 8, "attention_fwd[window]@stage3")
+    window_case(128, 64, 16, "attention_fwd[window]@stage4")
 
     # K7 (whole-row softmax, two passes): the memory self-attention at the
     # 32x32 grid in f32, and the two tower shapes its dispatch branch names.
@@ -709,23 +730,40 @@ def phase_kernels(K: Kernels):
               library_fn=lambda: F.layer_norm(x, (256,), w, b, 1e-5))
     del x
 
-    # K2 at the Hiera stage-1 fc1 shape over 8 frames: [524288,144]x[576,144]^T.
-    # No single PyTorch call computes bias + tanh-GELU after the product, so
-    # the keyed row has no library time; the bias-only mode has F.linear.
-    Mg, Kg, Ng = 524288, 144, 576
-    a = randn(Mg, Kg, scale=0.5)
-    w2 = randn(Ng, Kg, scale=Kg ** -0.5)
-    b2 = randn(Ng, scale=0.02)
-    nb, ops = 2 * (Mg * Kg + Ng * Kg + Ng + Mg * Ng), 2 * Mg * Kg * Ng
-    K.compare("gemm_epilogue", "K2 fc1+bias+GELU [524288,144]x[144,576]",
-              lambda: FB.gemm_epilogue(a, w2, b2, gelu=True),
-              lambda: FB._gemm_plain(a, w2, b2, gelu=True), TOL_BF16_GEMM,
-              nbytes=nb, ops=ops)
-    K.compare(None, "K2 bias only [524288,144]x[144,576]",
-              lambda: FB.gemm_epilogue(a, w2, b2),
-              lambda: FB._gemm_plain(a, w2, b2), TOL_BF16_GEMM,
-              nbytes=nb, ops=ops, library_fn=lambda: F.linear(a, w2, b2))
-    del a
+    # K2 at the four products of Hiera stage 1 (C = 144, 8 frames of 65,536
+    # tokens) and stage 3 (C = 576, 32,768 rows). No single PyTorch call
+    # computes bias + tanh-GELU or + residual after the product: the library
+    # time is F.linear with the bias alone, the nearest one call.
+    def gemm_case(Mg, Kg, Ng, key, label, gelu=False, res=False):
+        a = randn(Mg, Kg, scale=0.5)
+        w2 = randn(Ng, Kg, scale=Kg ** -0.5)
+        b2 = randn(Ng, scale=0.02)
+        r = randn(Mg, Ng) if res else None
+        nb = 2 * (Mg * Kg + Ng * Kg + Ng + Mg * Ng * (2 if res else 1))
+        K.compare(key, f"K2 {label} [{Mg},{Kg}]x[{Kg},{Ng}]"
+                  + (" +GELU" if gelu else "") + (" +residual" if res else ""),
+                  lambda: FB.gemm_epilogue(a, w2, b2, gelu=gelu, residual=r),
+                  lambda: FB._gemm_plain(a, w2, b2, gelu=gelu, residual=r),
+                  TOL_BF16_GEMM, nbytes=nb, ops=2 * Mg * Kg * Ng,
+                  library_fn=lambda: F.linear(a, w2, b2))
+        if gelu and Kg == 144:   # the bias-only launch beside F.linear
+            K.compare(None, f"K2 bias only [{Mg},{Kg}]x[{Kg},{Ng}]",
+                      lambda: FB.gemm_epilogue(a, w2, b2),
+                      lambda: FB._gemm_plain(a, w2, b2), TOL_BF16_GEMM,
+                      nbytes=2 * (Mg * Kg + Ng * Kg + Ng + Mg * Ng),
+                      ops=2 * Mg * Kg * Ng, library_fn=lambda: F.linear(a, w2, b2))
+        del a, r
+
+    for s, (Mg, C) in enumerate(((524288, 144), (32768, 576))):
+        st = ("stage1", "stage3")[s]
+        gemm_case(Mg, C, 3 * C, f"gemm_epilogue@{st}_qkv", f"{st} qkv+bias")
+        gemm_case(Mg, C, C, f"gemm_epilogue@{st}_proj", f"{st} proj+bias",
+                  res=True)
+        gemm_case(Mg, C, 4 * C, "gemm_epilogue" if s == 0
+                  else f"gemm_epilogue@{st}_fc1", f"{st} fc1+bias", gelu=True)
+        gemm_case(Mg, 4 * C, C, f"gemm_epilogue@{st}_fc2", f"{st} fc2+bias",
+                  res=True)
+        torch.cuda.empty_cache()
 
     # fused_window_block at the four Hiera-L geometries (fewer windows)
     def block_case(NW, Sw, C, H, key):
@@ -753,9 +791,9 @@ def phase_kernels(K: Kernels):
                   nbytes=nb, ops=ops)
 
     block_case(2048, 64, 144, 2, "fused_window_block")
-    block_case(2048, 16, 288, 4, None)
-    block_case(128, 256, 576, 8, None)
-    block_case(128, 64, 1152, 16, None)
+    block_case(2048, 16, 288, 4, "fused_window_block@stage2")
+    block_case(128, 256, 576, 8, "fused_window_block@stage3")
+    block_case(128, 64, 1152, 16, "fused_window_block@stage4")
 
     # K4: decode attention over a stacked int8 cache with different data
     # per layer; compared at one layer, timed rotating over the layers so
@@ -1125,14 +1163,21 @@ def read_counts() -> dict:
         "decode_fused[mlp]": fused["mlp"],
         "decode_fused[mlp_w8a8]": fused["mlp_w8a8"],
         "flash_bshd": attention["flash_bshd"],
+        # K1 by route (csrc/attention_fwd.cu): every mode above that K1
+        # serves, counted again by the body that ran it
+        "k1_route[wgmma]": attention["route:wgmma"],
+        "k1_route[mma_sync]": attention["route:mma_sync"],
     }
 
 
 # launches one flagship request must make: Phi-3 prefill, 32 causal
 # layers; 3 Hiera global blocks; CLIP 23 + InternVideo2 39 BSHD layers;
-# 42 fused Hiera window blocks of 4 K2 GEMMs each
+# 42 fused Hiera window blocks of 4 K2 GEMMs each. Every K1 launch of the
+# main path is bf16 at head dim <= 128 and takes the wgmma route
+K1_WGMMA = 32 + 3 + 62 + 42
 EXPECTED_TOWERS = {"attention_fwd[causal]": 32, "attention_fwd[flash]": 3,
                    "attention_fwd[bshd]": 62, "attention_fwd[window]": 42,
+                   "k1_route[wgmma]": K1_WGMMA, "k1_route[mma_sync]": 0,
                    "fused_window_block": 42, "gemm_epilogue": 168,
                    "flash_bwd": 0, "attention_fwd[flash_d256]": 0,
                    "window_attention": 0, "smallwin_attention": 0,
@@ -1150,6 +1195,7 @@ TRACK_SELF_ATTN = 4 * (16 - 1)
 # no decode kernels
 EXPECTED_PER_MICRO_STEP = dict(
     EXPECTED_TOWERS, **{"attention_fwd[causal]": 2 * 32, "flash_bwd": 32,
+                        "k1_route[wgmma]": K1_WGMMA + 32,
                         "decode_attention_q8": 0, "dequant_gemv[int8]": 0,
                         "dequant_gemv[int4]": 0})
 # int8 cache: one K4 launch per layer and decode step. Quantised weights:
@@ -1173,10 +1219,11 @@ EXPECTED_PER_REQUEST = {
 # tracking on the main path's model: the towers and the decode as on the
 # int8 path (Hiera takes the 16 frames as one batch, so its launches do not
 # change), plus K1 at head dim 256 for the memory self-attention over the
-# 64x64 grid
+# 64x64 grid (f32 storage: the mma_sync route)
 EXPECTED_PER_REQUEST["track"] = dict(
     EXPECTED_PER_REQUEST["int8"],
-    **{"attention_fwd[flash_d256]": TRACK_SELF_ATTN})
+    **{"attention_fwd[flash_d256]": TRACK_SELF_ATTN,
+       "k1_route[mma_sync]": TRACK_SELF_ATTN})
 # tracking at SAM image size 512, bf16 LLM: Hiera's three global blocks see
 # 1024 tokens and take K1's BSHD mode, the memory self-attention over the
 # 32x32 grid takes K7
@@ -1242,6 +1289,8 @@ def phase_serve(gi, cfg, mode: str, requests, raw: bool, track: bool = False,
     log(f"  {mode}: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"  {mode}: launches over {len(requests)} requests: " + json.dumps(counts))
+    log(f"  {mode}: K1 by route: wgmma {counts['k1_route[wgmma]']}, mma_sync "
+        f"{counts['k1_route[mma_sync]']}")
     expected = EXPECTED_PER_REQUEST[mode]
     for name, n in counts.items():
         per = expected.get(name)
@@ -2160,6 +2209,7 @@ def phase_small_train_reference(seed: int):
                              "disagree with the CPU reference")
 
 
+PHASES = ("kernels", "experiments", "serve", "train")
 SOURCES = {
     "attention_fwd": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
     "gemm_epilogue": ("cuda", "videoglamm_torch/csrc/gemm_epilogue.cu"),
@@ -2203,7 +2253,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the synthetic training batch")
+    ap.add_argument("--phases", default="all",
+                    help="'all' (the default: every phase, as the contract "
+                    "runs it) or a comma list of " + ", ".join(PHASES)
+                    + "; the build always runs")
     args = ap.parse_args()
+    chosen = set(PHASES) if args.phases == "all" else set(args.phases.split(","))
+    if not chosen <= set(PHASES):
+        ap.error(f"--phases: unknown {sorted(chosen - set(PHASES))}")
     try:
         import torch
     except ImportError as e:
@@ -2238,116 +2295,120 @@ def main() -> int:
     try:
         phase("[build]")
         phase_build()
-        phase("[kernels] kernel vs plain twin at the main path's shapes")
-        phase_kernels(K)
-        torch.cuda.empty_cache()
-        phase("[kernels] the fused decode-layer entries (K9) and K1 on BSHD views")
-        phase_decode_fused(K)
-        torch.cuda.empty_cache()
-        phase("[experiment] decode-layer A/B over 32 layers of stacked weights, "
-            "then the BSHD attention harness")
-        experiment_counts = phase_experiments()
-        torch.cuda.empty_cache()
+        if "kernels" in chosen:
+            phase("[kernels] kernel vs plain twin at the main path's shapes")
+            phase_kernels(K)
+            torch.cuda.empty_cache()
+            phase("[kernels] the fused decode-layer entries (K9) and K1 on BSHD views")
+            phase_decode_fused(K)
+            torch.cuda.empty_cache()
+        if "experiments" in chosen:
+            phase("[experiment] decode-layer A/B over 32 layers of stacked "
+                  "weights, then the BSHD attention harness")
+            experiment_counts = phase_experiments()
+            torch.cuda.empty_cache()
 
-        phase("[serve] bf16 weights, bf16 cache, preprocessed streams")
-        gi = build(cfg, "none", "bf16", "bf16 LLM")
-        requests = [make_request(cfg, 100 + i) for i in range(2)]
-        results, _ = phase_serve(gi, cfg, "bf16", requests, raw=False)
-        phase("[check] bf16")
-        check_outputs(cfg, results, "bf16")
-        frames, context, _, ids, lens = requests[0]
-        check_teacher_forced(gi.model, frames, context, ids, lens, TOL_LLM_TF,
-                             "bf16 weights, bf16 cache")
-        measure_decode(gi.model, frames, context, ids, lens, "bf16")
-        del gi, results, requests, frames, context
-        torch.cuda.empty_cache()
+        if "serve" in chosen:
+            phase("[serve] bf16 weights, bf16 cache, preprocessed streams")
+            gi = build(cfg, "none", "bf16", "bf16 LLM")
+            requests = [make_request(cfg, 100 + i) for i in range(2)]
+            results, _ = phase_serve(gi, cfg, "bf16", requests, raw=False)
+            phase("[check] bf16")
+            check_outputs(cfg, results, "bf16")
+            frames, context, _, ids, lens = requests[0]
+            check_teacher_forced(gi.model, frames, context, ids, lens, TOL_LLM_TF,
+                                 "bf16 weights, bf16 cache")
+            measure_decode(gi.model, frames, context, ids, lens, "bf16")
+            del gi, results, requests, frames, context
+            torch.cuda.empty_cache()
 
-        phase("[serve] main path: int8 weights, int8 cache, raw uint8 "
-            f"[1,{cfg.num_frames},{RAW_H},{RAW_W},3] frames")
-        gi = build(cfg, "int8", "int8", "int8 LLM")
-        raw_requests = [make_raw_request(cfg, 200 + i) for i in range(N_REQUESTS)]
-        results, counts = phase_serve(gi, cfg, "int8", raw_requests, raw=True)
-        phase("[check] int8")
-        check_outputs(cfg, results, "int8")
-        raw, ids, lens = raw_requests[0]
-        with torch.no_grad():
-            frames, context, _ = prepare_vision_inputs(
-                raw, cfg, num_sam_frames=T_SAM, dtype=torch.bfloat16)
-        check_teacher_forced(gi.model, frames, context, ids, lens,
-                             TOL_LLM_TF_Q, "int8 weights, int8 cache")
-        step_ms = measure_decode(gi.model, frames, context, ids, lens,
-                                 "int8 + int8 KV")
-        del results
+            phase("[serve] main path: int8 weights, int8 cache, raw uint8 "
+                f"[1,{cfg.num_frames},{RAW_H},{RAW_W},3] frames")
+            gi = build(cfg, "int8", "int8", "int8 LLM")
+            raw_requests = [make_raw_request(cfg, 200 + i) for i in range(N_REQUESTS)]
+            results, counts = phase_serve(gi, cfg, "int8", raw_requests, raw=True)
+            phase("[check] int8")
+            check_outputs(cfg, results, "int8")
+            raw, ids, lens = raw_requests[0]
+            with torch.no_grad():
+                frames, context, _ = prepare_vision_inputs(
+                    raw, cfg, num_sam_frames=T_SAM, dtype=torch.bfloat16)
+            check_teacher_forced(gi.model, frames, context, ids, lens,
+                                 TOL_LLM_TF_Q, "int8 weights, int8 cache")
+            step_ms = measure_decode(gi.model, frames, context, ids, lens,
+                                     "int8 + int8 KV")
+            del results
 
-        phase(f"[serve] speculative decoding on the main path's model, "
-            f"draft_k={DRAFT_K}, raw frames")
-        phase_speculative(gi, cfg, raw_requests, frames, context, ids, lens,
-                          step_ms)
-        phase("[serve] sampled decoding on the main path's model, temperature "
-            "0.7, raw frames")
-        phase_sampled(gi, cfg, raw_requests[0])
+            phase(f"[serve] speculative decoding on the main path's model, "
+                f"draft_k={DRAFT_K}, raw frames")
+            phase_speculative(gi, cfg, raw_requests, frames, context, ids, lens,
+                              step_ms)
+            phase("[serve] sampled decoding on the main path's model, temperature "
+                "0.7, raw frames")
+            phase_sampled(gi, cfg, raw_requests[0])
 
-        phase("[serve] video branch on the main path's model: SAM-2 memory "
-            f"tracker, all {cfg.num_frames} frames to SAM, "
-            f"{cfg.max_seg_tokens} [SEG] objects")
-        results, track_counts = phase_serve(
-            gi, cfg, "track", raw_requests[:N_TRACK_REQUESTS], raw=True,
-            track=True)
-        phase("[check] video branch")
-        check_outputs(cfg, results, "video branch", t_sam=cfg.num_frames)
-        profile_track(gi, cfg, raw)
-        del results
-        torch.cuda.empty_cache()
-        phase("[check] Hiera(hoist_layout=False) against the hoisted encoder")
-        hoist_counts = phase_unhoisted_hiera(
-            gi.model.visual_model.image_encoder.trunk)
-        del gi
-        torch.cuda.empty_cache()
+            phase("[serve] video branch on the main path's model: SAM-2 memory "
+                f"tracker, all {cfg.num_frames} frames to SAM, "
+                f"{cfg.max_seg_tokens} [SEG] objects")
+            results, track_counts = phase_serve(
+                gi, cfg, "track", raw_requests[:N_TRACK_REQUESTS], raw=True,
+                track=True)
+            phase("[check] video branch")
+            check_outputs(cfg, results, "video branch", t_sam=cfg.num_frames)
+            profile_track(gi, cfg, raw)
+            del results
+            torch.cuda.empty_cache()
+            phase("[check] Hiera(hoist_layout=False) against the hoisted encoder")
+            hoist_counts = phase_unhoisted_hiera(
+                gi.model.visual_model.image_encoder.trunk)
+            del gi
+            torch.cuda.empty_cache()
 
-        phase("[serve] int4 weights, int8 cache, raw frames")
-        gi = build(cfg, "int4", "int8", "int4 LLM")
-        results, counts4 = phase_serve(gi, cfg, "int4", raw_requests[:2], raw=True)
-        phase("[check] int4")
-        check_outputs(cfg, results, "int4")
-        measure_decode(gi.model, frames, context, ids, lens, "int4 + int8 KV")
-        counts["dequant_gemv[int4]"] = counts4["dequant_gemv[int4]"]
-        del gi, results, frames, context, raw
-        torch.cuda.empty_cache()
+            phase("[serve] int4 weights, int8 cache, raw frames")
+            gi = build(cfg, "int4", "int8", "int4 LLM")
+            results, counts4 = phase_serve(gi, cfg, "int4", raw_requests[:2], raw=True)
+            phase("[check] int4")
+            check_outputs(cfg, results, "int4")
+            measure_decode(gi.model, frames, context, ids, lens, "int4 + int8 KV")
+            counts["dequant_gemv[int4]"] = counts4["dequant_gemv[int4]"]
+            del gi, results, frames, context, raw
+            torch.cuda.empty_cache()
 
-        phase("[serve] video branch at SAM image size 512 (32x32 memory grid), "
-            "bf16 weights, raw frames")
-        cfg512 = dataclasses.replace(
-            cfg, sam2=dataclasses.replace(cfg.sam2, image_size=512))
-        gi = build(cfg512, "none", "bf16", "bf16 LLM, SAM image size 512")
-        results, track512_counts = phase_serve(
-            gi, cfg512, "track512", raw_requests[:N_TRACK_REQUESTS], raw=True,
-            track=True)
-        phase("[check] video branch at 512")
-        check_outputs(cfg512, results, "video branch at 512",
-                      t_sam=cfg.num_frames)
-        del gi, results
-        torch.cuda.empty_cache()
+            phase("[serve] video branch at SAM image size 512 (32x32 memory grid), "
+                "bf16 weights, raw frames")
+            cfg512 = dataclasses.replace(
+                cfg, sam2=dataclasses.replace(cfg.sam2, image_size=512))
+            gi = build(cfg512, "none", "bf16", "bf16 LLM, SAM image size 512")
+            results, track512_counts = phase_serve(
+                gi, cfg512, "track512", raw_requests[:N_TRACK_REQUESTS], raw=True,
+                track=True)
+            phase("[check] video branch at 512")
+            check_outputs(cfg512, results, "video branch at 512",
+                          t_sam=cfg.num_frames)
+            del gi, results
+            torch.cuda.empty_cache()
 
-        phase("[serve] Llama-3.1-8B base at full width and depth, bf16 weights, "
-            "int8 cache, raw frames")
-        phase_llama(cfg, raw_requests)
-        del raw_requests
-        torch.cuda.empty_cache()
+            phase("[serve] Llama-3.1-8B base at full width and depth, bf16 weights, "
+                "int8 cache, raw frames")
+            phase_llama(cfg, raw_requests)
+            del raw_requests
+            torch.cuda.empty_cache()
 
-        phase("[check] narrow model on the card against the CPU twins")
-        phase_small_reference()
-        phase("[check] narrow tracker on the card against the CPU twins")
-        for image_size in (1024, 512):
-            phase_small_track_reference(image_size)
+            phase("[check] narrow model on the card against the CPU twins")
+            phase_small_reference()
+            phase("[check] narrow tracker on the card against the CPU twins")
+            for image_size in (1024, 512):
+                phase_small_track_reference(image_size)
 
-        phase(f"[train] flagship, {TRAIN_STEPS} optimizer steps of {GRAD_ACCUM} "
-            "micro-steps, LoRA + lm_head + embed_tokens + text_hidden_fcs + "
-            "mask decoder")
-        train_counts = phase_train(cfg, args.seed)
-        torch.cuda.empty_cache()
-        phase("[check] narrow model, one training micro-step on the card "
-            "against the CPU twins")
-        phase_small_train_reference(args.seed)
+        if "train" in chosen:
+            phase(f"[train] flagship, {TRAIN_STEPS} optimizer steps of {GRAD_ACCUM} "
+                "micro-steps, LoRA + lm_head + embed_tokens + text_hidden_fcs + "
+                "mask decoder")
+            train_counts = phase_train(cfg, args.seed)
+            torch.cuda.empty_cache()
+            phase("[check] narrow model, one training micro-step on the card "
+                "against the CPU twins")
+            phase_small_train_reference(args.seed)
     except Exception:
         traceback.print_exc()
         log("FAIL")
@@ -2362,27 +2423,40 @@ def main() -> int:
     # requests), whose counts stand beside every kernel as launches_track;
     # K7's from the video branch at image size 512 (2 requests); K8's from
     # the unhoisted Hiera forward; K9's four entries and the BSHD launcher
-    # from the run of the two experiment harnesses
-    counts["flash_bwd"] = train_counts["flash_bwd"]
-    counts["attention_fwd[flash_d256]"] = track_counts["attention_fwd[flash_d256]"]
-    counts["window_attention"] = track512_counts["window_attention"]
-    counts["smallwin_attention"] = hoist_counts["smallwin_attention"]
-    # K9's entries and the BSHD launcher: from the two harnesses' run
-    for key in experiment_counts:
-        if key.startswith("decode_fused") or key == "flash_bshd":
-            counts[key] = experiment_counts[key]
+    # from the run of the two experiment harnesses. A row keyed
+    # "<counter>@<shape>" is another shape of the counter's kernel. Phases
+    # that did not run leave their counts null.
+    if "serve" in chosen:
+        counts["attention_fwd[flash_d256]"] = track_counts["attention_fwd[flash_d256]"]
+        counts["window_attention"] = track512_counts["window_attention"]
+        counts["smallwin_attention"] = hoist_counts["smallwin_attention"]
+    else:
+        counts = track_counts = {}
+    if "train" in chosen:
+        counts["flash_bwd"] = train_counts["flash_bwd"]
+    else:
+        train_counts = {}
+    if "experiments" in chosen:
+        for key in experiment_counts:
+            if key.startswith("decode_fused") or key == "flash_bshd":
+                counts[key] = experiment_counts[key]
     kernels = []
     for key, row in K.rows.items():
-        route, source = SOURCES[key.split("[")[0]]
+        counter = key.split("@")[0]
+        route, source = SOURCES[counter.split("[")[0]]
         kernels.append(dict(name=key, route=route, source=source,
-                            replaces=REPLACES[key], launches=counts[key],
-                            launches_train=train_counts[key],
-                            launches_track=track_counts[key], **row))
+                            replaces=REPLACES[counter],
+                            launches=counts.get(counter),
+                            launches_train=train_counts.get(counter),
+                            launches_track=track_counts.get(counter), **row))
     log(json.dumps({"kernels": kernels}))
     log(smi)
-    log(json.dumps({"ok": True, "device": {
+    result = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}
+    if args.phases != "all":
+        result["phases"] = sorted(chosen)
+    log(json.dumps(result))
     return 0
 
 

@@ -730,3 +730,187 @@ def test_flash_bshd_matches_plain_and_k1(dev, B, Sq, Sk, H, D, kv, qs):
     _close(got, ref, 2e-2, "flash_bshd vs plain")
     _close_l2(got, ref, 1e-2, "flash_bshd vs plain")
     assert torch.equal(got, via_k1)       # the same kernel on the same values
+
+
+# ---------------------------------------------------------------------------
+# K1's wgmma route and K2 (TMA, mbarrier ring, warp specialisation, wgmma)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("D", [64, 72, 88, 96, 128])
+def test_k1_wgmma_causal_lse_and_nan_slack(dev, D):
+    """Causal with q_start and kv_lens, a row with no valid key (q_start <
+    0), Sq not a multiple of the 128-row tile, and keys in [kv_len, Sk)
+    filled with NaN (a KV cache's slack): the output is finite, equals the
+    plain twin on the valid rows and 0 on the empty ones, and the LSE
+    equals the twin's (-1e30 on the empty rows)."""
+    rng = np.random.default_rng(10 + D)
+    B, H, Sq, Sk = 2, 2, 300, 400
+    kv, qs = (400, 333), (-40, 33)
+    q, k, v = (_randn(rng, (B, H, s, D), dev) for s in (Sq, Sk, Sk))
+    kv_lens = torch.tensor(kv, dtype=torch.int32, device=dev)
+    q_start = torch.tensor(qs, dtype=torch.int32, device=dev)
+    clean_k, clean_v = k.clone(), v.clone()
+    for b, n in enumerate(kv):
+        k[b, :, n:] = float("nan")
+        v[b, :, n:] = float("nan")
+        clean_k[b, :, n:] = 0
+        clean_v[b, :, n:] = 0
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
+    before = attn.LAUNCHES["route:wgmma"]
+    attn.attention_fwd_kernel(q, k, v, out, causal=True, sm_scale=D ** -0.5,
+                              mode="causal", kv_lens=kv_lens, q_start=q_start,
+                              lse=lse)
+    assert attn.LAUNCHES["route:wgmma"] == before + 1
+    ref, ref_lse = attn._flash_fwd_plain(q, clean_k, clean_v, kv_lens, q_start,
+                                         True, D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert torch.all(out[0, :, :40] == 0)
+    assert torch.all(lse[0, :, :40] == attn.NEG_INF)
+    _close(out, ref, 2e-2, f"wgmma causal D={D}")
+    _close_l2(out[1], ref[1], 1e-2, f"wgmma causal D={D}")
+    live = ref_lse > -1e29
+    assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("S,H", [(16, 4), (64, 2), (256, 8)])
+def test_k1_wgmma_windows_match_plain(dev, S, H):
+    """The window mode as fused_window_block drives it: S-token windows read
+    from a fused qkv, folded by `window_fold` into 128-row query tiles
+    (eight 16-token or two 64-token windows a tile, one 256-token window as
+    two tiles)."""
+    rng = np.random.default_rng(20 + S)
+    NW, hd = 32, 72
+    fold = fb.window_fold(NW, S)
+    assert fold == {16: 8, 64: 2, 256: 1}[S]
+    B_, S_ = NW // fold, S * fold
+    qkv5 = _randn(rng, (B_, S_, 3, H, hd), dev)
+    views = [qkv5[:, :, i] for i in range(3)]
+    out = torch.empty(B_, S_, H, hd, dtype=torch.bfloat16, device=dev)
+    win = S if fold > 1 else 0
+    attn.attention_fwd_kernel(*(t.transpose(1, 2) for t in views),
+                              out.transpose(1, 2), causal=False,
+                              sm_scale=hd ** -0.5, mode="window", win=win)
+    ref = attn._attention_plain_bshd(*views, hd ** -0.5, win)
+    torch.cuda.synchronize()
+    _close(out, ref, 2e-2, f"window S={S}")
+    _close_l2(out, ref, 1e-2, f"window S={S}")
+
+
+@pytest.mark.parametrize("B,S,H,D,fused", [
+    (2, 577, 4, 64, False), (1, 1025, 3, 88, True), (1, 300, 2, 128, False),
+    (2, 200, 2, 96, True), (1, 260, 2, 32, False)])
+def test_k1_wgmma_bshd_and_fused_strides(dev, B, S, H, D, fused):
+    """BSHD views and fused-qkv [B,S,3,H,D] views go in through their
+    strides; the head-dim padding (72 -> 80, 88 -> 96) reads zeros past D
+    even where the next head's data lies behind it."""
+    rng = np.random.default_rng(30 + D)
+    if fused:
+        x = _randn(rng, (B, S, 3, H, D), dev)
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    else:
+        q, k, v = (_randn(rng, (B, S, H, D), dev) for _ in range(3))
+    before = attn.LAUNCHES["route:wgmma"]
+    got = attn._bshd_launch(q, k, v, D ** -0.5)
+    assert attn.LAUNCHES["route:wgmma"] == before + 1
+    ref = attn._attention_plain_bshd(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    _close(got, ref, 2e-2, f"bshd D={D}")
+    _close_l2(got, ref, 1e-2, f"bshd D={D}")
+
+
+def test_k1_routes_by_dtype_and_head_dim(dev):
+    rng = np.random.default_rng(40)
+    for dtype, D, route in ((torch.bfloat16, 128, "wgmma"),
+                            (torch.float32, 64, "mma_sync"),
+                            (torch.bfloat16, 256, "mma_sync")):
+        q, k, v = (_randn(rng, (1, 1, 200, D), dev, dtype=dtype)
+                   for _ in range(3))
+        before = attn.LAUNCHES["route:" + route]
+        out = torch.empty_like(q)
+        attn.attention_fwd_kernel(q, k, v, out, causal=False,
+                                  sm_scale=D ** -0.5, mode="flash")
+        assert attn.LAUNCHES["route:" + route] == before + 1
+        ref = attn._attention_plain(q, k, v, causal=False, sm_scale=D ** -0.5)
+        torch.cuda.synchronize()
+        _close_l2(out, ref, 1e-2, f"{route} D={D}")
+
+
+# Hiera-L's four stages (C = 144 * 2^s): qkv, proj + residual, fc1 + GELU,
+# fc2 + residual, all with their bias, at a ragged reduced row count
+K2_HIERA = [(m, c, p) for m, c in ((1000, 144), (777, 288), (513, 576),
+                                   (301, 1152))
+            for p in ("qkv", "proj", "fc1", "fc2")]
+
+
+@pytest.mark.parametrize("M,C,product", K2_HIERA)
+def test_k2_hiera_products_match_plain(dev, M, C, product):
+    rng = np.random.default_rng(50 + C)
+    K, N = {"qkv": (C, 3 * C), "proj": (C, C), "fc1": (C, 4 * C),
+            "fc2": (4 * C, C)}[product]
+    a = _randn(rng, (M, K), dev, 0.5)
+    w = _randn(rng, (N, K), dev, K ** -0.5)
+    b = _randn(rng, (N,), dev, 0.1)
+    r = _randn(rng, (M, N), dev) if product in ("proj", "fc2") else None
+    gelu = product == "fc1"
+    got = fb.gemm_epilogue(a, w, b, gelu=gelu, residual=r)
+    ref = fb._gemm_plain(a, w, b, gelu=gelu, residual=r)
+    torch.cuda.synchronize()
+    _close(got, ref, 2e-2, f"K2 {product} M={M} K={K} N={N}")
+
+
+@pytest.mark.parametrize("M,K,N,bias,gelu,res", [
+    (129, 144, 144, False, False, False), (255, 144, 144, False, True, True),
+    (64, 72, 200, True, False, True), (3, 1152, 4608, False, True, False),
+    (40000, 576, 144, True, False, True), (40000, 2304, 576, True, False, True)])
+def test_k2_epilogue_options_match_plain(dev, M, K, N, bias, gelu, res):
+    """Without bias, GELU without bias, N not a multiple of 144 (tiles of
+    128 with a ragged last one), K not a multiple of 16, M below a tile;
+    and grids where every persistent CTA walks several tiles of many
+    reduction chunks, so the ring's stages turn over many phases."""
+    rng = np.random.default_rng(60)
+    a = _randn(rng, (M, K), dev, 0.5)
+    w = _randn(rng, (N, K), dev, K ** -0.5)
+    b = _randn(rng, (N,), dev, 0.1) if bias else None
+    r = _randn(rng, (M, N), dev) if res else None
+    got = fb.gemm_epilogue(a, w, b, gelu=gelu, residual=r)
+    ref = fb._gemm_plain(a, w, b, gelu=gelu, residual=r)
+    torch.cuda.synchronize()
+    _close(got, ref, 2e-2, f"K2 M={M} K={K} N={N}")
+
+
+def _sass_functions(path):
+    """{mangled function name: SASS text} of a built library."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    exe = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if exe is None:
+        pytest.skip("cuobjdump not found")
+    text = subprocess.run([exe, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {n: "\n".join(body) for n, body in funcs.items()}
+
+
+def test_wgmma_routes_compile_to_hgmma(dev):
+    """The new routes issue warpgroup MMAs (HGMMA) and no mma.sync (HMMA);
+    the mma_sync route of K1 is still HMMA."""
+    from videoglamm_torch.ops import _cuda
+    k1 = _sass_functions(_cuda.load("attention_fwd").path)
+    k2 = _sass_functions(_cuda.load("gemm_epilogue").path)
+    new = {n: s for n, s in k1.items() if "attn_fwd_sm90" in n}
+    old = {n: s for n, s in k1.items() if "attn_fwd_kernel" in n}
+    gemm = {n: s for n, s in k2.items() if "gemm_sm90" in n}
+    assert len(new) == 5 and old and len(gemm) == 2
+    for n, s in {**new, **gemm}.items():
+        assert "HGMMA" in s and "HMMA" not in s, n
+    for n, s in old.items():
+        assert "HMMA" in s, n

@@ -6,10 +6,11 @@ reference and, where a Pallas kernel exists, the kernel itself in
 interpret mode (as tests/test_ops.py runs them). All in f32: tolerances
 are f32 reduction-order noise (1e-5 absolute on O(1) values) unless stated.
 
-A torch emulation of K1's tile loop (csrc/attention_fwd.cu: 64-query by
-64-key tiles, live-key-tile range, masks, online softmax on exp2, empty
-rows written as 0) checks the kernel's masking and tile skipping here,
-before the card.
+A torch emulation of K1's tile loop (csrc/attention_fwd.cu, the wgmma
+route: 128-query by 128-key tiles, live-key-tile range, the mask only on
+edge tiles of each 64-row warpgroup, slack V rows zeroed, online softmax on
+exp2, empty rows written as 0) checks the kernel's masking and tile
+skipping here, before the card.
 """
 import math
 
@@ -201,25 +202,29 @@ def test_masked_and_biased_attention_stay_plain():
 # ---------------------------------------------------------------------------
 # K1 tile-loop emulation
 # ---------------------------------------------------------------------------
-BM = BN = 64
+BM, BN = tattn.K1_BM, tattn.K1_BN
+WG_ROWS = 64     # query rows of one consumer warpgroup
 
 
 def _k1_emulate(q, k, v, *, causal, sm_scale, kv_lens=None, q_start=None,
                 win=0):
-    """q/k/v [B,H,S,D] f32. Follows attn_fwd_kernel tile by tile; returns
-    (out, number of key tiles visited)."""
+    """q/k/v [B,H,S,D] f32. Follows attn_fwd_sm90 (K1's wgmma route) tile by
+    tile: 128-query CTAs handed out longest first, the CTA's live key
+    range, 128-key tiles zero-filled past Sk (TMA), V rows in [kv_len, Sk)
+    of a tile zeroed, and per 64-row warpgroup the mask applied only on a
+    tile that crosses kv_len, the causal diagonal or a window edge, each
+    row's keys one interval [lo, hi); online softmax on exp2. Returns
+    (out, key tiles visited, warpgroup tiles masked, warpgroup tiles
+    unmasked)."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     out = torch.zeros_like(q)
-    visited = 0
+    visited = masked = unmasked = 0
     log2e = 1.4426950408889634
     for b in range(B):
         kv_len = min(int(kv_lens[b]), Sk) if kv_lens is not None else Sk
         q_off = int(q_start[b]) if q_start is not None else 0
-        kb = torch.zeros_like(k[b])
-        vb = torch.zeros_like(v[b])
-        kb[:, :kv_len], vb[:, :kv_len] = k[b, :, :kv_len], v[b, :, :kv_len]
-        for m0 in range(0, Sq, BM):
+        for m0 in reversed(range(0, Sq, BM)):      # longest tiles first
             last = min(m0 + BM, Sq) - 1
             k_lo, k_hi = 0, kv_len
             if causal:
@@ -228,41 +233,60 @@ def _k1_emulate(q, k, v, *, causal, sm_scale, kv_lens=None, q_start=None,
                 k_lo = (m0 // win) * win
                 k_hi = min(k_hi, (last // win + 1) * win)
             j_lo = k_lo // BN
-            j_hi = -(-k_hi // BN) if k_hi > k_lo else j_lo
-            rows = torch.arange(m0, last + 1)
-            qt = q[b, :, m0:last + 1]
-            m_i = torch.full((H, len(rows)), -math.inf)
-            l_i = torch.zeros(H, len(rows))
-            acc = torch.zeros(H, len(rows), D)
-            for j in range(j_lo, j_hi):
+            ntiles = -(-k_hi // BN) - j_lo if k_hi > k_lo else 0
+            halves = []
+            for m0w in range(m0, min(m0 + BM, Sq), WG_ROWS):
+                rows = torch.arange(m0w, min(m0w + WG_ROWS, Sq))
+                lo = torch.zeros(len(rows), dtype=torch.long)
+                hi = torch.full((len(rows),), kv_len)
+                if causal:
+                    hi = torch.minimum(hi, q_off + rows + 1)
+                if win:
+                    lo = rows // win * win
+                    hi = torch.minimum(hi, lo + win)
+                halves.append(dict(m0w=m0w, rows=rows, lo=lo, hi=hi,
+                                   m=torch.full((H, len(rows)), -math.inf),
+                                   l=torch.zeros(H, len(rows)),
+                                   acc=torch.zeros(H, len(rows), D)))
+            for it in range(ntiles):
                 visited += 1
-                keys = torch.arange(j * BN, (j + 1) * BN)
+                k0 = (j_lo + it) * BN
+                n = max(0, min(BN, Sk - k0))
                 kt = torch.zeros(H, BN, D)
                 vt = torch.zeros(H, BN, D)
-                n = max(0, min(BN, Sk - j * BN))
-                kt[:, :n], vt[:, :n] = kb[:, j * BN:j * BN + n], vb[:, j * BN:j * BN + n]
-                s = qt @ kt.transpose(1, 2)
-                ok = keys[None, :] < kv_len
-                if causal:
-                    ok = ok & (keys[None, :] <= q_off + rows[:, None])
-                if win:
-                    ok = ok & (keys[None, :] // win == rows[:, None] // win)
-                s = torch.where(ok, s * sm_scale * log2e, -math.inf)
-                mx = torch.maximum(m_i, s.amax(-1))
-                base = torch.where(mx == -math.inf, 0.0, mx)
-                alpha = torch.exp2(m_i - base)
-                p = torch.exp2(s - base[..., None])
-                l_i = l_i * alpha + p.sum(-1)
-                acc = acc * alpha[..., None] + p @ vt
-                m_i = mx
-            inv = torch.where(l_i > 0, 1.0 / l_i, 0.0)
-            out[b, :, m0:last + 1] = acc * inv[..., None]
-    return out, visited
+                kt[:, :n], vt[:, :n] = k[b, :, k0:k0 + n], v[b, :, k0:k0 + n]
+                if kv_len - k0 < BN and kv_len < Sk:    # slack rows: zeroed
+                    vt[:, kv_len - k0:] = 0
+                keys = torch.arange(k0, k0 + BN)
+                for hw in halves:
+                    s = (q[b, :, hw["rows"]] @ kt.transpose(1, 2)) * (
+                        sm_scale * log2e)
+                    edge = (k0 + BN > kv_len
+                            or (causal and k0 + BN - 1 > q_off + hw["m0w"])
+                            or win > 0)
+                    if edge:
+                        masked += 1
+                        ok = ((keys[None, :] >= hw["lo"][:, None])
+                              & (keys[None, :] < hw["hi"][:, None]))
+                        s = torch.where(ok, s, -math.inf)
+                    else:
+                        unmasked += 1
+                    mx = torch.maximum(hw["m"], s.amax(-1))
+                    base = torch.where(mx == -math.inf, 0.0, mx)
+                    alpha = torch.exp2(hw["m"] - base)
+                    p = torch.exp2(s - base[..., None])
+                    hw["l"] = hw["l"] * alpha + p.sum(-1)
+                    hw["acc"] = hw["acc"] * alpha[..., None] + p @ vt
+                    hw["m"] = mx
+            for hw in halves:
+                inv = torch.where(hw["l"] > 0, 1.0 / hw["l"], 0.0)
+                out[b, :, hw["rows"]] = hw["acc"] * inv[..., None]
+    return out, visited, masked, unmasked
 
 
-@pytest.mark.parametrize("case", ["prefill", "last_sq", "kv_short", "win16",
-                                  "win256", "full"])
-def test_k1_tile_emulation_matches_plain(case):
+def _k1_case(case):
+    """Inputs of one emulation case: (q, k, v, causal, kv_lens, q_start,
+    win)."""
     rng = np.random.RandomState(7)
     B, H, D = 2, 2, 8
     Sq = Sk = 200
@@ -277,29 +301,54 @@ def test_k1_tile_emulation_matches_plain(case):
     elif case == "win16":
         Sq = Sk = 192
         win = 16
+    elif case == "win64":
+        Sq = Sk = 256
+        win = 64
     elif case == "win256":
         Sq = Sk = 512
         win = 256
+    elif case == "long_prefill":     # interior tiles below the diagonal
+        Sq = Sk = 520
+        causal, kv, qs = True, [520, 400], [0, 0]
     q = torch.from_numpy(rng.randn(B, H, Sq, D).astype(np.float32))
     k = torch.from_numpy(rng.randn(B, H, Sk, D).astype(np.float32))
     v = torch.from_numpy(rng.randn(B, H, Sk, D).astype(np.float32))
     kvt = None if kv is None else torch.tensor(kv)
     qst = None if qs is None else torch.tensor(qs)
-    got, visited = _k1_emulate(q, k, v, causal=causal, sm_scale=D ** -0.5,
-                               kv_lens=kvt, q_start=qst, win=win)
+    return q, k, v, causal, kvt, qst, win
+
+
+def _k1_ref(q, k, v, causal, kvt, qst, win):
+    D = q.shape[-1]
     if win:
-        ref = tattn._attention_plain_bshd(q.transpose(1, 2), k.transpose(1, 2),
-                                          v.transpose(1, 2), D ** -0.5,
-                                          win).transpose(1, 2)
-    else:
-        ref = tattn._attention_plain(q, k, v, causal=causal, sm_scale=D ** -0.5,
-                                     kv_lens=kvt, q_start=qst)
+        return tattn._attention_plain_bshd(q.transpose(1, 2), k.transpose(1, 2),
+                                           v.transpose(1, 2), D ** -0.5,
+                                           win).transpose(1, 2)
+    return tattn._attention_plain(q, k, v, causal=causal, sm_scale=D ** -0.5,
+                                  kv_lens=kvt, q_start=qst)
+
+
+@pytest.mark.parametrize("case", ["prefill", "last_sq", "kv_short", "win16",
+                                  "win64", "win256", "full", "long_prefill"])
+def test_k1_tile_emulation_matches_plain(case):
+    q, k, v, causal, kvt, qst, win = _k1_case(case)
+    B, _, Sq, D = q.shape
+    Sk = k.shape[2]
+    got, visited, masked, unmasked = _k1_emulate(
+        q, k, v, causal=causal, sm_scale=D ** -0.5, kv_lens=kvt, q_start=qst,
+        win=win)
+    ref = _k1_ref(q, k, v, causal, kvt, qst, win)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL, rtol=ATOL)
     all_tiles = B * -(-Sq // BM) * -(-Sk // BN)
-    if case in ("prefill", "kv_short", "win16", "win256"):
+    if case in ("prefill", "kv_short", "win16", "win64", "win256",
+                "long_prefill"):
         assert visited < all_tiles     # masked key tiles were skipped
     else:
         assert visited <= all_tiles
+    if case in ("full", "long_prefill"):
+        assert unmasked > 0            # interior tiles ran without the mask
+    if win:
+        assert unmasked == 0
 
 
 def test_k1_emulation_empty_rows_write_zero():
@@ -308,14 +357,37 @@ def test_k1_emulation_empty_rows_write_zero():
     q = torch.randn(1, 1, 10, 8)
     k = torch.randn(1, 1, 10, 8)
     v = torch.randn(1, 1, 10, 8)
-    out, _ = _k1_emulate(q, k, v, causal=True, sm_scale=0.3,
-                         kv_lens=torch.tensor([10]), q_start=torch.tensor([-4]))
+    out = _k1_emulate(q, k, v, causal=True, sm_scale=0.3,
+                      kv_lens=torch.tensor([10]), q_start=torch.tensor([-4]))[0]
     assert torch.all(out[0, 0, :4] == 0)
     ref = tattn._attention_plain(q, k, v, causal=True, sm_scale=0.3,
                                  kv_lens=torch.tensor([10]),
                                  q_start=torch.tensor([-4]))
     np.testing.assert_allclose(out[0, 0, 4:].numpy(), ref[0, 0, 4:].numpy(),
                                atol=ATOL, rtol=ATOL)
+
+
+def test_k1_emulation_nan_slack_stays_finite():
+    """Keys in [kv_len, Sk) are real memory, uninitialised in a KV cache's
+    slack: filled with NaN they leave the output finite (their V rows are
+    zeroed in the last live tile, their logits masked by selection) and
+    equal to the twin on a copy with the slack zeroed."""
+    rng = np.random.RandomState(11)
+    B, H, Sq, Sk, D = 2, 2, 150, 300, 8
+    kv, qs = [200, 257], [50, 107]
+    q = torch.from_numpy(rng.randn(B, H, Sq, D).astype(np.float32))
+    k = torch.from_numpy(rng.randn(B, H, Sk, D).astype(np.float32))
+    v = torch.from_numpy(rng.randn(B, H, Sk, D).astype(np.float32))
+    kvt, qst = torch.tensor(kv), torch.tensor(qs)
+    ref = tattn._attention_plain(q, k, v, causal=True, sm_scale=D ** -0.5,
+                                 kv_lens=kvt, q_start=qst)
+    for b, n in enumerate(kv):
+        k[b, :, n:] = float("nan")
+        v[b, :, n:] = float("nan")
+    out = _k1_emulate(q, k, v, causal=True, sm_scale=D ** -0.5, kv_lens=kvt,
+                      q_start=qst)[0]
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL, rtol=ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-// K2: tiled bf16 GEMM with f32 accumulation and a fused epilogue, for
-// Hopper (sm_90a), mma.sync m16n8k16 tensor-core tiles.
+// K2: bf16 GEMM with f32 accumulation and a fused epilogue, for Hopper
+// (sm_90a): TMA, an mbarrier ring, warp specialisation and wgmma.
 //
 //   out[M,N] = act(round(round(A[M,K] @ W[N,K]^T) + bias[N])) (+ residual)
 //
@@ -10,16 +10,34 @@
 // residual. Rounding follows the TPU kernel and its reference
 // (fused_block.py:83-105): the f32 product is rounded to bf16, the bias is
 // added and rounded, GELU (tanh form, the bf16 rule of fused_block.py:54-59)
-// is applied and rounded, then the residual is added and rounded.
+// is applied and rounded, then the residual is added and rounded. The tanh
+// is the hardware's `tanh.approx.f32` (relative error about 2^-11, below the
+// bf16 rounding that follows it); at stage 1 the accurate tanhf alone would
+// take longer than the whole byte bound. Each rounding converts a pair of
+// values at once (the conversion unit, like tanh, issues at a quarter of the
+// FMA rate, and at stage 1 the epilogue, not the product, is the work).
 //
-// What bounds it on the H100: at the Hiera shapes (M = 8 frames x tokens
-// up to 524,288 rows, K and N from 144 to 4608) the products are
-// tensor-core bound, and the epilogue (bias, GELU, residual) is memory
-// traffic that an unfused version would pay as separate passes over
-// [M,N]. Design: 128x128 CTA tiles, 8 warps of 64x32, BK=32, a two-stage
-// cp.async pipeline that zero-fills ragged edges, and the whole epilogue
-// applied from registers so each output element is written once.
-// Later work: fuse the whole block into one launch (ROADMAP.md), wgmma/TMA.
+// What bounds it on the H100: Hiera's widths are 144 * 2^s. At stage 1
+// (M = 8 frames x 65,536 tokens = 524,288 rows, K = 144) the products are
+// memory-bound: A is read once and the output written once (fc1: 604 MB
+// out); at stages 3 and 4 (K and N up to 4608) they are tensor-core bound.
+// Design: a persistent grid, one CTA of three warpgroups an SM, walks the
+// output tiles of 128 rows x BN columns with the column tiles of one row
+// tile next to each other, so that the CTAs running together share their A
+// tile through L2 and A is read from memory about once. BN = 144 wherever
+// N is a multiple of 144 (every Hiera width), else 128. Warpgroup 2 is the
+// producer: one thread keeps TMA loads of 64-column chunks of A [128 x 64]
+// and W [BN x 64] (both K-major, 128-byte swizzle; the ragged K = 144 ends
+// in a chunk that TMA fills with zeros) in flight into a 4-stage ring,
+// across tile boundaries, so the next tile's loads overlap this tile's
+// epilogue. Warpgroups 0 and 1 each own 64 rows and issue wgmma m64nBNk16
+// chains, releasing a stage as soon as the chain that read it retires. The
+// epilogue runs from the accumulators: the residual tile arrives by TMA into
+// the output staging buffer during the main loop, the result is written
+// over it in place and leaves by one TMA store a warpgroup (coalesced,
+// clipped at M and N), which overlaps the next tile's main loop.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -27,167 +45,219 @@
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int LDT = BK + 8;     // padded shared row stride (elements)
-constexpr int NTHREADS = 256;   // 8 warps: 2 (M) x 4 (N), 64x32 each
+#include "sm90_common.cuh"
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int BM = 128;          // rows a tile: two consumer warpgroups of 64
+constexpr int BK = 64;           // reduction chunk: 128 bytes of bf16
+constexpr int STAGES = 4;
+constexpr int NTHREADS = 384;    // warpgroups 0, 1: consumers; 2: producer
+constexpr int CHUNK_A = BM * 128;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+template <int BN> struct Layout {
+  static constexpr int CHUNK_W = BN * 128;           // a multiple of 1024
+  static constexpr int STAGE = CHUNK_A + CHUNK_W;    // A, then W
+  static constexpr int OUT = STAGES * STAGE;         // [BM][BN] bf16, rows dense
+  static constexpr int BAR = OUT + BM * BN * 2;
+  static constexpr int BYTES = BAR + 8 * (2 * STAGES + 2);
+};
 
-// 16-byte async copy global -> shared; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+struct Params {
+  const __nv_bfloat16* bias;   // [N] or null
+  int M, N, K, act, has_res;
+};
+
+// Round two f32 values to bf16 with one packed conversion (the conversion
+// unit issues a quarter as fast as the FMA pipes, and the epilogue rounds
+// up to three times an element); back to f32 is a shift.
+__device__ __forceinline__ __nv_bfloat162 round2(float& a, float& b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  a = __low2float(h);
+  b = __high2float(h);
+  return h;
 }
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float c = 0.7978845608028654f;   // sqrt(2/pi)
-  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
+  return 0.5f * x * (1.f + tanh_approx(c * (x + 0.044715f * x * x * x)));
 }
 
-struct Params {
-  const __nv_bfloat16* a; long long lda;
-  const __nv_bfloat16* w;               // [N, K], rows contiguous (nn.Linear)
-  const __nv_bfloat16* bias;            // [N] or null
-  const __nv_bfloat16* res; long long ldr;   // [M, N] or null
-  __nv_bfloat16* out; long long ldo;
-  int M, N, K, act;
-};
+template <int BN>
+__global__ void __launch_bounds__(NTHREADS, 1) gemm_sm90(
+    const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+    const __grid_constant__ CUtensorMap tout, const __grid_constant__ CUtensorMap tres,
+    const Params p) {
+  using L = Layout<BN>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* res_full = empty + STAGES;   // one a consumer warpgroup
 
-__global__ void __launch_bounds__(NTHREADS) gemm_kernel(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 sA[2][BM * LDT];
-  __shared__ __align__(16) __nv_bfloat16 sB[2][BN * LDT];
-
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-
-  auto load_tile = [&](int kt, int stage) {
-    const int k0 = kt * BK;
-    // 128 rows x 4 chunks of 8 elements per operand: 2 chunks per thread
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * NTHREADS;
-      const int r = idx >> 2, c = (idx & 3) * 8;
-      const int kk = k0 + c;
-      const int ar = m0 + r, br = n0 + r;
-      const bool a_ok = ar < p.M && kk < p.K;
-      const bool b_ok = br < p.N && kk < p.K;
-      cp_async16(&sA[stage][r * LDT + c],
-                 a_ok ? p.a + ar * p.lda + kk : p.a, a_ok ? 16 : 0);
-      cp_async16(&sB[stage][r * LDT + c],
-                 b_ok ? p.w + (long long)br * p.K + kk : p.w, b_ok ? 16 : 0);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
+  const int ntn = (p.N + BN - 1) / BN;
+  const int ntiles = ((p.M + BM - 1) / BM) * ntn;
   const int nk = (p.K + BK - 1) / BK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_tile(kt + 1, (kt + 1) & 1);
-    cp_async_commit();   // possibly empty group keeps the count uniform
-    cp_async_wait1();    // tile kt has landed
-    __syncthreads();
-    const __nv_bfloat16* A = sA[kt & 1];
-    const __nv_bfloat16* Bt = sB[kt & 1];
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const __nv_bfloat16* base = A + (wm * 64 + mi * 16 + g) * LDT + ks * 16 + 2 * t;
-        af[mi][0] = ld32(base);
-        af[mi][1] = ld32(base + 8 * LDT);
-        af[mi][2] = ld32(base + 8);
-        af[mi][3] = ld32(base + 8 * LDT + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const __nv_bfloat16* base = Bt + (wn * 32 + ni * 8 + g) * LDT + ks * 16 + 2 * t;
-        bf[ni][0] = ld32(base);
-        bf[ni][1] = ld32(base + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);
     }
-    __syncthreads();   // the stage is free for the load two tiles ahead
+    mbar_init(res_full, 1);
+    mbar_init(res_full + 1, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
+  const int wg = tid / 128;
 
-  // fused epilogue from registers; N % 8 == 0 so column pairs stay in range
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-      if (col >= p.N) continue;
-      float b0 = 0.f, b1 = 0.f;
-      if (p.bias) {
-        const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(p.bias + col);
-        b0 = __low2float(bb);
-        b1 = __high2float(bb);
-      }
-#pragma unroll
-      for (int hrow = 0; hrow < 2; ++hrow) {
-        const int row = m0 + wm * 64 + mi * 16 + g + hrow * 8;
-        if (row >= p.M) continue;
-        float y0 = bf16_round(acc[mi][ni][2 * hrow]);
-        float y1 = bf16_round(acc[mi][ni][2 * hrow + 1]);
-        if (p.bias) {
-          y0 = bf16_round(y0 + b0);
-          y1 = bf16_round(y1 + b1);
+  if (wg == 2) {
+    // ---------------- producer: one thread issues every load
+    reg_dealloc<40>();
+    if (tid == 256) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int m0 = (tile / ntn) * BM, n0 = (tile % ntn) * BN;
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(empty + s, ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full + s, L::STAGE);
+          tma_load_2d(smem + s * L::STAGE, &ta, full + s, kc * BK, m0);
+          tma_load_2d(smem + s * L::STAGE + CHUNK_A, &tw, full + s, kc * BK, n0);
         }
-        if (p.act == 1) {
-          y0 = bf16_round(gelu_tanh(y0));
-          y1 = bf16_round(gelu_tanh(y1));
-        }
-        if (p.res) {
-          const __nv_bfloat162 rr =
-              *reinterpret_cast<const __nv_bfloat162*>(p.res + row * p.ldr + col);
-          y0 += __low2float(rr);
-          y1 += __high2float(rr);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(p.out + row * p.ldo + col) =
-            __floats2bfloat162_rn(y0, y1);
       }
     }
+  } else {
+    // ---------------- consumers: warpgroup wg owns rows m0 + 64 wg ..
+    reg_alloc<232>();
+    const int lt = tid % 128;
+    const int warp = lt / 32, lane = lt % 32;
+    const int g = lane / 4, t = lane % 4;
+    unsigned char* sOut = smem + L::OUT + wg * 64 * BN * 2;
+    int it = 0, ti = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++ti) {
+      const int m0w = (tile / ntn) * BM + 64 * wg, n0 = (tile % ntn) * BN;
+      if (lt == 0) {
+        bulk_wait_read();   // the last tile's store has read the staging rows
+        if (p.has_res) {
+          mbar_expect_tx(res_full + wg, 64 * BN * 2);
+          tma_load_2d(sOut, &tres, res_full + wg, n0, m0w);
+        }
+      }
+
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int prev = 0;
+      for (int kc = 0; kc < nk; ++kc, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(full + s, (it / STAGES) & 1);
+        const unsigned char* sA = smem + s * L::STAGE + wg * 64 * 128;
+        const unsigned char* sW = smem + s * L::STAGE + CHUNK_A;
+        fence_regs<BN / 2>(acc);
+        wgmma_fence();
+        // all four k16 steps of a chunk: past K, TMA has filled zeros
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          Wgmma<BN>::ss(acc, desc_sw128(sA + ks * 32, 0, 1024),
+                        desc_sw128(sW + ks * 32, 0, 1024), kc > 0 || ks > 0);
+        wgmma_commit();
+        wgmma_wait<1>();   // the previous chunk's chain has retired
+        fence_regs<BN / 2>(acc);
+        if (kc > 0) mbar_arrive(empty + prev);
+        prev = s;
+      }
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(acc);
+      mbar_arrive(empty + prev);
+
+      // epilogue: the staging rows hold the residual (or are free)
+      if (p.has_res) mbar_wait(res_full + wg, ti & 1);
+      named_bar_sync(2 + wg, 128);
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int cl = 8 * i + 2 * t;
+        const int col = n0 + cl;
+        float b0 = 0.f, b1 = 0.f;
+        if (p.bias != nullptr && col < p.N) {
+          const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(p.bias + col);
+          b0 = __low2float(bb);
+          b1 = __high2float(bb);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float y0 = acc[4 * i + 2 * r], y1 = acc[4 * i + 2 * r + 1];
+          __nv_bfloat162 h = round2(y0, y1);
+          if (p.bias != nullptr) {
+            y0 += b0;
+            y1 += b1;
+            h = round2(y0, y1);
+          }
+          if (p.act == 1) {
+            y0 = gelu_tanh(y0);
+            y1 = gelu_tanh(y1);
+            h = round2(y0, y1);
+          }
+          __nv_bfloat162* slot = reinterpret_cast<__nv_bfloat162*>(
+              sOut + ((warp * 16 + g + 8 * r) * BN + cl) * 2);
+          if (p.has_res) {
+            const __nv_bfloat162 rr = *slot;
+            h = __floats2bfloat162_rn(y0 + __low2float(rr), y1 + __high2float(rr));
+          }
+          *slot = h;
+        }
+      }
+      fence_proxy_async();
+      named_bar_sync(2 + wg, 128);
+      if (lt == 0) {
+        tma_store_2d(&tout, sOut, n0, m0w);
+        bulk_commit();
+      }
+    }
+    if (lt == 0) bulk_wait_all();
   }
+}
+
+// row-major [rows, cols] bf16 with a row stride of `ld` elements
+bool map_2d(CUtensorMap* map, const void* base, long long ld, int rows,
+            int cols, int box_cols, int box_rows, bool swizzle128) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  return encode_map(map, base, 2, dims, strides, box, swizzle128);
+}
+
+template <int BN>
+cudaError_t launch(const void* a, long long lda, const void* w, const void* res,
+                   long long ldr, void* out, long long ldo, const Params& p,
+                   cudaStream_t stream) {
+  constexpr int smem = Layout<BN>::BYTES + 1024;   // + alignment slack
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gemm_sm90<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  CUtensorMap ta, tw, tout, tres;
+  if (!map_2d(&ta, a, lda, p.M, p.K, BK, BM, true) ||
+      !map_2d(&tw, w, p.K, p.N, p.K, BK, BN, true) ||
+      !map_2d(&tout, out, ldo, p.M, p.N, BN, 64, false) ||
+      !map_2d(&tres, res ? res : out, res ? ldr : ldo, p.M, p.N, BN, 64, false))
+    return cudaErrorInvalidValue;
+  const long long ntiles =
+      static_cast<long long>((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
+  if (ntiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const int grid = static_cast<int>(ntiles < sm_count() ? ntiles : sm_count());
+  gemm_sm90<BN><<<grid, NTHREADS, smem, stream>>>(ta, tw, tout, tres, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -201,14 +271,11 @@ extern "C" int vgt_gemm_epilogue(
     int M, int N, int K, int act, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   Params p;
-  p.a = static_cast<const __nv_bfloat16*>(a); p.lda = lda;
-  p.w = static_cast<const __nv_bfloat16*>(w);
   p.bias = static_cast<const __nv_bfloat16*>(bias);
-  p.res = static_cast<const __nv_bfloat16*>(res); p.ldr = ldr;
-  p.out = static_cast<__nv_bfloat16*>(out); p.ldo = ldo;
-  p.M = M; p.N = N; p.K = K; p.act = act;
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-  gemm_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  p.M = M; p.N = N; p.K = K; p.act = act; p.has_res = res != nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      N % 144 == 0 ? launch<144>(a, lda, w, res, ldr, out, ldo, p, s)
+                   : launch<128>(a, lda, w, res, ldr, out, ldo, p, s);
+  return static_cast<int>(e);
 }

@@ -7,7 +7,12 @@ the place of two Pallas kernels: the flash kernel `_flash_kernel`
 so the [B,H,S,D], [B,S,H,D] and fused [B,S,3,H,D] layouts all go in with
 no copies. It takes bf16 or f32 operands (f32 is rounded to bf16 on the way
 into shared memory) and head dims up to 256: the SAM-2 memory
-self-attention [4,1,4096,256] f32 is its "flash_d256" mode.
+self-attention [4,1,4096,256] f32 is its "flash_d256" mode. Two bodies
+serve it (`k1_route`): "wgmma" (bf16, D <= 128: TMA loads into an mbarrier
+ring, warp-specialised, wgmma; every mode of the serving and training main
+paths) and "mma_sync" (f32 storage or D up to 256). The wrapper computes
+the wgmma route's TMA plan (`k1_tma_plan`) and refuses a view that TMA
+cannot take.
 
 K7 (`csrc/window_attention.cu`) is the whole-row-softmax kernel for medium
 non-causal self-attention (512 < S <= 1536). It replaces the Pallas kernel
@@ -68,8 +73,15 @@ NEG_INF = -1e30
 # "flash_d256" (the same at head dims above 128: SAM-2 memory
 # self-attention), "window" (Hiera window attention inside
 # fused_window_block); K4 launches under "decode_q8", K6 under "flash_bwd",
-# K7 under "window_attn", K8 under "smallwin"
+# K7 under "window_attn", K8 under "smallwin". K1 also counts each launch
+# under its route: "route:wgmma" or "route:mma_sync"
 LAUNCHES = collections.Counter()
+
+# K1's wgmma route: a CTA owns K1_BM query rows (two consumer warpgroups of
+# 64) and walks key tiles of K1_BN keys
+K1_BM = 128
+K1_BN = 128
+K1_DEPTHS = (32, 64, 80, 96, 128)   # padded head dims the wgmma route builds
 
 # K4 splits the cache axis over this many thread blocks per SM (per batch)
 DECODE_SPLITS_PER_SM = 1
@@ -259,6 +271,52 @@ def _check_qkvo(what: str, q, k, v, out, max_d: int):
                          f"(needs D % 8 == 0 and D <= {max_d})")
 
 
+def k1_route(dtype, D: int) -> str:
+    """The body of csrc/attention_fwd.cu that serves a K1 launch: "wgmma"
+    for bf16 operands with D <= 128, "mma_sync" for f32 storage and for
+    head dims up to 256. The C entry applies the same rule."""
+    return "wgmma" if dtype == torch.bfloat16 and D <= K1_DEPTHS[-1] \
+        else "mma_sync"
+
+
+def k1_tma_plan(q, k, v, out) -> dict:
+    """The tensor maps that K1's wgmma route encodes for a launch
+    (`map_bhsd` in csrc/attention_fwd.cu), from the [B,H,S,D] views alone,
+    so it also runs on meta tensors. For each operand: dims (D, S, H, B)
+    innermost first; the byte strides of S, H and B (an extent of 1 gets a
+    placeholder of 16); the box (64 columns: one 128-byte swizzled chunk,
+    rows). Also the padded depth of QK^T (the N of PV) and its number of
+    64-column chunks. TMA fills columns past D with zeros, so a fused-qkv
+    view needs no copy. Raises ValueError where TMA would refuse a view: a
+    head dim that is not contiguous or above 128, a base address that is
+    not 16-byte aligned, a byte stride that is not a positive multiple of
+    16 below 2**40."""
+    D = q.shape[-1]
+    if D > K1_DEPTHS[-1]:
+        raise ValueError(f"k1_tma_plan: head dim {D} above {K1_DEPTHS[-1]}")
+    depth = next(d for d in K1_DEPTHS if d >= D)
+    maps = {}
+    for name, t, rows in (("q", q, K1_BM), ("k", k, K1_BN), ("v", v, K1_BN),
+                          ("out", out, 64)):
+        B, H, S, Dt = t.shape
+        if t.stride(-1) != 1:
+            raise ValueError(f"k1_tma_plan: {name} head dim is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"k1_tma_plan: {name} is not 16-byte aligned")
+        strides = []
+        for s, n, what in ((t.stride(2), S, "token"), (t.stride(1), H, "head"),
+                           (t.stride(0), B, "batch")):
+            nb = 2 * s if n > 1 else 16
+            if nb <= 0 or nb % 16 or nb >= 2 ** 40:
+                raise ValueError(f"k1_tma_plan: {name} {what} stride of {nb} "
+                                 "bytes (TMA needs a positive multiple of 16 "
+                                 "below 2**40)")
+            strides.append(nb)
+        maps[name] = dict(dims=(Dt, S, H, B), strides=tuple(strides),
+                          box=(64, rows, 1, 1))
+    return dict(depth=depth, chunks=-(-depth // 64), maps=maps)
+
+
 def _as_int32(t, B: int, device):
     if t is None:
         return None
@@ -276,7 +334,9 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
     the kernel fills with the row log-sum-exp of the scaled logits (NEG_INF
     for a row with no valid key). Raises unless the operands are CUDA
     tensors of one dtype, bf16 or f32, with D % 8 == 0 and D <= 256; the
-    block-diagonal `win` mode serves D <= 128."""
+    block-diagonal `win` mode serves D <= 128. bf16 with D <= 128 takes the
+    wgmma route (`k1_route`), which also raises on views that its TMA plan
+    refuses (`k1_tma_plan`)."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     _check_qkvo("attention_fwd", q, k, v, out, 128 if win else 256)
@@ -286,6 +346,9 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
                             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError("attention_fwd: lse must be a contiguous f32 "
                          f"[{B},{H},{Sq}] on {q.device}")
+    route = k1_route(q.dtype, D)
+    if route == "wgmma":
+        k1_tma_plan(q, k, v, out)
     kvl = _as_int32(kv_lens, B, q.device)
     qs = _as_int32(q_start, B, q.device)
     err = _kernel_fn()(
@@ -298,6 +361,7 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
         int(q.dtype == torch.float32), _cuda.stream_ptr(q))
     _cuda.check_launch(err, "attention_fwd")
     LAUNCHES[mode] += 1
+    LAUNCHES["route:" + route] += 1
     return out
 
 

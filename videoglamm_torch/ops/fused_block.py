@@ -10,8 +10,9 @@ in its body runs in one of them:
     residual -> K3 LN2 -> K2 fc1 + bias + GELU -> K2 fc2 + bias + residual
 
 K2 (`csrc/gemm_epilogue.cu`) is a bf16 GEMM with the bias / GELU / residual
-epilogue fused. Windows of 16 tokens are packed four to a 64-row K1 tile
-with a block-diagonal `win` mask. Fusing the chain into one launch, so that
+epilogue fused (TMA, wgmma, a persistent grid). Windows shorter than K1's
+128-row query tile are packed into one (eight of 16 tokens, two of 64) with
+a block-diagonal `win` mask (`window_fold`). Fusing the chain into one launch, so that
 the activation is read once as on the TPU, is queued in ROADMAP.md.
 
 The plain twin `_fused_block_ref` mirrors the JAX reference op for op:
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .attention import attention_fwd_kernel
+from .attention import K1_BM, attention_fwd_kernel
 from .norms import _layer_norm_plain, row_norm
 
 # launches: "block" (fused_window_block on the kernel path), "gemm" (K2)
@@ -141,6 +142,14 @@ def gemm_epilogue(a, w, bias=None, *, gelu: bool = False, residual=None):
 # ---------------------------------------------------------------------------
 # the block
 # ---------------------------------------------------------------------------
+def window_fold(NW: int, S: int) -> int:
+    """How many S-token windows K1 packs into one query tile of K1_BM rows
+    (attended block-diagonally through `win`): K1_BM // S for windows
+    shorter than the tile when that divides the window count, else 1."""
+    f = K1_BM // S if S < K1_BM else 1
+    return f if f > 1 and NW % f == 0 else 1
+
+
 def _fused_block_kernels(x, p, num_heads: int, eps: float):
     NW, S, C = x.shape
     H = num_heads
@@ -149,8 +158,8 @@ def _fused_block_kernels(x, p, num_heads: int, eps: float):
     x2 = x.reshape(M, C)
     h = row_norm(x2, p["ln1_weight"], p["ln1_bias"], eps, rms=False)
     qkv = gemm_epilogue(h, p["qkv_weight"], p["qkv_bias"])
-    # pack 16-token windows four to a 64-row K1 tile (block-diagonal mask)
-    f = 64 // S if S < 64 and NW % (64 // S) == 0 else 1
+    # pack short windows into one K1 query tile (block-diagonal mask)
+    f = window_fold(NW, S)
     B_, S_ = NW // f, S * f
     qkv5 = qkv.view(B_, S_, 3, H, hd)
     attn = torch.empty((M, C), dtype=x.dtype, device=x.device)
