@@ -13,7 +13,7 @@ failure:
 2. build: compiles the eight CUDA sources of videoglamm_torch/csrc (K1
    attention_fwd, K2 gemm_epilogue, K4 decode_attention_q8, K5
    dequant_gemv, K6 flash_bwd, K7 window_attention, K8 smallwin_attention,
-   K9 decode_fused; K1 and K2 over csrc/sm90_common.cuh, the Hopper
+   K9 decode_fused; K1, K2 and K6 over csrc/sm90_common.cuh, the Hopper
    helpers) from the checkout with one nvcc process each, all started together, and
    JIT-compiles K3 (the Triton row norm), printing build seconds and the
    -Xptxas -v lines (registers and spills of every instantiation);
@@ -22,13 +22,18 @@ failure:
    the kernel, the twin and, where one PyTorch call computes the same
    function, that library call (a yardstick only; the port never calls it).
    Each timing is the median of 7 CUDA-event pairs after 2 warm-up calls;
-   a pair spans a batch of launches sized to last at least 1 ms. K4 and K5
+   a pair spans a batch of launches sized to last at least 1 ms (8 ms for
+   K6 and the calls timed beside it, whose single call of 1 to 2 ms would
+   otherwise carry the host's enqueue of that call). K4 and K5
    rotate over operands larger than the L2 cache, as the decode loop finds
    them. Beside each time stands the bound: the larger of bytes moved over
    3.35 TB/s and operations over the peak rate of their type. K6 (the
    flash-attention backward) is held against its twin at the training shape
    [2,32,3456,96] causal and non-causal and at the three small cases of
-   the JAX package's own test, dq, dk and dv each by relative L2; K1's LSE
+   the JAX package's own test, dq, dk and dv each by relative L2, with its
+   TFLOP/s, the first (mma.sync) K6's recorded time beside this run's, and
+   its three device kernels (the delta prepass, dq, dk/dv) timed apart
+   under the profiler; K1's LSE
    output against the log-sum-exp of the twin's logits. K7 at the memory
    self-attention of the 32x32 grid [4,1,1024,256] f32 and at the two tower
    shapes its dispatch branch names, K8 at Hiera's stage-1 and stage-2
@@ -161,6 +166,11 @@ TOL_FLASH_BWD = 1e-2    # K6, relative L2 of dq, dk, dv each: kernel and twin
                         # round p and ds to bf16 at the same place and sum
                         # in f32 in another order; entries differ by one
                         # bf16 ulp (2^-8) where a rounding flips
+# K6's first version (mma.sync, synchronous staging) at the training shape
+# [2,32,3456,96], kv_lens (3456, 3300): its reading on an NVIDIA H100 80GB
+# HBM3, 700.00 W (PERF.md section 6), printed beside this run's time
+K6_MMA_SYNC_MS = {True: 6.6156, False: 11.6856}
+K6_BATCH_MS = 8.0       # K6 and its yardsticks are timed over batches this long
 TOL_LSE = 1e-3          # K1's LSE, max|d|: f32 sums of the same bf16
                         # products, exp2/log2 against exp/log
 TOL_TRAIN_LOSS = 2e-2   # narrow model, bf16 card vs f32 CPU, relative
@@ -389,6 +399,27 @@ def attended_pairs(Sq, Sk, kv_lens, q_start, causal) -> int:
     return total
 
 
+def k6_parts_ms(bwd, calls: int = 5) -> dict:
+    """Device ms a call of K6's three kernels (delta prepass, dq, dk/dv),
+    from torch.profiler over `calls` calls of `bwd`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            bwd()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        for part in ("delta", "dq", "dkv"):
+            if f"flash_bwd_{part}" in e.key:
+                parts[part] = parts.get(part, 0.0) + _device_us(e) / 1e3 / calls
+    if set(parts) != {"delta", "dq", "dkv"}:
+        raise AssertionError(f"K6: the profiler saw its kernels as {parts}")
+    return parts
+
+
 def phase_flash_bwd(K: Kernels, randn):
     """K6 against `_flash_bwd_plain` and K1's LSE against the twin's, the
     twin run head by head (a whole [2,32,3456,3456] f32 temporary is 3 GB)."""
@@ -478,8 +509,11 @@ def phase_flash_bwd(K: Kernels, randn):
                 f"dv={rels[2]:.3e} (tol {TOL_FLASH_BWD:g}) "
                 f"max_abs_err={max(errs):.3e}")
         if time_it:
-            ms = time_ms(bwd)
-            fwd_ms = time_ms(fwd)
+            # batches of >= 8 ms: one call's host work (checks, TMA plan,
+            # seven tensor maps) shows in a pair of one call, not of several
+            ms = time_ms(bwd, min_ms=K6_BATCH_MS)
+            parts = k6_parts_ms(bwd)
+            fwd_ms = time_ms(fwd, min_ms=K6_BATCH_MS)
             plain_ms = time_ms(plain_bwd, reps=3, warmup=1)
             plain_fwd_ms = time_ms(plain_fwd, reps=3, warmup=1)
             ql, kl, vl = (t.detach().clone().requires_grad_(True)
@@ -494,11 +528,14 @@ def phase_flash_bwd(K: Kernels, randn):
                 o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
                 return torch.autograd.grad(o, (ql, kl, vl), g)
 
-            lib_f = time_ms(lib_fwd)
-            lib_fb = time_ms(lib_fwd_bwd)
+            lib_f = time_ms(lib_fwd, min_ms=K6_BATCH_MS)
+            lib_fb = time_ms(lib_fwd_bwd, min_ms=K6_BATCH_MS)
             library_ms = lib_fb - lib_f
             line += (f" kernel={ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s of the "
-                     f"five products) plain={plain_ms:.4f} ms library="
+                     f"five products; the first, mma.sync K6 read "
+                     f"{K6_MMA_SYNC_MS[causal]:.4f} ms, "
+                     f"{K6_MMA_SYNC_MS[causal] / ms:.2f}x this) "
+                     f"plain={plain_ms:.4f} ms library="
                      f"{library_ms:.4f} ms (forward+backward {lib_fb:.4f} - "
                      f"forward {lib_f:.4f}) bound={bound_ms:.4f} ms ({bound_by}); "
                      f"K1 forward with LSE at this shape {fwd_ms:.4f} ms "
@@ -518,6 +555,13 @@ def phase_flash_bwd(K: Kernels, randn):
                     bound_by="bytes" if tb >= to else "operations",
                     library_ms=lib_f)
         log(line + (" ok" if ok else " MISS"))
+        if time_it:
+            log(f"  K6 {label}, its three device kernels under the profiler "
+                "(ms a call): " + ", ".join(f"{n} {t:.4f}" for n, t in parts.items())
+                + f"; {sum(parts.values()):.4f} together")
+            log(f"  K6 delta prepass alone: {parts['delta']:.4f} ms (reading out "
+                f"and dO once at the memory rate: "
+                f"{2 * 2 * B * H * Sq * D / HBM_BYTES_S * 1e3:.4f} ms)")
         if not ok:
             raise AssertionError(f"K6 {label}: disagrees with its plain twin")
 
@@ -2121,12 +2165,24 @@ def profile_train_step(tr, state, batch) -> float:
             "not measured (the profiler saw none)")
         return float(metrics["loss"])
     busy_ms = sum(_device_us(e) for e in rows) / 1e3
-    top = sorted(rows, key=_device_us, reverse=True)[:8]
+    top = sorted(rows, key=_device_us, reverse=True)[:12]
     log(f"  train step under the profiler: {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.2f}), "
         f"{sum(e.count for e in rows)} device launches; top: "
         + "; ".join(f"{e.key[:56]} {_device_us(e) / 1e3:.1f} ms x{e.count}"
                     for e in top))
+    # K6's kernels by name, in the top list or not
+    k6 = {part: [e for e in rows if f"flash_bwd_{part}" in e.key]
+          for part in ("delta", "dq", "dkv")}
+    if not all(k6.values()):
+        raise AssertionError("train step: the profiler does not name K6's "
+                             f"kernels: {[e.key[:56] for e in top]}")
+    k6_ms = {p: sum(_device_us(e) for e in es) / 1e3 for p, es in k6.items()}
+    log("  train step, K6 under the profiler: "
+        + ", ".join(f"{p} {k6_ms[p]:.1f} ms x{sum(e.count for e in k6[p])}"
+                    for p in k6)
+        + f"; {sum(k6_ms.values()):.1f} ms of {busy_ms:.1f} busy "
+        f"({sum(k6_ms.values()) / busy_ms:.3f})")
     return float(metrics["loss"])
 
 

@@ -300,6 +300,14 @@ def _rel_l2(got, ref):
     (2, 4, 300, 300, 96, (300, 211), (0, 0), True),     # Phi-3 head dim
     (1, 2, 130, 130, 80, (100,), (0,), True),           # zero-padded head dim
     (1, 2, 96, 200, 128, (200,), (-40,), True),         # rows with no valid key
+    (2, 2, 200, 200, 72, (200, 150), (0, 0), True),     # D 72 padded to 80
+    (2, 2, 200, 320, 88, (320, 260), None, False),      # D 88 padded to 96
+    # several 128-row CTAs and 64-row ring tiles, Sq != Sk, two kv_lens
+    # inside tiles, q_start per batch row (one negative)
+    (2, 3, 450, 700, 96, (700, 517), (250, -30), True),
+    (2, 2, 333, 270, 64, (270, 199), None, False),
+    (1, 2, 150, 150, 32, (150,), (0,), True),           # D 32: one 64-column box
+    (2, 2, 130, 200, 64, (0, 177), (0, 0), False),      # a batch row with no key
 ])
 def test_k6_flash_backward_matches_plain(dev, B, H, Sq, Sk, D, kv, qs, causal):
     """K1's LSE output and K6's dq, dk, dv against the plain twins on the same
@@ -343,6 +351,112 @@ def test_k6_flash_backward_matches_plain(dev, B, H, Sq, Sk, D, kv, qs, causal):
         assert rel <= 1e-2, f"{name}: rel L2 {rel:.3e}"
     if not live.all():
         assert (dq.transpose(1, 2)[(~live).transpose(1, 2)] == 0).all()
+
+
+def _k6_inputs(rng, dev, B, H, Sq, Sk, D, kv, qs, causal):
+    """bf16 q, k, v, a strided gradient, kv_lens, q_start, and K1's output
+    and LSE for them."""
+    q, k, v = (_randn(rng, (B, H, s, D), dev) for s in (Sq, Sk, Sk))
+    g = _randn(rng, (B, Sq, H, D), dev).transpose(1, 2)
+    kv_lens = torch.tensor(kv, dtype=torch.int32, device=dev)
+    q_start = torch.tensor(qs, dtype=torch.int32, device=dev)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
+    attn.attention_fwd_kernel(q, k, v, out, causal=causal, sm_scale=D ** -0.5,
+                              mode="causal" if causal else "flash",
+                              kv_lens=kv_lens, q_start=q_start, lse=lse)
+    return q, k, v, g, kv_lens, q_start, out, lse
+
+
+@pytest.mark.parametrize("D,causal", [(64, True), (96, True), (128, False)])
+def test_k6_nan_slack_gives_exact_zeros(dev, D, causal):
+    """Keys in [kv_len, Sk) are real memory and may hold NaN (a cache's
+    slack): dq stays finite and equal to the twin on clean inputs, dk and dv
+    are exactly 0 on those rows, and rows with no valid key (q_start < 0)
+    get an exact 0 in dq."""
+    rng = np.random.default_rng(20 + D)
+    B, H, Sq, Sk = 2, 2, 260, 400
+    kv, qs = (400, 301), (-35, 100)
+    q, k, v, g, kv_lens, q_start, out, lse = _k6_inputs(
+        rng, dev, B, H, Sq, Sk, D, kv, qs, causal)
+    clean_k, clean_v = k.clone(), v.clone()
+    for b, n in enumerate(kv):
+        k[b, :, n:] = float("nan")
+        v[b, :, n:] = float("nan")
+        clean_k[b, :, n:] = 0
+        clean_v[b, :, n:] = 0
+    dq, dk, dv = attn.flash_bwd_kernel(q, k, v, out, lse, g, causal=causal,
+                                       sm_scale=D ** -0.5, kv_lens=kv_lens,
+                                       q_start=q_start)
+    want = attn._flash_bwd_plain(q, clean_k, clean_v, out, lse, g, kv_lens,
+                                 q_start, causal, D ** -0.5)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.isfinite(got).all(), name
+        rel = _rel_l2(got, ref)
+        assert rel <= 1e-2, f"{name}: rel L2 {rel:.3e}"
+    for b, n in enumerate(kv):
+        assert (dk[b, :, n:] == 0).all() and (dv[b, :, n:] == 0).all()
+    if causal:
+        assert (dq[0, :, :35] == 0).all() and (dq[0, :, 35:] != 0).any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_k6_two_calls_are_bit_equal(dev, causal):
+    """No atomics: the same inputs give the same dq, dk, dv bit for bit."""
+    rng = np.random.default_rng(30)
+    args = _k6_inputs(rng, dev, 2, 4, 390, 390, 96, (390, 277), (0, 0), causal)
+    q, k, v, g, kv_lens, q_start, out, lse = args
+    first = attn.flash_bwd_kernel(q, k, v, out, lse, g, causal=causal,
+                                  sm_scale=96 ** -0.5, kv_lens=kv_lens,
+                                  q_start=q_start)
+    again = attn.flash_bwd_kernel(q, k, v, out, lse, g, causal=causal,
+                                  sm_scale=96 ** -0.5, kv_lens=kv_lens,
+                                  q_start=q_start)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_tma_kernels_launch_from_a_fresh_thread(dev):
+    """K1's wgmma route, K2 and K6 encode tensor maps against the current
+    context. A fresh host thread (the autograd engine runs a backward, and
+    a remat recompute, on one) has none bound while its tensors come from
+    the caching allocator; the entries bind the operands' device."""
+    import threading
+    rng = np.random.default_rng(40)
+    q, k, v, g, kv_lens, q_start, out, lse = _k6_inputs(
+        rng, dev, 1, 2, 200, 200, 64, (200,), (0,), True)
+    a = _randn(rng, (256, 144), dev)
+    w = _randn(rng, (144, 144), dev, 0.1)
+    out2 = torch.empty_like(out)
+    torch.empty(64 << 20, device=dev)   # freed at once: later allocations come from the cache
+    got = {}
+
+    def work():
+        try:
+            attn.attention_fwd_kernel(q, k, v, out2, causal=True,
+                                      sm_scale=64 ** -0.5, mode="causal",
+                                      kv_lens=kv_lens, q_start=q_start)
+            got["k6"] = attn.flash_bwd_kernel(q, k, v, out, lse, g, causal=True,
+                                              sm_scale=64 ** -0.5,
+                                              kv_lens=kv_lens, q_start=q_start)
+            got["k2"] = fb.gemm_epilogue(a, w, None)
+            torch.cuda.synchronize()
+        except Exception as e:   # handed to the test's thread
+            got["error"] = e
+
+    th = threading.Thread(target=work)
+    th.start()
+    th.join(timeout=120)
+    assert not th.is_alive()
+    assert "error" not in got, got.get("error")
+    assert torch.equal(out2, out)
+    want = attn._flash_bwd_plain(q, k, v, out, lse, g, kv_lens, q_start, True,
+                                 64 ** -0.5)
+    for name, x, ref in zip(("dq", "dk", "dv"), got["k6"], want):
+        assert _rel_l2(x, ref) <= 1e-2, name
+    _close(got["k2"], fb._gemm_plain(a, w, None), 2e-2, "K2 on a fresh thread")
 
 
 def test_bshd_backward_recomputes_through_the_plain_twin(dev):
@@ -914,3 +1028,16 @@ def test_wgmma_routes_compile_to_hgmma(dev):
         assert "HGMMA" in s and "HMMA" not in s, n
     for n, s in old.items():
         assert "HMMA" in s, n
+
+
+def test_k6_compiles_to_hgmma(dev):
+    """K6's dq and dk/dv kernels issue warpgroup MMAs (HGMMA) and no
+    mma.sync (HMMA), at every padded head dim."""
+    from videoglamm_torch.ops import _cuda
+    k6 = _sass_functions(_cuda.load("flash_bwd").path)
+    mma = {n: s for n, s in k6.items()
+           if "flash_bwd_dq" in n or "flash_bwd_dkv" in n}
+    assert len(mma) == 2 * len(attn.K1_DEPTHS)
+    for n, s in mma.items():
+        assert "HGMMA" in s and "HMMA" not in s, n
+    assert not any("HMMA" in s for s in k6.values())

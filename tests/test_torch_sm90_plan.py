@@ -1,9 +1,9 @@
-"""The geometry of K1's wgmma route, on the CPU: the route rule, the
-window fold that the Hiera block chain and K1's 128-row query tiles share,
-and the TMA plan (`k1_tma_plan`) that the wrapper computes before every
-launch of the route, checked on meta-device views of every main-path K1
-call at its flagship shape (no memory, no card). The kernel itself runs
-only on the card (tests/test_torch_cuda.py)."""
+"""The geometry of K1's wgmma route and of K6, on the CPU: the route rule,
+the window fold that the Hiera block chain and K1's 128-row query tiles
+share, and the TMA plans (`k1_tma_plan`, `k6_tma_plan`) that the wrappers
+compute before every launch, checked on meta-device views of every
+main-path call at its flagship shape (no memory, no card). The kernels
+themselves run only on the card (tests/test_torch_cuda.py)."""
 import pytest
 import torch
 
@@ -133,3 +133,87 @@ def test_k1_tma_plan_refuses_misaligned_views():
     big = _meta(1, 1, 64, 256)
     with pytest.raises(ValueError, match="head dim"):
         tattn.k1_tma_plan(big, big, big, big)
+
+
+# ---------------------------------------------------------------------------
+# K6 (flash-attention backward)
+# ---------------------------------------------------------------------------
+def _k6_case(name):
+    """(q, k, v, out, dout) meta views of a K6 launch at the training shape:
+    Phi-3 flagship, 2 rows of 3456 positions, 32 heads of 96."""
+    B, S, H, hd = 2, 3456, 32, 96
+    qkv = _meta(B, S, 3 * H * hd)
+    q_, k_, v_ = (x.view(B, S, H, hd).transpose(1, 2)
+                  for x in qkv.split([H * hd] * 3, dim=-1))
+    if name == "qkv_split":        # no LoRA: q, k, v views of the fused qkv
+        q, k, v = q_, k_, v_
+    else:                          # RoPE'd q, k and LoRA'd v: new BSHD tensors
+        q, k, v = (_meta(B, S, H, hd).transpose(1, 2) for _ in range(3))
+    out = _meta(B, H, S, hd)
+    # the gradient of o.transpose(1, 2).reshape(B, S, H * hd), handed back
+    dout = _meta(B, S, H * hd).view(B, S, H, hd).transpose(1, 2)
+    return q, k, v, out, dout
+
+
+@pytest.mark.parametrize("name", ["qkv_split", "rope_lora"])
+def test_k6_tma_plan_accepts_training_views(name):
+    q, k, v, out, dout = _k6_case(name)
+    B, H, S, D = q.shape
+    plan = tattn.k6_tma_plan(q, k, v, out, dout)
+    assert plan["depth"] == 96 and plan["chunks"] == 2
+    assert set(plan["maps"]) == {"q", "k", "v", "out", "dout", "dq", "dk", "dv"}
+    for op, t in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)):
+        m = plan["maps"][op]
+        assert m["dims"] == (D, S, H, B)
+        # read in place: the view's own byte strides of token, head, batch
+        assert m["strides"] == (2 * t.stride(2), 2 * t.stride(1), 2 * t.stride(0))
+        assert m["box"] == (64, tattn.K6_TILE, 1, 1)
+    for op in ("dq", "dk", "dv"):      # new contiguous [B,H,S,D] outputs
+        assert plan["maps"][op]["strides"] == (2 * D, 2 * S * D, 2 * H * S * D)
+    if name == "qkv_split":
+        assert plan["maps"]["v"]["strides"][0] == 2 * 3 * H * D
+    assert plan["maps"]["dout"]["strides"][:2] == (2 * H * D, 2 * D)
+
+
+@pytest.mark.parametrize("D,depth", [(16, 32), (64, 64), (72, 80), (88, 96),
+                                     (96, 96), (128, 128)])
+def test_k6_tma_plan_pads_depth_and_takes_sq_ne_sk(D, depth):
+    q, dout = _meta(2, 3, 200, D), _meta(2, 200, 3, D).transpose(1, 2)
+    k = _meta(2, 3, 333, D)
+    plan = tattn.k6_tma_plan(q, k, k, q, dout)
+    assert plan["depth"] == depth and depth in tattn.K1_DEPTHS
+    assert plan["maps"]["k"]["dims"][1] == plan["maps"]["dk"]["dims"][1] == 333
+    assert plan["maps"]["q"]["dims"][1] == plan["maps"]["dq"]["dims"][1] == 200
+
+
+def test_k6_tma_plan_refuses_misaligned_views():
+    ok = _meta(2, 2, 300, 64)
+    # a dout whose token stride is 388 elements: 8 bytes off the 16-byte grid
+    bad = _meta(2, 300, 388)[:, :, :128].unflatten(-1, (2, 64)).transpose(1, 2)
+    with pytest.raises(ValueError, match="k6_tma_plan: dout token stride"):
+        tattn.k6_tma_plan(ok, ok, ok, ok, bad)
+    # an out whose base address is 8 bytes past the 16-byte grid
+    off = _meta(2, 300, 2 * 64 + 4)[:, :, 4:].unflatten(-1, (2, 64)).transpose(1, 2)
+    with pytest.raises(ValueError, match="out is not 16-byte aligned"):
+        tattn.k6_tma_plan(ok, ok, ok, off, ok)
+    # a broadcast gradient over heads (stride 0), a head dim not contiguous
+    with pytest.raises(ValueError, match="dout head stride"):
+        tattn.k6_tma_plan(ok, ok, ok, ok, _meta(2, 1, 300, 64).expand(2, 2, 300, 64))
+    with pytest.raises(ValueError, match="k head dim is not contiguous"):
+        tattn.k6_tma_plan(ok, _meta(2, 2, 64, 300).transpose(2, 3), ok, ok, ok)
+    big = _meta(1, 1, 64, 256)
+    with pytest.raises(ValueError, match="head dim 256 above 128"):
+        tattn.k6_tma_plan(big, big, big, big, big)
+
+
+def test_k6_wrapper_copies_only_what_tma_cannot_take():
+    """`flash_bwd_kernel` hands TMA every operand as it is unless
+    `_tma_refusal` names a reason; a broadcast gradient is made contiguous
+    (and the kernel still runs), the BSHD gradient is not."""
+    ok = _meta(2, 2, 300, 64)
+    assert tattn._tma_refusal(ok) is None
+    assert tattn._tma_refusal(_k6_case("qkv_split")[4]) is None
+    assert "head stride" in tattn._tma_refusal(
+        _meta(2, 1, 300, 64).expand(2, 2, 300, 64))
+    assert "contiguous" in tattn._tma_refusal(
+        _meta(1, 1, 1, 1).expand(2, 2, 300, 64))

@@ -598,20 +598,6 @@ __global__ void __launch_bounds__(NTHREADS, 1) attn_fwd_sm90(
   }
 }
 
-// [B,H,S,D] view through element strides -> a rank-4 map (D, S, H, B); a
-// dim of extent 1 gets a placeholder stride
-bool map_bhsd(CUtensorMap* map, const void* base, long long sb, long long sh,
-              long long ss, int B, int H, int S, int D, int box_rows) {
-  auto st = [](long long s, int n) -> cuuint64_t {
-    return n > 1 ? static_cast<cuuint64_t>(s) * 2 : 16;
-  };
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {st(ss, S), st(sh, H), st(sb, B)};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
-  return encode_map(map, base, 4, dims, strides, box, true);
-}
-
 template <int DP>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int smem = Layout<DP>::BYTES + 1024;   // + alignment slack
@@ -682,7 +668,7 @@ extern "C" int vgt_attention_fwd(
   cudaError_t e;
   if (is_f32)
     e = dispatch_f32(p, s);
-  else if (D <= 128)
+  else if (D <= 128 && (e = use_device_of(q)) == cudaSuccess)
     e = sm90::dispatch(p, s);   // route "wgmma"
   else if (D <= 256)
     e = launch<256, 32, false, __nv_bfloat16>(p, s);

@@ -274,8 +274,9 @@ extern "C" int vgt_gemm_epilogue(
   p.bias = static_cast<const __nv_bfloat16*>(bias);
   p.M = M; p.N = N; p.K = K; p.act = act; p.has_res = res != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      N % 144 == 0 ? launch<144>(a, lda, w, res, ldr, out, ldo, p, s)
-                   : launch<128>(a, lda, w, res, ldr, out, ldo, p, s);
+  cudaError_t e = use_device_of(a);
+  if (e == cudaSuccess)
+    e = N % 144 == 0 ? launch<144>(a, lda, w, res, ldr, out, ldo, p, s)
+                     : launch<128>(a, lda, w, res, ldr, out, ldo, p, s);
   return static_cast<int>(e);
 }

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
-// (attention_fwd.cu's wgmma route, gemm_epilogue.cu; flash_bwd.cu next):
+// (attention_fwd.cu's wgmma route, gemm_epilogue.cu, flash_bwd.cu):
 // shared-memory matrix descriptors and `wgmma.mma_async` wrappers, mbarrier
 // helpers, TMA tensor loads and stores, proxy fences, named barriers,
 // register reallocation, and the host-side tensor-map encoder. Inline PTX,
@@ -179,6 +179,16 @@ template <> struct Wgmma<32> {
 
 template <> struct Wgmma<64> {
   static constexpr int kAcc = 32;
+  // A and B from shared memory, both K-major
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   // A from registers, B MN-major in shared memory (transposed B)
   static __device__ __forceinline__ void rs_t(float* d, const uint32_t* a,
                                               uint64_t db, int scale_d) {
@@ -278,6 +288,17 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// Make the primary context of the device that holds `p` current on the
+// calling thread. A tensor map is encoded against the current context, and
+// a thread that PyTorch's autograd engine runs a backward on has none bound
+// until it first allocates or launches through the runtime (its tensors
+// come from the caching allocator): the encoder then refuses the map.
+inline cudaError_t use_device_of(const void* p) {
+  cudaPointerAttributes a;
+  const cudaError_t e = cudaPointerGetAttributes(&a, p);
+  return e != cudaSuccess ? e : cudaSetDevice(a.device);
+}
+
 // A bf16 tensor map of `rank` dims, innermost first: dims[i] elements,
 // byte strides of dims 1.. in strides[0 .. rank-2] (multiples of 16), a box
 // of box[i] elements. Reads past the dims fill zeros, stores past them are
@@ -294,6 +315,21 @@ inline bool encode_map(CUtensorMap* map, const void* base, int rank,
             swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [B,H,S,D] view through element strides -> a rank-4 map (D, S, H, B); a
+// dim of extent 1 gets a placeholder stride
+inline bool map_bhsd(CUtensorMap* map, const void* base, long long sb,
+                     long long sh, long long ss, int B, int H, int S, int D,
+                     int box_rows) {
+  auto st = [](long long s, int n) -> cuuint64_t {
+    return n > 1 ? static_cast<cuuint64_t>(s) * 2 : 16;
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {st(ss, S), st(sh, H), st(sb, B)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  return encode_map(map, base, 4, dims, strides, box, true);
 }
 
 inline int sm_count() {

@@ -40,7 +40,10 @@ has no counterpart here).
 
 K6 (`csrc/flash_bwd.cu`) is the backward of K1 for training. It replaces
 the Pallas kernels `_flash_bwd_dq_kernel` (attention.py:302) and
-`_flash_bwd_dkv_kernel` (attention.py:336). `flash_attention` is a
+`_flash_bwd_dkv_kernel` (attention.py:336) with a delta prepass, a dq kernel
+and a dk/dv kernel on the same Hopper design as K1's wgmma route (TMA into
+an mbarrier ring, a producer warpgroup, two consumer warpgroups on wgmma);
+the wrapper checks its TMA plan (`k6_tma_plan`). `flash_attention` is a
 `torch.autograd.Function` when a gradient is asked for: the forward has K1
 write the row log-sum-exp, the backward launches K6 on CUDA tensors and
 runs K6's plain twin `_flash_bwd_plain` on CPU tensors. The BSHD entries
@@ -82,6 +85,12 @@ LAUNCHES = collections.Counter()
 K1_BM = 128
 K1_BN = 128
 K1_DEPTHS = (32, 64, 80, 96, 128)   # padded head dims the wgmma route builds
+
+# K6: a dq CTA owns K6_ROWS queries, a dk/dv CTA K6_ROWS keys (two consumer
+# warpgroups of 64 each); a ring stage holds K6_TILE keys (dq) or queries
+# (dk/dv). K6 pads the head dim to K1_DEPTHS as K1 does.
+K6_ROWS = 128
+K6_TILE = 64
 
 # K4 splits the cache axis over this many thread blocks per SM (per batch)
 DECODE_SPLITS_PER_SM = 1
@@ -279,41 +288,78 @@ def k1_route(dtype, D: int) -> str:
         else "mma_sync"
 
 
+def _tma_refusal(t) -> Optional[str]:
+    """Why TMA cannot take the [B,H,S,D] view `t` as a tensor map of its
+    own strides, or None: the head dim must be contiguous, the base address
+    16-byte aligned, and every byte stride of a dim longer than 1 a positive
+    multiple of 16 below 2**40."""
+    if t.stride(-1) != 1:
+        return "head dim is not contiguous"
+    if t.data_ptr() % 16:
+        return "is not 16-byte aligned"
+    for s, n, what in ((t.stride(2), t.shape[2], "token"),
+                       (t.stride(1), t.shape[1], "head"),
+                       (t.stride(0), t.shape[0], "batch")):
+        nb = 2 * s if n > 1 else 16
+        if nb <= 0 or nb % 16 or nb >= 2 ** 40:
+            return (f"{what} stride of {nb} bytes (TMA needs a positive "
+                    "multiple of 16 below 2**40)")
+    return None
+
+
+def _tma_map(t, name: str, who: str, rows: int) -> dict:
+    """The rank-4 map that `map_bhsd` (csrc/sm90_common.cuh) encodes for the
+    [B,H,S,D] view `t`: dims (D, S, H, B) innermost first; the byte strides
+    of S, H and B (an extent of 1 gets a placeholder of 16); the box (64
+    columns: one 128-byte swizzled chunk, `rows` rows). Raises ValueError
+    where TMA would refuse the view."""
+    why = _tma_refusal(t)
+    if why is not None:
+        raise ValueError(f"{who}: {name} {why}")
+    B, H, S, D = t.shape
+    strides = tuple(2 * s if n > 1 else 16 for s, n in
+                    ((t.stride(2), S), (t.stride(1), H), (t.stride(0), B)))
+    return dict(dims=(D, S, H, B), strides=strides, box=(64, rows, 1, 1))
+
+
+def _tma_depth(D: int, who: str) -> int:
+    if D > K1_DEPTHS[-1]:
+        raise ValueError(f"{who}: head dim {D} above {K1_DEPTHS[-1]}")
+    return next(d for d in K1_DEPTHS if d >= D)
+
+
 def k1_tma_plan(q, k, v, out) -> dict:
     """The tensor maps that K1's wgmma route encodes for a launch
-    (`map_bhsd` in csrc/attention_fwd.cu), from the [B,H,S,D] views alone,
-    so it also runs on meta tensors. For each operand: dims (D, S, H, B)
-    innermost first; the byte strides of S, H and B (an extent of 1 gets a
-    placeholder of 16); the box (64 columns: one 128-byte swizzled chunk,
-    rows). Also the padded depth of QK^T (the N of PV) and its number of
-    64-column chunks. TMA fills columns past D with zeros, so a fused-qkv
-    view needs no copy. Raises ValueError where TMA would refuse a view: a
-    head dim that is not contiguous or above 128, a base address that is
-    not 16-byte aligned, a byte stride that is not a positive multiple of
-    16 below 2**40."""
-    D = q.shape[-1]
-    if D > K1_DEPTHS[-1]:
-        raise ValueError(f"k1_tma_plan: head dim {D} above {K1_DEPTHS[-1]}")
-    depth = next(d for d in K1_DEPTHS if d >= D)
-    maps = {}
-    for name, t, rows in (("q", q, K1_BM), ("k", k, K1_BN), ("v", v, K1_BN),
-                          ("out", out, 64)):
-        B, H, S, Dt = t.shape
-        if t.stride(-1) != 1:
-            raise ValueError(f"k1_tma_plan: {name} head dim is not contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"k1_tma_plan: {name} is not 16-byte aligned")
-        strides = []
-        for s, n, what in ((t.stride(2), S, "token"), (t.stride(1), H, "head"),
-                           (t.stride(0), B, "batch")):
-            nb = 2 * s if n > 1 else 16
-            if nb <= 0 or nb % 16 or nb >= 2 ** 40:
-                raise ValueError(f"k1_tma_plan: {name} {what} stride of {nb} "
-                                 "bytes (TMA needs a positive multiple of 16 "
-                                 "below 2**40)")
-            strides.append(nb)
-        maps[name] = dict(dims=(Dt, S, H, B), strides=tuple(strides),
-                          box=(64, rows, 1, 1))
+    (`map_bhsd`), from the [B,H,S,D] views alone, so it also runs on meta
+    tensors: for each operand its dims, byte strides and box (`_tma_map`;
+    boxes of K1_BM query rows, K1_BN key rows, 64 output rows). Also the
+    padded depth of QK^T (the N of PV) and its number of 64-column chunks.
+    TMA fills columns past D with zeros, so a fused-qkv view needs no copy.
+    Raises ValueError where TMA would refuse a view: a head dim that is not
+    contiguous or above 128, a base address that is not 16-byte aligned, a
+    byte stride that is not a positive multiple of 16 below 2**40."""
+    depth = _tma_depth(q.shape[-1], "k1_tma_plan")
+    maps = {name: _tma_map(t, name, "k1_tma_plan", rows)
+            for name, t, rows in (("q", q, K1_BM), ("k", k, K1_BN),
+                                  ("v", v, K1_BN), ("out", out, 64))}
+    return dict(depth=depth, chunks=-(-depth // 64), maps=maps)
+
+
+def k6_tma_plan(q, k, v, out, dout) -> dict:
+    """The tensor maps of a K6 launch (`vgt_flash_bwd`), from the [B,H,S,D]
+    views alone (meta tensors too): the loads of q, k, v and dout and the
+    stores of dq, dk and dv (new contiguous tensors shaped like q, k, v),
+    every box 64 columns by K6_TILE rows (a CTA's K6_ROWS rows are two
+    boxes); `out` is read by the delta prepass through its strides and is
+    held to the same rule. Returns the padded depth (K1_DEPTHS), its number
+    of 64-column chunks and the eight maps (`_tma_map`). Raises ValueError
+    on a view that the maps cannot take."""
+    depth = _tma_depth(q.shape[-1], "k6_tma_plan")
+    ops = dict(q=q, k=k, v=v, out=out, dout=dout)
+    ops.update({"d" + n: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                for n, t in (("q", q), ("k", k), ("v", v))})
+    maps = {name: _tma_map(t, name, "k6_tma_plan", K6_TILE)
+            for name, t in ops.items()}
     return dict(depth=depth, chunks=-(-depth // 64), maps=maps)
 
 
@@ -449,10 +495,11 @@ def flash_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool, sm_scale: float,
     """Launch K6. q, out, dout: [B,H,Sq,D]; k, v: [B,H,Sk,D], bf16 on the
     card; lse: f32 [B,H,Sq] as K1 wrote it. q, k, v, out and dout are read
     in place through their (batch, head, token) strides, so the gradient of
-    `o.transpose(1, 2).reshape(...)` arrives with no copy; an operand whose
-    head dim is not contiguous or whose strides are not multiples of 8 (a
-    broadcast gradient) is made contiguous here first. Returns (dq, dk, dv),
-    new contiguous bf16 tensors. Raises on anything else."""
+    `o.transpose(1, 2).reshape(...)` arrives with no copy; an operand that
+    TMA cannot take as it is (`_tma_refusal`: a broadcast gradient, a head
+    dim that is not contiguous) is made contiguous here first. The TMA plan
+    (`k6_tma_plan`) is checked before the launch. Returns (dq, dk, dv), new
+    contiguous bf16 tensors. Raises on anything else."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     if k.shape != (B, H, Sk, D) or v.shape != k.shape or out.shape != q.shape \
@@ -467,17 +514,13 @@ def flash_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool, sm_scale: float,
         raise ValueError("flash_bwd: causal launches need q_start")
     if lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"flash_bwd: lse must be f32 on {q.device}")
-
-    def strided(t):
-        ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and not any(
-            s % 8 for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1)
-        return t if ok else t.contiguous()
-
-    ops = [strided(t) for t in (q, k, v, out, dout)]
+    ops = [t if _tma_refusal(t) is None else t.contiguous()
+           for t in (q, k, v, out, dout)]
+    for name, t in zip(("q", "k", "v", "out", "dout"), ops):
+        _cuda.check_operand(t, name, torch.bfloat16)
+    k6_tma_plan(*ops)
     ops += [torch.empty(t.shape, dtype=t.dtype, device=t.device)
             for t in (q, k, v)]
-    for name, t in zip(("q", "k", "v", "out", "dout", "dq", "dk", "dv"), ops):
-        _cuda.check_operand(t, name, torch.bfloat16)
     lse = lse.contiguous()
     delta = torch.empty_like(lse)
     kvl = _as_int32(kv_lens, B, q.device)
