@@ -11,12 +11,15 @@ failure:
 1. device: needs CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off for matmuls and cuDNN;
 2. build: compiles the eight CUDA sources of videoglamm_torch/csrc (K1
-   attention_fwd, K2 gemm_epilogue, K4 decode_attention_q8, K5
-   dequant_gemv, K6 flash_bwd, K7 window_attention, K8 smallwin_attention,
-   K9 decode_fused; K1, K2 and K6 over csrc/sm90_common.cuh, the Hopper
-   helpers) from the checkout with one nvcc process each, all started together, and
-   JIT-compiles K3 (the Triton row norm), printing build seconds and the
-   -Xptxas -v lines (registers and spills of every instantiation);
+   attention_fwd with its f32 staging pass, K2 gemm_epilogue, K4
+   decode_attention_q8, K5 dequant_gemv, K6 flash_bwd, K7
+   window_attention, K8 smallwin_attention, K9 decode_fused; K1, K2, K6
+   and K7 over csrc/sm90_common.cuh, the Hopper helpers, K1 and K7 also
+   over csrc/attn_sm90.cuh) from the checkout with one nvcc process each,
+   all started together, and JIT-compiles K3 (the Triton row norm),
+   printing build seconds, the -Xptxas -v lines (registers and spills of
+   every instantiation) and a line of K1's and K7's registers by padded
+   head dim;
 3. kernels: holds every kernel against its plain PyTorch twin on the same
    inputs at the main path's shapes, with the stated tolerance, and times
    the kernel, the twin and, where one PyTorch call computes the same
@@ -42,14 +45,21 @@ failure:
    the Phi-3 widths for 1, 4 and 8 rows and at a narrow case whose N and I
    are no multiples of 1024, each beside the unfused serving chain's time;
    the W8A8 entry's s32 sums must EQUAL integer products of its own codes.
+   K1 and K7 at the memory self-attention's shapes are timed as CUDA-graph
+   replays (a call of an f32 route is two launches, the staging pass and
+   the body, of some 0.03 to 0.15 ms, below the host's enqueue of them),
+   and their staging pass and body apart under the profiler; the staging
+   pass alone at the tracker's [4,1,4096,256] x 3 must equal
+   `Tensor.to(bfloat16)`.
    `flash_attention_bshd` (K1 on BSHD views) at [1,3456,32,96] over 3520
    keys against its twin and against K1 on the contiguous copy. K1's
    window mode at all four Hiera stages' windows, K2 at the four products
    of Hiera stages 1 and 3 (F.linear with the bias as the library time),
    the fused block at all four stages. K1 counts its launches by route as
-   well as by mode ("wgmma" for bf16 at head dim <= 128, "mma_sync" for f32
-   storage and head dim 256): every serving path must launch K1 on the
-   wgmma route only, except the tracker's f32 memory self-attention;
+   well as by mode ("wgmma" for bf16 operands, "wgmma_f32" for f32 storage
+   through the staging pass): every serving path must launch K1 on the
+   "wgmma" route only, except the tracker's f32 memory self-attention,
+   whose 60 launches a request take "wgmma_f32" and the staging pass;
    then the two experiment harnesses (the decode-layer A/B over 32 layers of
    stacked weights, eager and as CUDA-graph replays, and the BSHD attention
    harness), with the counters set to 0 just before and read just after;
@@ -64,11 +74,13 @@ failure:
    c. the video branch on the main path's model: 2 requests from raw
       frames with `use_video_branch=True`, all 16 frames to SAM, the 4
       [SEG] slots tracked through them by the SAM-2 memory tracker (K1 at
-      head dim 256: 4 layers x 15 frames a request),
+      head dim 256 on f32 storage: 4 layers x 15 frames a request, each
+      after a staging launch), then the tracker alone under the profiler,
    d. the int4 LLM with the int8 KV cache from raw frames (1 warm-up + 1
       timed request),
    e. the tracker at SAM image size 512 (a 32x32 memory grid, so that the
-      memory self-attention takes K7), full width, bf16 LLM, 2 requests,
+      memory self-attention takes K7 after a staging launch), full width,
+      bf16 LLM, 2 requests, then that tracker alone under the profiler,
    f. speculative serving on the main path's model (`draft_k=4`, 2 requests
       from raw frames: the K-row verify forwards take K5 at 4 rows and the
       plain attention, the epilogue step K4), the 4-row verify forward held
@@ -373,11 +385,56 @@ def phase_build():
                 spills += 1
         if spills:
             raise AssertionError(f"{name}: {spills} instantiations spill")
+    for name, body in (("attention_fwd", "attn_fwd_sm90"),
+                       ("window_attention", "window_attn_sm90")):
+        regs = registers_by_depth(built[name].ptxas_log, body)
+        log(f"  {name} registers by padded head dim: "
+            + ", ".join(f"{d}: {r}" for d, r in sorted(regs.items()))
+            + " (at entry; setmaxnreg then gives the consumers 232, the "
+            "producer 40)")
+        if len(regs) != 6:
+            raise AssertionError(f"{name}: {len(regs)} instantiations of {body}")
     t0 = time.perf_counter()
     x = torch.randn(8, 256, device="cuda")
     norms.row_norm(x, torch.ones(256, device="cuda"), None, 1e-6, rms=True)
     torch.cuda.synchronize()
     log(f"  K3 Triton JIT (first shape): {time.perf_counter() - t0:.1f} s")
+
+
+def registers_by_depth(ptxas_log: str, body: str) -> dict:
+    """{padded head dim: registers} of the instantiations of the kernel
+    template `body` in nvcc's -Xptxas -v report."""
+    import re
+    regs, depth = {}, None
+    for line in ptxas_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(body + r"ILi(\d+)E", line)
+            depth = int(m.group(1)) if m else None
+        elif depth is not None and "Used" in line and "registers" in line:
+            regs[depth] = int(re.search(r"Used (\d+) registers", line).group(1))
+            depth = None
+    return regs
+
+
+def device_split_ms(fn, parts: dict, calls: int = 10) -> dict:
+    """Device ms a call of `fn` spends in each kernel whose name contains
+    parts[label], from torch.profiler over `calls` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for label, key in parts.items():
+            if key in e.key:
+                out[label] = out.get(label, 0.0) + _device_us(e) / 1e3 / calls
+    if set(out) != set(parts):
+        raise AssertionError(f"the profiler saw {sorted(out)} of {sorted(parts)}")
+    return out
 
 
 def attn_cost(B, H, Sq, Sk, D, pairs=None, elt=2):
@@ -675,6 +732,20 @@ def phase_kernels(K: Kernels):
     def l2_tol(dtype):
         return TOL_ATTN_L2 if dtype == torch.float32 else TOL_ATTN_L2_EXACT
 
+    # Timed as graph replays: one call of the f32 route is two launches (the
+    # staging pass, the body) whose device time is below the host's
+    # enqueue of them. The staging pass and the body are timed apart under
+    # the profiler.
+    def split(fn, body, dtype):
+        parts = {"body": body}
+        if dtype == torch.float32:
+            parts["staging"] = "stage_bf16_kernel"
+        ms = device_split_ms(fn, parts)
+        log("    under the profiler, ms a call: "
+            + ", ".join(f"{n} {t:.4f}" for n, t in ms.items())
+            + (f" (staging {ms['staging'] / sum(ms.values()):.0%} of the two)"
+               if "staging" in ms else ""))
+
     def window_attn_case(B, H, S, D, dtype, key, what, tol):
         q, k, v = (randn(B, H, S, D, dtype=dtype) for _ in range(3))
         nb, ops = attn_cost(B, H, S, S, D, elt=q.element_size())
@@ -682,8 +753,9 @@ def phase_kernels(K: Kernels):
                   f"{'f32' if dtype == torch.float32 else 'bf16'}",
                   lambda: A.dot_product_attention(q, k, v),
                   lambda: A._window_attention_plain(q, k, v, D ** -0.5), tol,
-                  nbytes=nb, ops=ops, tol_l2=l2_tol(dtype),
+                  nbytes=nb, ops=ops, tol_l2=l2_tol(dtype), graphed=True,
                   library_fn=lambda: F.scaled_dot_product_attention(q, k, v))
+        split(lambda: A.dot_product_attention(q, k, v), "window_attn_sm90", dtype)
 
     window_attn_case(4, 1, 1024, 256, torch.float32, "window_attention",
                      "memory self-attention", TOL_F32_ATTN)
@@ -700,10 +772,20 @@ def phase_kernels(K: Kernels):
                   lambda: A.dot_product_attention(q, k, v),
                   lambda: A._attention_plain(q, k, v, causal=False,
                                              sm_scale=256 ** -0.5), tol,
-                  nbytes=nb, ops=ops, tol_l2=TOL_ATTN_L2,
+                  nbytes=nb, ops=ops, tol_l2=TOL_ATTN_L2, graphed=True,
                   library_fn=lambda: F.scaled_dot_product_attention(q, k, v))
+        split(lambda: A.dot_product_attention(q, k, v), "attn_fwd_sm90", dtype)
+        return q, k, v
 
-    d256_case(torch.float32, "attention_fwd[flash_d256]", TOL_F32_ATTN)
+    q, k, v = d256_case(torch.float32, "attention_fwd[flash_d256]", TOL_F32_ATTN)
+    # the staging pass alone at the tracker's shape: exact against
+    # Tensor.to (both round to nearest even); 48 MB read, 24 MB written
+    K.compare("stage_bf16", "staging pass f32 -> bf16 [4,1,4096,256] x 3",
+              lambda: torch.cat([t.flatten() for t in A.stage_bf16(q, k, v)]),
+              lambda: torch.cat([t.to(bf).flatten() for t in (q, k, v)]), 0.0,
+              nbytes=3 * q.numel() * (4 + 2), ops=0, tol_l2=0.0,
+              timed_fn=lambda: A.stage_bf16(q, k, v), graphed=True)
+    del q, k, v
     d256_case(bf, None, TOL_BF16_ATTN)
 
     # K8: Hiera's stage-1 and stage-2 windows over 8 frames, and a window
@@ -1208,20 +1290,23 @@ def read_counts() -> dict:
         "decode_fused[mlp_w8a8]": fused["mlp_w8a8"],
         "flash_bshd": attention["flash_bshd"],
         # K1 by route (csrc/attention_fwd.cu): every mode above that K1
-        # serves, counted again by the body that ran it
+        # serves, counted again by the way into its one body
         "k1_route[wgmma]": attention["route:wgmma"],
-        "k1_route[mma_sync]": attention["route:mma_sync"],
+        "k1_route[wgmma_f32]": attention["route:wgmma_f32"],
+        # the staging pass of f32 operands (K1's f32 route and K7)
+        "stage_bf16": attention["stage_bf16"],
     }
 
 
 # launches one flagship request must make: Phi-3 prefill, 32 causal
 # layers; 3 Hiera global blocks; CLIP 23 + InternVideo2 39 BSHD layers;
 # 42 fused Hiera window blocks of 4 K2 GEMMs each. Every K1 launch of the
-# main path is bf16 at head dim <= 128 and takes the wgmma route
+# main path is bf16 and takes the "wgmma" route; nothing is staged
 K1_WGMMA = 32 + 3 + 62 + 42
 EXPECTED_TOWERS = {"attention_fwd[causal]": 32, "attention_fwd[flash]": 3,
                    "attention_fwd[bshd]": 62, "attention_fwd[window]": 42,
-                   "k1_route[wgmma]": K1_WGMMA, "k1_route[mma_sync]": 0,
+                   "k1_route[wgmma]": K1_WGMMA, "k1_route[wgmma_f32]": 0,
+                   "stage_bf16": 0,
                    "fused_window_block": 42, "gemm_epilogue": 168,
                    "flash_bwd": 0, "attention_fwd[flash_d256]": 0,
                    "window_attention": 0, "smallwin_attention": 0,
@@ -1263,18 +1348,18 @@ EXPECTED_PER_REQUEST = {
 # tracking on the main path's model: the towers and the decode as on the
 # int8 path (Hiera takes the 16 frames as one batch, so its launches do not
 # change), plus K1 at head dim 256 for the memory self-attention over the
-# 64x64 grid (f32 storage: the mma_sync route)
+# 64x64 grid (f32 storage: the "wgmma_f32" route, one staging launch each)
 EXPECTED_PER_REQUEST["track"] = dict(
     EXPECTED_PER_REQUEST["int8"],
     **{"attention_fwd[flash_d256]": TRACK_SELF_ATTN,
-       "k1_route[mma_sync]": TRACK_SELF_ATTN})
+       "k1_route[wgmma_f32]": TRACK_SELF_ATTN, "stage_bf16": TRACK_SELF_ATTN})
 # tracking at SAM image size 512, bf16 LLM: Hiera's three global blocks see
 # 1024 tokens and take K1's BSHD mode, the memory self-attention over the
-# 32x32 grid takes K7
+# 32x32 grid takes K7 (f32 storage: one staging launch each)
 EXPECTED_PER_REQUEST["track512"] = dict(
     EXPECTED_PER_REQUEST["bf16"],
     **{"attention_fwd[flash]": 0, "attention_fwd[bshd]": 62 + 3,
-       "window_attention": TRACK_SELF_ATTN})
+       "window_attention": TRACK_SELF_ATTN, "stage_bf16": TRACK_SELF_ATTN})
 
 
 # speculative decoding on the main path's model: every cached forward of the
@@ -1333,8 +1418,8 @@ def phase_serve(gi, cfg, mode: str, requests, raw: bool, track: bool = False,
     log(f"  {mode}: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"  {mode}: launches over {len(requests)} requests: " + json.dumps(counts))
-    log(f"  {mode}: K1 by route: wgmma {counts['k1_route[wgmma]']}, mma_sync "
-        f"{counts['k1_route[mma_sync]']}")
+    log(f"  {mode}: K1 by route: wgmma {counts['k1_route[wgmma]']}, wgmma_f32 "
+        f"{counts['k1_route[wgmma_f32]']}; staging launches {counts['stage_bf16']}")
     expected = EXPECTED_PER_REQUEST[mode]
     for name, n in counts.items():
         per = expected.get(name)
@@ -1752,6 +1837,14 @@ def profile_track(gi, cfg, raw):
         f"{sum(e.count for e in rows)} device launches; top: "
         + "; ".join(f"{e.key[:56]} {_device_us(e) / 1e3:.1f} ms x{e.count}"
                     for e in top))
+    # the memory self-attention: K1 (64x64 grid) or K7 (32x32) and the
+    # staging pass of its f32 operands
+    mem = [(name, [e for e in rows if key in e.key]) for name, key in
+           (("K1 body", "attn_fwd_sm90<256>"), ("K7 body", "window_attn_sm90"),
+            ("staging", "stage_bf16_kernel"))]
+    log("  memory self-attention in that run: "
+        + "; ".join(f"{name} {sum(_device_us(e) for e in es) / 1e3:.2f} ms "
+                    f"x{sum(e.count for e in es)}" for name, es in mem if es))
 
 
 def phase_unhoisted_hiera(trunk):
@@ -2279,6 +2372,8 @@ SOURCES = {
     "decode_fused": ("cuda", "videoglamm_torch/csrc/decode_fused.cu"),
     # K1 through BSHD strides: no device code of its own
     "flash_bshd": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
+    # the staging pass of the f32 routes, in K1's source
+    "stage_bf16": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
 }
 REPLACES = {
     "attention_fwd[causal]": "videoglamm_tpu/ops/attention.py:93",
@@ -2301,6 +2396,8 @@ REPLACES = {
     "decode_fused[mlp]": "scripts/decode_mlp_experiment.py:123",
     "decode_fused[mlp_w8a8]": "scripts/decode_mlp_experiment.py:212",
     "flash_bshd": "scripts/bench_flash_bshd.py:61",
+    # part of K1's f32 route: the TPU kernel reads f32 operands itself
+    "stage_bf16": "videoglamm_tpu/ops/attention.py:93",
 }
 
 
@@ -2441,6 +2538,7 @@ def main() -> int:
             phase("[check] video branch at 512")
             check_outputs(cfg512, results, "video branch at 512",
                           t_sam=cfg.num_frames)
+            profile_track(gi, cfg512, raw_requests[0][0])
             del gi, results
             torch.cuda.empty_cache()
 
@@ -2478,13 +2576,15 @@ def main() -> int:
     # head dim 256 from the video branch's run on the main path's model (2
     # requests), whose counts stand beside every kernel as launches_track;
     # K7's from the video branch at image size 512 (2 requests); K8's from
-    # the unhoisted Hiera forward; K9's four entries and the BSHD launcher
+    # the unhoisted Hiera forward; the staging pass's from the video branch
+    # on the main path's model; K9's four entries and the BSHD launcher
     # from the run of the two experiment harnesses. A row keyed
     # "<counter>@<shape>" is another shape of the counter's kernel. Phases
     # that did not run leave their counts null.
     if "serve" in chosen:
         counts["attention_fwd[flash_d256]"] = track_counts["attention_fwd[flash_d256]"]
         counts["window_attention"] = track512_counts["window_attention"]
+        counts["stage_bf16"] = track_counts["stage_bf16"]
         counts["smallwin_attention"] = hoist_counts["smallwin_attention"]
     else:
         counts = track_counts = {}

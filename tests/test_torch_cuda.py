@@ -418,17 +418,75 @@ def test_k6_two_calls_are_bit_equal(dev, causal):
         assert torch.equal(a, b)
 
 
+def test_k1_d256_f32_and_k7_two_calls_are_bit_equal(dev):
+    """No atomics and a fixed order: K1 at head dim 256 on f32 storage (the
+    staging pass and the body) and K7 give the same bits twice."""
+    rng = np.random.default_rng(31)
+    q, k, v = (_randn(rng, (4, 1, 1024, 256), dev, dtype=torch.float32)
+               for _ in range(3))
+    first = attn.flash_attention(q, k, v)
+    again = attn.flash_attention(q, k, v)
+    w1 = attn.window_attention_kernel(q, k, v, sm_scale=256 ** -0.5)
+    w2 = attn.window_attention_kernel(q, k, v, sm_scale=256 ** -0.5)
+    qb, kb, vb = (_randn(rng, (2, 16, 1025, 88), dev) for _ in range(3))
+    b1 = attn.window_attention_kernel(qb, kb, vb, sm_scale=88 ** -0.5)
+    b2 = attn.window_attention_kernel(qb, kb, vb, sm_scale=88 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(w1, w2) and torch.equal(b1, b2)
+
+
+def test_k1_f32_d256_nan_slack_is_finite(dev):
+    """The f32 route at head dim 256 with NaN in the K/V slack past kv_len
+    (staged to bf16 NaN): finite outputs equal to the twin on clean
+    operands, zeros and -1e30 on rows with no valid key; the LSE equals
+    the twin's on the staged (bf16-rounded) operands, whose logits the
+    kernel sums."""
+    rng = np.random.default_rng(32)
+    B, H, Sq, Sk, D = 2, 1, 300, 400, 256
+    kv, qs = (400, 333), (-40, 33)
+    q, k, v = (_randn(rng, (B, H, s, D), dev, dtype=torch.float32)
+               for s in (Sq, Sk, Sk))
+    kv_lens = torch.tensor(kv, dtype=torch.int32, device=dev)
+    q_start = torch.tensor(qs, dtype=torch.int32, device=dev)
+    clean_k, clean_v = k.clone(), v.clone()
+    for b, n in enumerate(kv):
+        k[b, :, n:] = float("nan")
+        v[b, :, n:] = float("nan")
+        clean_k[b, :, n:] = 0
+        clean_v[b, :, n:] = 0
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
+    attn.attention_fwd_kernel(q, k, v, out, causal=True, sm_scale=D ** -0.5,
+                              mode="causal", kv_lens=kv_lens, q_start=q_start,
+                              lse=lse)
+    ref, _ = attn._flash_fwd_plain(q, clean_k, clean_v, kv_lens, q_start,
+                                   True, D ** -0.5)
+    _, ref_lse = attn._flash_fwd_plain(
+        *(t.to(torch.bfloat16).float() for t in (q, clean_k, clean_v)),
+        kv_lens, q_start, True, D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert torch.all(out[0, :, :40] == 0)
+    assert torch.all(lse[0, :, :40] == attn.NEG_INF)
+    _close_l2(out[1], ref[1], 1e-2, "f32 d256 causal")
+    live = ref_lse > -1e29
+    assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-3
+
+
 def test_tma_kernels_launch_from_a_fresh_thread(dev):
-    """K1's wgmma route, K2 and K6 encode tensor maps against the current
-    context. A fresh host thread (the autograd engine runs a backward, and
-    a remat recompute, on one) has none bound while its tensors come from
-    the caching allocator; the entries bind the operands' device."""
+    """K1 (both ways in: bf16, and f32 through the staging pass), K7, K2
+    and K6 encode tensor maps against the current context. A fresh host
+    thread (the autograd engine runs a backward, and a remat recompute, on
+    one) has none bound while its tensors come from the caching allocator;
+    the entries bind the operands' device."""
     import threading
     rng = np.random.default_rng(40)
     q, k, v, g, kv_lens, q_start, out, lse = _k6_inputs(
         rng, dev, 1, 2, 200, 200, 64, (200,), (0,), True)
     a = _randn(rng, (256, 144), dev)
     w = _randn(rng, (144, 144), dev, 0.1)
+    m = _randn(rng, (2, 1, 600, 256), dev, dtype=torch.float32)
     out2 = torch.empty_like(out)
     torch.empty(64 << 20, device=dev)   # freed at once: later allocations come from the cache
     got = {}
@@ -442,6 +500,8 @@ def test_tma_kernels_launch_from_a_fresh_thread(dev):
                                               sm_scale=64 ** -0.5,
                                               kv_lens=kv_lens, q_start=q_start)
             got["k2"] = fb.gemm_epilogue(a, w, None)
+            got["k1_f32"] = attn.flash_attention(m, m, m)
+            got["k7"] = attn.window_attention_kernel(m, m, m, sm_scale=1 / 16)
             torch.cuda.synchronize()
         except Exception as e:   # handed to the test's thread
             got["error"] = e
@@ -457,6 +517,9 @@ def test_tma_kernels_launch_from_a_fresh_thread(dev):
     for name, x, ref in zip(("dq", "dk", "dv"), got["k6"], want):
         assert _rel_l2(x, ref) <= 1e-2, name
     _close(got["k2"], fb._gemm_plain(a, w, None), 2e-2, "K2 on a fresh thread")
+    ref_m = attn._window_attention_plain(m, m, m, 1 / 16)
+    _close_l2(got["k1_f32"], ref_m, 1e-2, "K1 f32 on a fresh thread")
+    _close_l2(got["k7"], ref_m, 1e-2, "K7 on a fresh thread")
 
 
 def test_bshd_backward_recomputes_through_the_plain_twin(dev):
@@ -504,10 +567,10 @@ def test_k3_backward_recomputes_through_the_plain_twin(dev, rms, bias):
 # ---------------------------------------------------------------------------
 # K7 (whole-row-softmax window attention), K8 (tiny-window attention) and
 # K1 at head dim 256 / f32 storage. Tolerance 2e-2 of the output scale: f32
-# operands are rounded to bf16 on the way into shared memory and p is
-# rounded to bf16 before p v, so against the twin (f32 products of the same
-# operands, p rounded at the same place for bf16 operands) entries differ by
-# a few bf16 ulps (2^-8).
+# operands are rounded to bf16 by the staging pass and p is rounded to bf16
+# before p v, so against the twin (f32 products of the same operands, p
+# rounded at the same place for bf16 operands) entries differ by a few bf16
+# ulps (2^-8).
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("B,H,S,D,dtype", [
     (4, 1, 1024, 256, torch.float32),       # memory self-attention, 32x32 grid
@@ -849,7 +912,7 @@ def test_flash_bshd_matches_plain_and_k1(dev, B, Sq, Sk, H, D, kv, qs):
 # ---------------------------------------------------------------------------
 # K1's wgmma route and K2 (TMA, mbarrier ring, warp specialisation, wgmma)
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("D", [64, 72, 88, 96, 128])
+@pytest.mark.parametrize("D", [64, 72, 88, 96, 128, 200, 256])
 def test_k1_wgmma_causal_lse_and_nan_slack(dev, D):
     """Causal with q_start and kv_lens, a row with no valid key (q_start <
     0), Sq not a multiple of the 128-row tile, and keys in [kv_len, Sk)
@@ -934,20 +997,41 @@ def test_k1_wgmma_bshd_and_fused_strides(dev, B, S, H, D, fused):
 
 
 def test_k1_routes_by_dtype_and_head_dim(dev):
+    """Every K1 launch takes the one wgmma body: bf16 operands directly at
+    any head dim up to 256, f32 storage through one staging launch."""
     rng = np.random.default_rng(40)
     for dtype, D, route in ((torch.bfloat16, 128, "wgmma"),
-                            (torch.float32, 64, "mma_sync"),
-                            (torch.bfloat16, 256, "mma_sync")):
+                            (torch.float32, 64, "wgmma_f32"),
+                            (torch.bfloat16, 256, "wgmma")):
         q, k, v = (_randn(rng, (1, 1, 200, D), dev, dtype=dtype)
                    for _ in range(3))
-        before = attn.LAUNCHES["route:" + route]
+        before = dict(attn.LAUNCHES)
         out = torch.empty_like(q)
         attn.attention_fwd_kernel(q, k, v, out, causal=False,
                                   sm_scale=D ** -0.5, mode="flash")
-        assert attn.LAUNCHES["route:" + route] == before + 1
+        assert attn.LAUNCHES["route:" + route] == before.get("route:" + route, 0) + 1
+        staged = attn.LAUNCHES["stage_bf16"] - before.get("stage_bf16", 0)
+        assert staged == (dtype == torch.float32)
         ref = attn._attention_plain(q, k, v, causal=False, sm_scale=D ** -0.5)
         torch.cuda.synchronize()
         _close_l2(out, ref, 1e-2, f"{route} D={D}")
+
+
+def test_stage_bf16_rounds_as_tensor_to(dev):
+    """The staging pass of the f32 routes: contiguous bf16 copies of f32
+    views (BSHD strides, Sq != Sk) equal to `Tensor.to(bfloat16)`, bit for
+    bit (round to nearest even), in one launch."""
+    rng = np.random.default_rng(41)
+    q = _randn(rng, (2, 300, 4, 256), dev, dtype=torch.float32).transpose(1, 2)
+    k = _randn(rng, (2, 4, 500, 256), dev, dtype=torch.float32)
+    v = _randn(rng, (2, 500, 4, 264), dev, dtype=torch.float32)[..., :256].transpose(1, 2)
+    before = attn.LAUNCHES["stage_bf16"]
+    got = attn.stage_bf16(q, k, v)
+    assert attn.LAUNCHES["stage_bf16"] == before + 1
+    torch.cuda.synchronize()
+    for g, t in zip(got, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.is_contiguous()
+        assert torch.equal(g, t.to(torch.bfloat16))
 
 
 # Hiera-L's four stages (C = 144 * 2^s): qkv, proj + residual, fc1 + GELU,
@@ -1015,19 +1099,21 @@ def _sass_functions(path):
 
 
 def test_wgmma_routes_compile_to_hgmma(dev):
-    """The new routes issue warpgroup MMAs (HGMMA) and no mma.sync (HMMA);
-    the mma_sync route of K1 is still HMMA."""
+    """K1's body and K7 issue warpgroup MMAs (HGMMA) and no mma.sync (HMMA)
+    at every padded head dim, and nothing else in their libraries (the
+    staging pass) issues HMMA; K2's GEMM the same."""
     from videoglamm_torch.ops import _cuda
     k1 = _sass_functions(_cuda.load("attention_fwd").path)
+    k7 = _sass_functions(_cuda.load("window_attention").path)
     k2 = _sass_functions(_cuda.load("gemm_epilogue").path)
-    new = {n: s for n, s in k1.items() if "attn_fwd_sm90" in n}
-    old = {n: s for n, s in k1.items() if "attn_fwd_kernel" in n}
+    body = {n: s for n, s in k1.items() if "attn_fwd_sm90" in n}
+    win = {n: s for n, s in k7.items() if "window_attn_sm90" in n}
     gemm = {n: s for n, s in k2.items() if "gemm_sm90" in n}
-    assert len(new) == 5 and old and len(gemm) == 2
-    for n, s in {**new, **gemm}.items():
+    assert len(body) == len(win) == len(attn.K1_DEPTHS) and len(gemm) == 2
+    assert any("stage_bf16" in n for n in k1)
+    for n, s in {**body, **win, **gemm}.items():
         assert "HGMMA" in s and "HMMA" not in s, n
-    for n, s in old.items():
-        assert "HMMA" in s, n
+    assert not any("HMMA" in s for s in {**k1, **k7}.values())
 
 
 def test_k6_compiles_to_hgmma(dev):
@@ -1037,7 +1123,7 @@ def test_k6_compiles_to_hgmma(dev):
     k6 = _sass_functions(_cuda.load("flash_bwd").path)
     mma = {n: s for n, s in k6.items()
            if "flash_bwd_dq" in n or "flash_bwd_dkv" in n}
-    assert len(mma) == 2 * len(attn.K1_DEPTHS)
+    assert len(mma) == 2 * len(attn.K6_DEPTHS)
     for n, s in mma.items():
         assert "HGMMA" in s and "HMMA" not in s, n
     assert not any("HMMA" in s for s in k6.values())

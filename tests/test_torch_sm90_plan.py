@@ -1,9 +1,11 @@
-"""The geometry of K1's wgmma route and of K6, on the CPU: the route rule,
+"""The geometry of K1, K7 and K6 on Hopper, on the CPU: K1's route rule,
 the window fold that the Hiera block chain and K1's 128-row query tiles
-share, and the TMA plans (`k1_tma_plan`, `k6_tma_plan`) that the wrappers
-compute before every launch, checked on meta-device views of every
-main-path call at its flagship shape (no memory, no card). The kernels
-themselves run only on the card (tests/test_torch_cuda.py)."""
+share, and the TMA plans (`k1_tma_plan`, `k7_plan`, `k6_tma_plan`) that
+the wrappers compute before every launch, checked on meta-device views of
+every main-path call at its flagship shape (no memory, no card): depth 256
+with its 64-key tiles, the staging copies of the f32 routes, and K7's
+query tile on small grids. The kernels themselves run only on the card
+(tests/test_torch_cuda.py)."""
 import pytest
 import torch
 
@@ -18,11 +20,13 @@ def _meta(*shape):
 
 
 def test_k1_route_by_dtype_and_head_dim():
+    """One body for every head dim up to 256; f32 storage goes in through
+    the staging pass ("wgmma_f32")."""
     assert tattn.k1_route(BF, 64) == "wgmma"
     assert tattn.k1_route(BF, 128) == "wgmma"
-    assert tattn.k1_route(BF, 256) == "mma_sync"
-    assert tattn.k1_route(torch.float32, 64) == "mma_sync"
-    assert tattn.k1_route(torch.float32, 256) == "mma_sync"
+    assert tattn.k1_route(BF, 256) == "wgmma"
+    assert tattn.k1_route(torch.float32, 64) == "wgmma_f32"
+    assert tattn.k1_route(torch.float32, 256) == "wgmma_f32"
 
 
 @pytest.mark.parametrize("NW,S,fold", [
@@ -103,12 +107,19 @@ def test_k1_tma_plan_accepts_main_path_views(name):
 
 @pytest.mark.parametrize("D,depth", [(16, 32), (32, 32), (64, 64), (72, 80),
                                      (88, 96), (96, 96), (104, 128),
-                                     (128, 128)])
+                                     (128, 128), (136, 256), (200, 256),
+                                     (256, 256)])
 def test_k1_tma_plan_pads_depth(D, depth):
     q = _meta(1, 2, 130, D)
     plan = tattn.k1_tma_plan(q, q, q, q)
     assert plan["depth"] == depth
-    assert plan["chunks"] == (1 if depth <= 64 else 2)
+    assert plan["chunks"] == {32: 1, 64: 1, 256: 4}.get(depth, 2)
+    # 64-key tiles at depth 256: Q, two stages of K and V in 227 KB
+    bn = 64 if depth == 256 else 128
+    assert plan["key_tile"] == tattn.key_tile(depth) == bn
+    assert plan["maps"]["k"]["box"] == plan["maps"]["v"]["box"] == (64, bn, 1, 1)
+    smem = 128 * depth * 2 + 2 * 2 * bn * 64 * 2 * plan["chunks"]
+    assert smem <= 227 * 1024
 
 
 def test_k1_tma_plan_refuses_misaligned_views():
@@ -126,13 +137,77 @@ def test_k1_tma_plan_refuses_misaligned_views():
     # a head dim that is not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         tattn.k1_tma_plan(ok, ok, _meta(2, 2, 64, 300).transpose(2, 3), ok)
-    # a broadcast head (stride 0) and a head dim above the route's 128
+    # a broadcast head (stride 0) and a head dim above the body's 256
     z = _meta(2, 1, 300, 64).expand(2, 2, 300, 64)
     with pytest.raises(ValueError, match="head stride"):
         tattn.k1_tma_plan(ok, ok, ok, z)
-    big = _meta(1, 1, 64, 256)
-    with pytest.raises(ValueError, match="head dim"):
+    big = _meta(1, 1, 64, 264)
+    with pytest.raises(ValueError, match="head dim 264 above 256"):
         tattn.k1_tma_plan(big, big, big, big)
+
+
+def _f32(*shape):
+    return torch.empty(*shape, dtype=torch.float32, device="meta")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_k1_tma_plan_at_depth_256_and_staging(dtype):
+    """The tracker's memory self-attention [4,1,4096,256] (f32 on the main
+    path, bf16 too): depth 256 in four chunks, 64-key tiles. f32 operands
+    are read through the staging pass's contiguous bf16 copies, whose
+    shapes the plan lists, and their f32 output has no map (direct
+    stores); bf16 operands are read in place and stored through a map."""
+    q, k, v, o = (torch.empty(4, 1, 4096, 256, dtype=dtype, device="meta")
+                  for _ in range(4))
+    plan = tattn.k1_tma_plan(q, k, v, o)
+    assert (plan["depth"], plan["chunks"], plan["key_tile"]) == (256, 4, 64)
+    assert plan["maps"]["q"]["box"] == (64, tattn.K1_BM, 1, 1)
+    for op in ("q", "k", "v"):
+        m = plan["maps"][op]
+        assert m["dims"] == (256, 4096, 1, 4)
+        assert m["strides"] == (512, 16, 512 * 4096)   # contiguous bf16
+    if dtype == torch.float32:
+        assert plan["staged"] == {n: (4, 1, 4096, 256) for n in ("q", "k", "v")}
+        assert "out" not in plan["maps"]
+    else:
+        assert plan["staged"] is None
+        assert plan["maps"]["out"]["box"] == (64, 64, 1, 1)
+
+
+def test_staging_copies_make_broadcast_f32_views_tma_ready():
+    """The staging pass writes new contiguous bf16 tensors, so an f32 view
+    that TMA could not take in place (keys broadcast over heads: a head
+    stride of 0) is still planned, where the same view in bf16 is refused;
+    Sq != Sk keeps each operand's rows."""
+    q = _f32(2, 300, 4, 256).transpose(1, 2)                  # BSHD view
+    k = _f32(2, 1, 500, 256).expand(2, 4, 500, 256)
+    plan = tattn.k1_tma_plan(q, k, k, _f32(2, 4, 300, 256))
+    assert plan["staged"]["q"] == (2, 4, 300, 256)
+    assert plan["staged"]["k"] == (2, 4, 500, 256)
+    assert plan["maps"]["q"]["strides"] == (512, 512 * 300, 512 * 300 * 4)
+    assert plan["maps"]["k"]["dims"] == (256, 500, 4, 2)
+    kb = _meta(2, 1, 500, 256).expand(2, 4, 500, 256)
+    with pytest.raises(ValueError, match="k head stride"):
+        tattn.k1_tma_plan(_meta(2, 4, 300, 256), kb, kb, _meta(2, 4, 300, 256))
+
+
+@pytest.mark.parametrize("B,H,S,D,dtype,rows,ctas,depth", [
+    (4, 1, 1024, 256, torch.float32, 64, 64, 256),    # memory, 32x32 grid
+    (4, 16, 1025, 88, BF, 128, 9 * 64, 96),           # InternVideo2 shape
+    (16, 16, 577, 64, BF, 128, 5 * 256, 64),          # CLIP shape
+    (3, 1, 520, 256, BF, 64, 9 * 3, 256),
+    (1, 2, 1536, 96, BF, 64, 24 * 2, 96),
+])
+def test_k7_plan_picks_the_query_tile(B, H, S, D, dtype, rows, ctas, depth):
+    """128-query tiles (two consumer warpgroups) unless they would leave
+    more than half of the H100's 132 SMs idle; then 64-query tiles."""
+    q = torch.empty(B, H, S, D, dtype=dtype, device="meta")
+    plan = tattn.k7_plan(q, q, q, q, 132)
+    assert plan["query_rows"] == rows and plan["ctas"] == ctas
+    assert plan["depth"] == depth and plan["key_tile"] == tattn.key_tile(depth)
+    assert plan["maps"]["q"]["box"] == (64, rows, 1, 1)
+    wide = -(-S // 128) * B * H
+    assert (rows == 64) == (2 * wide < 132)
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +256,7 @@ def test_k6_tma_plan_pads_depth_and_takes_sq_ne_sk(D, depth):
     q, dout = _meta(2, 3, 200, D), _meta(2, 200, 3, D).transpose(1, 2)
     k = _meta(2, 3, 333, D)
     plan = tattn.k6_tma_plan(q, k, k, q, dout)
-    assert plan["depth"] == depth and depth in tattn.K1_DEPTHS
+    assert plan["depth"] == depth and depth in tattn.K6_DEPTHS
     assert plan["maps"]["k"]["dims"][1] == plan["maps"]["dk"]["dims"][1] == 333
     assert plan["maps"]["q"]["dims"][1] == plan["maps"]["dq"]["dims"][1] == 200
 

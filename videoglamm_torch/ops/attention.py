@@ -5,21 +5,25 @@ the place of two Pallas kernels: the flash kernel `_flash_kernel`
 (attention.py:93) and the BSHD single-block kernel `_bshd_kernel`
 (attention.py:738). It reads q, k, v and writes o through element strides,
 so the [B,H,S,D], [B,S,H,D] and fused [B,S,3,H,D] layouts all go in with
-no copies. It takes bf16 or f32 operands (f32 is rounded to bf16 on the way
-into shared memory) and head dims up to 256: the SAM-2 memory
-self-attention [4,1,4096,256] f32 is its "flash_d256" mode. Two bodies
-serve it (`k1_route`): "wgmma" (bf16, D <= 128: TMA loads into an mbarrier
-ring, warp-specialised, wgmma; every mode of the serving and training main
-paths) and "mma_sync" (f32 storage or D up to 256). The wrapper computes
-the wgmma route's TMA plan (`k1_tma_plan`) and refuses a view that TMA
-cannot take.
+no copies. One body serves every launch: TMA loads into an mbarrier ring,
+a producer warpgroup, two consumer warpgroups on wgmma, head dims up to 256
+(the SAM-2 memory self-attention [4,1,4096,256] f32 is its "flash_d256"
+mode). `k1_route` names the two ways in: "wgmma" for bf16 operands, and
+"wgmma_f32" for f32 storage, where a hand-written staging pass
+(`stage_bf16`, counted as "stage_bf16") first writes contiguous bf16
+copies of q, k and v, rounded to nearest even, and the body stores O in
+f32. The wrapper computes the TMA plan (`k1_tma_plan`) and refuses a view
+that TMA cannot take.
 
 K7 (`csrc/window_attention.cu`) is the whole-row-softmax kernel for medium
 non-causal self-attention (512 < S <= 1536). It replaces the Pallas kernel
-`_window_kernel` (attention.py:523): two passes over the key tiles, first
-the exact row maximum and sum from q k^T alone, then exp(s - m) / l into
-p v, so no accumulator is rescaled. `dot_product_attention` takes it where
-the JAX package takes `_window_attention` (attention.py:1308-1310).
+`_window_kernel` (attention.py:523) on K1's design: two passes over the
+key tiles through the same TMA ring, first the exact row maximum and sum
+from q k^T alone, then exp(s - m) / l rounded to bf16 into p v, so no
+accumulator is rescaled. On a grid too small for 128-query tiles it takes
+64-query tiles (`k7_plan`). f32 operands take the same staging pass.
+`dot_product_attention` takes it where the JAX package takes
+`_window_attention` (attention.py:1308-1310).
 
 K8 (`csrc/smallwin_attention.cu`) is the attention inside 16-, 32- or
 64-token windows straight from a fused qkv projection. It replaces the
@@ -77,20 +81,23 @@ NEG_INF = -1e30
 # self-attention), "window" (Hiera window attention inside
 # fused_window_block); K4 launches under "decode_q8", K6 under "flash_bwd",
 # K7 under "window_attn", K8 under "smallwin". K1 also counts each launch
-# under its route: "route:wgmma" or "route:mma_sync"
+# under its route: "route:wgmma" (bf16) or "route:wgmma_f32" (f32 storage);
+# the staging pass of f32 operands (K1 and K7) counts under "stage_bf16"
 LAUNCHES = collections.Counter()
 
-# K1's wgmma route: a CTA owns K1_BM query rows (two consumer warpgroups of
-# 64) and walks key tiles of K1_BN keys
+# K1 and K7: a CTA owns up to K1_BM query rows (two consumer warpgroups of
+# 64) and walks key tiles of `key_tile(depth)` keys
 K1_BM = 128
-K1_BN = 128
-K1_DEPTHS = (32, 64, 80, 96, 128)   # padded head dims the wgmma route builds
+K1_BN = 128                              # keys a tile up to depth 128
+K1_BN_D256 = 64                          # at depth 256 (shared memory)
+K1_DEPTHS = (32, 64, 80, 96, 128, 256)   # padded head dims K1 and K7 build
 
 # K6: a dq CTA owns K6_ROWS queries, a dk/dv CTA K6_ROWS keys (two consumer
 # warpgroups of 64 each); a ring stage holds K6_TILE keys (dq) or queries
-# (dk/dv). K6 pads the head dim to K1_DEPTHS as K1 does.
+# (dk/dv). K6 pads the head dim to K6_DEPTHS as K1 does.
 K6_ROWS = 128
 K6_TILE = 64
+K6_DEPTHS = K1_DEPTHS[:-1]
 
 # K4 splits the cache axis over this many thread blocks per SM (per batch)
 DECODE_SPLITS_PER_SM = 1
@@ -281,11 +288,17 @@ def _check_qkvo(what: str, q, k, v, out, max_d: int):
 
 
 def k1_route(dtype, D: int) -> str:
-    """The body of csrc/attention_fwd.cu that serves a K1 launch: "wgmma"
-    for bf16 operands with D <= 128, "mma_sync" for f32 storage and for
-    head dims up to 256. The C entry applies the same rule."""
-    return "wgmma" if dtype == torch.bfloat16 and D <= K1_DEPTHS[-1] \
-        else "mma_sync"
+    """The way into csrc/attention_fwd.cu's one body for a K1 launch:
+    "wgmma" for bf16 operands, "wgmma_f32" for f32 storage (the staging
+    pass first, O stored in f32). Both take head dims up to 256; the
+    wrapper raises on anything else."""
+    return "wgmma_f32" if dtype == torch.float32 else "wgmma"
+
+
+def key_tile(depth: int) -> int:
+    """Keys a ring tile of K1 and K7 at a padded head dim: 128, and 64 at
+    256, where Q and two stages of K and V fill the shared memory."""
+    return K1_BN_D256 if depth > 128 else K1_BN
 
 
 def _tma_refusal(t) -> Optional[str]:
@@ -322,27 +335,53 @@ def _tma_map(t, name: str, who: str, rows: int) -> dict:
     return dict(dims=(D, S, H, B), strides=strides, box=(64, rows, 1, 1))
 
 
-def _tma_depth(D: int, who: str) -> int:
-    if D > K1_DEPTHS[-1]:
-        raise ValueError(f"{who}: head dim {D} above {K1_DEPTHS[-1]}")
-    return next(d for d in K1_DEPTHS if d >= D)
+def _tma_depth(D: int, who: str, depths=K1_DEPTHS) -> int:
+    if D > depths[-1]:
+        raise ValueError(f"{who}: head dim {D} above {depths[-1]}")
+    return next(d for d in depths if d >= D)
 
 
 def k1_tma_plan(q, k, v, out) -> dict:
-    """The tensor maps that K1's wgmma route encodes for a launch
-    (`map_bhsd`), from the [B,H,S,D] views alone, so it also runs on meta
-    tensors: for each operand its dims, byte strides and box (`_tma_map`;
-    boxes of K1_BM query rows, K1_BN key rows, 64 output rows). Also the
-    padded depth of QK^T (the N of PV) and its number of 64-column chunks.
-    TMA fills columns past D with zeros, so a fused-qkv view needs no copy.
-    Raises ValueError where TMA would refuse a view: a head dim that is not
-    contiguous or above 128, a base address that is not 16-byte aligned, a
-    byte stride that is not a positive multiple of 16 below 2**40."""
+    """The tensor maps that K1 encodes for a launch (`map_bhsd`), from the
+    [B,H,S,D] views alone, so it also runs on meta tensors: for each operand
+    its dims, byte strides and box (`_tma_map`; boxes of K1_BM query rows,
+    `key_tile` key rows, 64 output rows). Also the padded depth of QK^T (the
+    N of PV), its number of 64-column chunks and the key tile. f32 operands
+    (route "wgmma_f32") are read through the staging pass's contiguous bf16
+    copies, whose shapes `staged` lists; their f32 output is stored from
+    the registers and has no map. TMA fills columns past D with zeros, so a
+    fused-qkv view needs no copy. Raises ValueError where TMA would refuse
+    a view: a head dim that is not contiguous or above 256, a base address
+    that is not 16-byte aligned, a byte stride that is not a positive
+    multiple of 16 below 2**40."""
     depth = _tma_depth(q.shape[-1], "k1_tma_plan")
+    bn = key_tile(depth)
+    staged = None
+    ops = [("q", q, K1_BM), ("k", k, bn), ("v", v, bn), ("out", out, 64)]
+    if q.dtype == torch.float32:
+        staged = {n: tuple(t.shape) for n, t, _ in ops[:3]}
+        ops = [(n, torch.empty(t.shape, dtype=torch.bfloat16, device="meta"), r)
+               for n, t, r in ops[:3]]
     maps = {name: _tma_map(t, name, "k1_tma_plan", rows)
-            for name, t, rows in (("q", q, K1_BM), ("k", k, K1_BN),
-                                  ("v", v, K1_BN), ("out", out, 64))}
-    return dict(depth=depth, chunks=-(-depth // 64), maps=maps)
+            for name, t, rows in ops}
+    return dict(depth=depth, chunks=-(-depth // 64), key_tile=bn,
+                staged=staged, maps=maps)
+
+
+def k7_plan(q, k, v, out, sms: int) -> dict:
+    """K7's launch (`vgt_window_attention`), from the [B,H,S,D] views alone
+    (meta tensors too) and the card's SM count: the padded depth, its
+    chunks, the key tile, the query rows a CTA (128 with two consumer
+    warpgroups; 64 with one when 128-row tiles would leave more than half
+    the SMs idle), the CTAs, and the tensor maps as `k1_tma_plan` gives
+    them (f32 operands through the staging copies, no output map)."""
+    B, H, S, D = q.shape
+    plan = k1_tma_plan(q, k, v, out)
+    wide = -(-S // K1_BM) * B * H
+    rows = 64 if 2 * wide < sms else K1_BM
+    plan.update(query_rows=rows, ctas=-(-S // rows) * B * H)
+    plan["maps"]["q"]["box"] = (64, rows, 1, 1)
+    return plan
 
 
 def k6_tma_plan(q, k, v, out, dout) -> dict:
@@ -351,10 +390,10 @@ def k6_tma_plan(q, k, v, out, dout) -> dict:
     stores of dq, dk and dv (new contiguous tensors shaped like q, k, v),
     every box 64 columns by K6_TILE rows (a CTA's K6_ROWS rows are two
     boxes); `out` is read by the delta prepass through its strides and is
-    held to the same rule. Returns the padded depth (K1_DEPTHS), its number
+    held to the same rule. Returns the padded depth (K6_DEPTHS), its number
     of 64-column chunks and the eight maps (`_tma_map`). Raises ValueError
     on a view that the maps cannot take."""
-    depth = _tma_depth(q.shape[-1], "k6_tma_plan")
+    depth = _tma_depth(q.shape[-1], "k6_tma_plan", K6_DEPTHS)
     ops = dict(q=q, k=k, v=v, out=out, dout=dout)
     ops.update({"d" + n: torch.empty(t.shape, dtype=t.dtype, device="meta")
                 for n, t in (("q", q), ("k", k), ("v", v))})
@@ -370,6 +409,47 @@ def _as_int32(t, B: int, device):
     return t
 
 
+def _stage_fn():
+    fn = _cuda.load("attention_fwd").lib.vgt_stage_bf16
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(P), ctypes.POINTER(P),
+                       ctypes.POINTER(ctypes.c_longlong),
+                       ctypes.POINTER(ctypes.c_int)] + [I] * 4 + [P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def stage_bf16(*ts):
+    """The staging pass of the f32 routes of K1 and K7: contiguous bf16
+    copies of 1 to 3 f32 [B,H,S_i,D] views (one B, H and D; a contiguous
+    head dim), rounded to nearest even, as `Tensor.to` rounds. The plain
+    twin for CPU tensors; on the card one launch of `stage_bf16_kernel`
+    (csrc/attention_fwd.cu) for all of them, into new tensors, or it
+    raises."""
+    if ts[0].device.type == "cpu":
+        return tuple(t.to(torch.bfloat16).contiguous() for t in ts)
+    B, H, _, D = ts[0].shape
+    if not 1 <= len(ts) <= 3 or D % 8:
+        raise ValueError(f"stage_bf16: 1 to 3 tensors with D % 8 == 0, got "
+                         f"{len(ts)} of head dim {D}")
+    for i, t in enumerate(ts):
+        _cuda.check_operand(t, f"stage_bf16[{i}]", torch.float32)
+        if t.dim() != 4 or (t.shape[0], t.shape[1], t.shape[3]) != (B, H, D):
+            raise ValueError(f"stage_bf16: shapes {[tuple(x.shape) for x in ts]}")
+    outs = tuple(torch.empty(t.shape, dtype=torch.bfloat16, device=t.device)
+                 for t in ts)
+    n = len(ts)
+    src = (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+    dst = (ctypes.c_void_p * n)(*(t.data_ptr() for t in outs))
+    strides = (ctypes.c_longlong * (3 * n))(*(s for t in ts for s in t.stride()[:3]))
+    rows = (ctypes.c_int * n)(*(t.shape[2] for t in ts))
+    err = _stage_fn()(src, dst, strides, rows, n, B, H, D, _cuda.stream_ptr(ts[0]))
+    _cuda.check_launch(err, "stage_bf16")
+    LAUNCHES["stage_bf16"] += 1
+    return outs
+
+
 def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
                          mode: str, kv_lens=None, q_start=None, win: int = 0,
                          lse=None):
@@ -380,9 +460,9 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
     the kernel fills with the row log-sum-exp of the scaled logits (NEG_INF
     for a row with no valid key). Raises unless the operands are CUDA
     tensors of one dtype, bf16 or f32, with D % 8 == 0 and D <= 256; the
-    block-diagonal `win` mode serves D <= 128. bf16 with D <= 128 takes the
-    wgmma route (`k1_route`), which also raises on views that its TMA plan
-    refuses (`k1_tma_plan`)."""
+    block-diagonal `win` mode serves D <= 128; and on views that the TMA
+    plan refuses (`k1_tma_plan`). f32 operands take route "wgmma_f32": the
+    staging pass (`stage_bf16`) first, then the body with an f32 output."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     _check_qkvo("attention_fwd", q, k, v, out, 128 if win else 256)
@@ -393,8 +473,9 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
         raise ValueError("attention_fwd: lse must be a contiguous f32 "
                          f"[{B},{H},{Sq}] on {q.device}")
     route = k1_route(q.dtype, D)
-    if route == "wgmma":
-        k1_tma_plan(q, k, v, out)
+    k1_tma_plan(q, k, v, out)
+    if route == "wgmma_f32":
+        q, k, v = stage_bf16(q, k, v)
     kvl = _as_int32(kv_lens, B, q.device)
     qs = _as_int32(q_start, B, q.device)
     err = _kernel_fn()(
@@ -404,7 +485,7 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
         qs.data_ptr() if qs is not None else None,
         B, H, Sq, Sk, D, int(causal), int(win), float(sm_scale),
         lse.data_ptr() if lse is not None else None,
-        int(q.dtype == torch.float32), _cuda.stream_ptr(q))
+        int(out.dtype == torch.float32), _cuda.stream_ptr(q))
     _cuda.check_launch(err, "attention_fwd")
     LAUNCHES[mode] += 1
     LAUNCHES["route:" + route] += 1
@@ -427,18 +508,24 @@ def window_attention_kernel(q, k, v, *, sm_scale: float):
     """Launch K7. q/k/v: [B,H,S,D] views with a contiguous head dim, one
     dtype, bf16 or f32, on the card; non-causal full self-attention with a
     whole-row softmax. Returns a new contiguous [B,H,S,D] tensor of the
-    operands' dtype. Raises on other operands, on D % 8 != 0 or D > 256,
-    and on S > 1536 (the branch `dot_product_attention` sends here)."""
+    operands' dtype. f32 operands take the staging pass (`stage_bf16`)
+    first. Raises on other operands, on D % 8 != 0 or D > 256, on S > 1536
+    (the branch `dot_product_attention` sends here) and on views that the
+    TMA plan refuses (`k7_plan`)."""
     B, H, S, D = q.shape
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
     _check_qkvo("window_attention", q, k, v, out, 256)
     if k.shape[2] != S or S > 1536:
         raise ValueError(f"window_attention: needs Sq == Sk <= 1536, got "
                          f"Sq {S}, Sk {k.shape[2]}")
+    k7_plan(q, k, v, out, torch.cuda.get_device_properties(q.device)
+            .multi_processor_count)
+    if q.dtype == torch.float32:
+        q, k, v = stage_bf16(q, k, v)
     err = _window_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        B, H, S, D, float(sm_scale), int(q.dtype == torch.float32),
+        B, H, S, D, float(sm_scale), int(out.dtype == torch.float32),
         _cuda.stream_ptr(q))
     _cuda.check_launch(err, "window_attention")
     LAUNCHES["window_attn"] += 1
