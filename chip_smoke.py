@@ -29,7 +29,11 @@ failure:
    K6 and the calls timed beside it, whose single call of 1 to 2 ms would
    otherwise carry the host's enqueue of that call). K4 and K5
    rotate over operands larger than the L2 cache, as the decode loop finds
-   them. Beside each time stands the bound: the larger of bytes moved over
+   them. K5 (int8 and int4) at the five decode products of Phi-3 with one
+   row (and the sum of the five), and at qkv and gate_up with 4 rows (the
+   speculative verify forward) and 8, held by max-norm and relative L2,
+   beside torch's weight-only int8 / int4 products where this torch build
+   has CUDA kernels for them. Beside each time stands the bound: the larger of bytes moved over
    3.35 TB/s and operations over the peak rate of their type. K6 (the
    flash-attention backward) is held against its twin at the training shape
    [2,32,3456,96] causal and non-causal and at the three small cases of
@@ -70,7 +74,7 @@ failure:
    a. the bf16 path on preprocessed streams (1 warm-up + 1 timed request),
    b. the main path, the int8 LLM with the int8 KV cache from RAW uint8
       [1,16,480,854,3] frames (3 requests), then its decode step timed and
-      profiled alone,
+      profiled alone, with K5's share of the device time,
    c. the video branch on the main path's model: 2 requests from raw
       frames with `use_video_branch=True`, all 16 frames to SAM, the 4
       [SEG] slots tracked through them by the SAM-2 memory tracker (K1 at
@@ -155,6 +159,11 @@ TOL_DECODE_Q8 = 2e-2    # K4: p * v_scale is rounded to bf16 relative to the
                         # probability -> a few bf16 ulps of the output
 TOL_GEMV = 1e-2         # K5: one bf16 rounding of an f32 sum taken in
                         # another order than the twin's -> at most one ulp
+TOL_GEMV_L2 = 4e-3      # K5, relative L2: both sides round one f32 sum to
+                        # bf16 once, so entries differ where that rounding
+                        # flips, by one ulp (2^-8 relative); about 1e-3 over
+                        # all entries. A dropped 16-byte chunk or a wrong
+                        # group scale moves it by far more
 TOL_FUSED_MLP = 2e-2    # K9 mlp: g, u and h are rounded to bf16 where the twin
                         # rounds them, after f32 sums in another order; a
                         # flipped rounding moves one of 8192 terms by 2^-8
@@ -238,6 +247,8 @@ DRAFT_K = 4             # rows of a speculative iteration
 N_SPEC_REQUESTS = 2
 N_LLAMA_REQUESTS = 2
 HARNESS_REPS = 8        # timed passes of each harness variant
+
+K5_DEVICE_KERNELS = ("gemv_rows_kernel", "gemv_mma_kernel")   # K5's kernels
 
 HBM_BYTES_S = 3.35e12   # H100 SXM: device memory rate
 PEAK_OPS = {"bf16": 989e12,    # dense tensor-core rate
@@ -423,15 +434,19 @@ def device_split_ms(fn, parts: dict, calls: int = 10) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        for label, key in parts.items():
-            if key in e.key:
-                out[label] = out.get(label, 0.0) + _device_us(e) / 1e3 / calls
+    for _ in range(3):     # a profiling window that recorded no kernel at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:   # is taken again
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            for label, key in parts.items():
+                if key in e.key:
+                    out[label] = out.get(label, 0.0) + _device_us(e) / 1e3 / calls
+        if out:
+            break
+        log("    the profiler recorded no kernel in this window; profiling again")
     if set(out) != set(parts):
         raise AssertionError(f"the profiler saw {sorted(out)} of {sorted(parts)}")
     return out
@@ -824,10 +839,11 @@ def phase_kernels(K: Kernels):
               library_fn=lambda: F.rms_norm(x, (3072,), wb, 1e-5))
     x = randn(4, 1025, 1408)
     nb, ops = norm_cost(x)
-    o1408 = ones(1408).to(bf)
+    w1408 = ones(1408)              # made once: a fill in the timed call is not K3's
+    o1408 = w1408.to(bf)
     K.compare(None, "K3 RMS InternVideo2 [4,1025,1408] bf16",
-              lambda: N.row_norm(x, ones(1408), None, 1e-6, rms=True),
-              lambda: N._rms_norm_plain(x, ones(1408), 1e-6), TOL_BF16_NORM,
+              lambda: N.row_norm(x, w1408, None, 1e-6, rms=True),
+              lambda: N._rms_norm_plain(x, w1408, 1e-6), TOL_BF16_NORM,
               nbytes=nb, ops=ops, rate="f32", graphed=True,
               library_fn=lambda: F.rms_norm(x, (1408,), o1408, 1e-6))
     x = randn(16, 577, 1024, scale=3.0)
@@ -955,8 +971,56 @@ def phase_kernels(K: Kernels):
     decode_case(4, 32, 8, 128, 3456, 3400, 2, None,
                 "K4 decode GQA G=4 [1,32,1,128] over [4,1,3456,1024] int8")
 
-    # K5: the five decode products of Phi-3 (M = 1) and one M = 8 case,
-    # int8 and int4; timed over a ring of weight copies larger than L2
+    # K5: the five decode products of Phi-3 (M = 1), and qkv and gate_up at
+    # M = 4 (the speculative verify forward) and M = 8, int8 and int4; timed
+    # over a ring of weight copies larger than L2. Library: torch's
+    # weight-only int8 / int4 products where this build has a CUDA kernel
+    # for them (a yardstick of time: the int4 one rounds its scales to bf16)
+    def int_pack_library(x, q8, s8, p4, s4, Nd):
+        """{"int8": fn or None, "int4": fn or None} and a note on each."""
+        lib, notes = {}, {}
+        try:
+            sb = s8.to(bf)
+            q = q8[:Nd]
+            torch._weight_int8pack_mm(x, q, sb)
+            torch.cuda.synchronize()
+            lib["int8"] = lambda: torch._weight_int8pack_mm(x, q, sb)
+        except (RuntimeError, NotImplementedError) as e:
+            lib["int8"], notes["int8"] = None, str(e).splitlines()[0][:100]
+        try:
+            # unsigned nibbles q = code + 8, dequantised as (q - 8) * scale + 0;
+            # torch's packing takes N in multiples of 8 (the lm_head's 32065
+            # rows gain 7 zero rows, 0.02% more work)
+            pad = -Nd % 8
+            u4 = F.pad(p4.view(torch.uint8) ^ 0x88, (0, 0, 0, pad)).contiguous()
+            w4 = torch._convert_weight_to_int4pack(u4, 8)
+            s4p = F.pad(s4, (0, 0, 0, pad)).t()
+            sz = torch.stack([s4p, torch.zeros_like(s4p)], -1).to(bf).contiguous()
+            torch._weight_int4pack_mm(x, w4, 128, sz)
+            torch.cuda.synchronize()
+            lib["int4"] = lambda: torch._weight_int4pack_mm(x, w4, 128, sz)
+        except (RuntimeError, NotImplementedError) as e:
+            lib["int4"], notes["int4"] = None, str(e).splitlines()[0][:100]
+        for kind, note in notes.items():
+            log(f"  library for K5 {kind} [{Nd}]: none: no CUDA kernel in "
+                f"torch {torch.__version__} ({note})")
+        return lib
+
+    k5_sums = {"int8": [0.0, 0.0], "int4": [0.0, 0.0]}   # M = 1: ms, bound
+    k5_path = {"int8": 0.0, "int4": 0.0}   # M = 1, each launch after a K3 norm
+
+    def after_norm_ms(Kd, k5):
+        """K5's time as the decode layer runs it: behind a kernel that does
+        not trigger the programmatic launch (a K3 RMS norm of x, whose
+        output K5 reads), so a K5 launch cannot overlap the one before it.
+        The replay of norm + K5 less the replay of the norm alone."""
+        xn = randn(1, Kd)
+        wn = randn(Kd, dtype=torch.float32, scale=0.1) + 1
+        norm = lambda: N.row_norm(xn, wn, None, 1e-5, rms=True)
+        alone = time_ms(norm, graphed=True)
+        both = time_ms(lambda: k5(norm()), graphed=True)
+        return both - alone, both, alone
+
     def gemv_case(M, Kd, Nd, key8, key4, what):
         wf = randn(Nd, Kd, dtype=torch.float32, scale=Kd ** -0.5)
         x = randn(M, Kd)
@@ -969,20 +1033,43 @@ def phase_kernels(K: Kernels):
         ring4 = [(p4, s4)] + [(p4.clone(), s4.clone())
                               for _ in range(2 * ring - 1)]
         r8, r4 = itertools.count(), itertools.count()
+        lib = int_pack_library(x, q8, s8, p4, s4, Nd)
         io = 2 * M * (Kd + Nd)
-        K.compare(key8, f"K5 int8 {what} M={M} [{Nd},{Kd}]",
-                  lambda: Q.dequant_matmul(x, q8, s8),
-                  lambda: Q._dequant_matmul_plain(x, q8, s8), TOL_GEMV,
-                  nbytes=Nd * Kd + 4 * Nd + io, ops=2 * M * Nd * Kd, rate="f32",
-                  graphed=True, timed_fn=lambda: Q.dequant_matmul(
-                      x, ring8[next(r8) % len(ring8)], s8))
-        K.compare(key4, f"K5 int4 {what} M={M} [{Nd},{Kd}/2]",
-                  lambda: Q.dequant4_matmul(x, p4, s4, 128),
-                  lambda: Q._dequant4_matmul_plain(x, p4, s4, 128), TOL_GEMV,
-                  nbytes=Nd * Kd // 2 + 4 * Nd * Kd // 128 + io,
-                  ops=2 * M * Nd * Kd, rate="f32",
-                  graphed=True, timed_fn=lambda: Q.dequant4_matmul(
-                      x, *ring4[next(r4) % len(ring4)], 128))
+        # 1 to 3 rows of x sum in f32 FMAs; 4 and more take bf16 mma.sync
+        rate = "f32" if M <= Q.K5_ROWS_MAX_M else "bf16"
+        nb8 = Nd * Kd + 4 * Nd + io
+        ms8 = K.compare(key8, f"K5 int8 {what} M={M} [{Nd},{Kd}]",
+                        lambda: Q.dequant_matmul(x, q8, s8),
+                        lambda: Q._dequant_matmul_plain(x, q8, s8), TOL_GEMV,
+                        tol_l2=TOL_GEMV_L2, nbytes=nb8, ops=2 * M * Nd * Kd,
+                        rate=rate, graphed=True, library_fn=lib["int8"],
+                        timed_fn=lambda: Q.dequant_matmul(
+                            x, ring8[next(r8) % len(ring8)], s8))
+        nb4 = Nd * Kd // 2 + 4 * Nd * Kd // 128 + io
+        ms4 = K.compare(key4, f"K5 int4 {what} M={M} [{Nd},{Kd}/2]",
+                        lambda: Q.dequant4_matmul(x, p4, s4, 128),
+                        lambda: Q._dequant4_matmul_plain(x, p4, s4, 128),
+                        TOL_GEMV, tol_l2=TOL_GEMV_L2, nbytes=nb4,
+                        ops=2 * M * Nd * Kd, rate=rate, graphed=True,
+                        library_fn=lib["int4"],
+                        timed_fn=lambda: Q.dequant4_matmul(
+                            x, *ring4[next(r4) % len(ring4)], 128))
+        if M == 1:
+            for kind, ms, nb in (("int8", ms8, nb8), ("int4", ms4, nb4)):
+                k5_sums[kind][0] += ms
+                k5_sums[kind][1] += max(nb / HBM_BYTES_S,
+                                        2 * Nd * Kd / PEAK_OPS["f32"]) * 1e3
+            for kind, k5 in (
+                    ("int8", lambda xn: Q.dequant_matmul(
+                        xn, ring8[next(r8) % len(ring8)], s8)),
+                    ("int4", lambda xn: Q.dequant4_matmul(
+                        xn, *ring4[next(r4) % len(ring4)], 128))):
+                ms, both, alone = after_norm_ms(Kd, k5)
+                k5_path[kind] += ms
+                log(f"  K5 {kind} {what} M=1 after a K3 norm (no K5-to-K5 "
+                    f"overlap): {ms:.4f} ms (norm + K5 {both:.4f} less the "
+                    f"norm alone {alone:.4f})")
+        del ring8, ring4
 
     gemv_case(1, 3072, 9216, None, None, "qkv_proj")
     gemv_case(1, 3072, 3072, None, None, "o_proj")
@@ -990,7 +1077,13 @@ def phase_kernels(K: Kernels):
               "gate_up_proj")
     gemv_case(1, 8192, 3072, None, None, "down_proj")
     gemv_case(1, 3072, 32065, None, None, "lm_head")
-    gemv_case(8, 3072, 9216, None, None, "qkv_proj")
+    for kind, (ms, bound) in k5_sums.items():
+        log(f"  K5 {kind} M=1, sum of the five products: {ms:.4f} ms "
+            f"back to back, {k5_path[kind]:.4f} ms each after a K3 norm, "
+            f"bound {bound:.4f} ms")
+    for M in (4, 8):
+        gemv_case(M, 3072, 9216, None, None, "qkv_proj")
+        gemv_case(M, 3072, 16384, None, None, "gate_up_proj")
 
 
 def phase_decode_fused(K: Kernels):
@@ -1540,9 +1633,13 @@ def measure_decode(model, frames, context, ids, lens, what: str, steps: int = 16
             f"{steps}); device time not measured (the profiler saw none)")
         return host_ms
     top = sorted(kernels, key=_device_us, reverse=True)[:4]
+    k5 = [e for e in kernels if any(n in e.key for n in K5_DEVICE_KERNELS)]
+    k5_ms = sum(_device_us(e) for e in k5) / 1e3 / steps
+    k5_n = sum(e.count for e in k5) / steps
     log(f"  {what}: {host_ms:.3f} ms host clock (mean of {steps}); "
         f"under the profiler {prof_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-        f"({busy_ms / prof_ms:.2f}), {launches:.0f} device launches a step; top: "
+        f"({busy_ms / prof_ms:.2f}), {launches:.0f} device launches a step; "
+        f"K5 {k5_ms:.3f} ms of it over {k5_n:.0f} launches; top: "
         + "; ".join(f"{e.key[:48]} {_device_us(e) / 1e3 / steps:.3f} ms x"
                     f"{e.count / steps:.0f}" for e in top))
     return host_ms

@@ -126,9 +126,12 @@ def test_k2_gemm_matches_plain(dev, M, K, N, gelu, res):
     (3072, True, False, torch.bfloat16), (1408, True, False, torch.bfloat16),
     (1024, False, True, torch.bfloat16), (256, False, True, torch.float32),
     (1152, False, False, torch.bfloat16), (144, False, True, torch.bfloat16)])
-def test_k3_row_norm_matches_plain(dev, d, rms, bias, dtype):
+@pytest.mark.parametrize("rows", [37, 20000])
+def test_k3_row_norm_matches_plain(dev, d, rms, bias, dtype, rows):
+    """K3's persistent programs at row counts below and far above the
+    number of SMs (each program then walks many blocks of rows)."""
     rng = np.random.default_rng(3)
-    x = _randn(rng, (37, d), dev, 2.0, dtype)
+    x = _randn(rng, (rows, d), dev, 2.0, dtype)
     w = _randn(rng, (d,), dev, 0.1, torch.float32) + 1.0
     b = _randn(rng, (d,), dev, 0.1, torch.float32) if bias else None
     got = norms.row_norm(x, w, b, 1e-6, rms=rms)
@@ -136,6 +139,26 @@ def test_k3_row_norm_matches_plain(dev, d, rms, bias, dtype):
            else norms._layer_norm_plain(x, w, b, 1e-6))
     torch.cuda.synchronize()
     _close(got, ref, 1e-5 if dtype == torch.float32 else 1e-2, f"norm d={d}")
+
+
+@pytest.mark.parametrize("d", [144, 1408, 3072])
+def test_k3_row_norm_takes_a_strided_input(dev, d):
+    """A view whose rows are further apart than d (a slice of a wider
+    tensor) and a 3-D view with padded rows."""
+    rng = np.random.default_rng(4)
+    wide = _randn(rng, (300, d + 64), dev, 2.0)
+    x = wide[:, 32:32 + d]
+    w = _randn(rng, (d,), dev, 0.1, torch.float32) + 1.0
+    b = _randn(rng, (d,), dev, 0.1, torch.float32)
+    for rms in (True, False):
+        got = norms.row_norm(x, w, None if rms else b, 1e-6, rms=rms)
+        ref = (norms._rms_norm_plain(x, w, 1e-6) if rms
+               else norms._layer_norm_plain(x, w, b, 1e-6))
+        torch.cuda.synchronize()
+        _close(got, ref, 1e-2, f"strided norm d={d}")
+    x3 = wide.view(3, 100, d + 64)[:, ::2, :d]
+    _close(norms.row_norm(x3, w, b, 1e-6, rms=False),
+           norms._layer_norm_plain(x3, w, b, 1e-6), 1e-2, "3-D view")
 
 
 @pytest.mark.parametrize("NW,S,H,hd", [(16, 64, 2, 72), (32, 16, 4, 72),
@@ -228,9 +251,37 @@ def test_k4_refuses_f32_and_unsupported_geometry(dev):
                                  sm_scale=0.25)
 
 
-@pytest.mark.parametrize("M", [1, 3, 64])
-@pytest.mark.parametrize("K,N", [(3072, 9216), (8192, 3072), (3072, 32065),
-                                 (128, 193)])
+# K5: both sides round one f32 sum to bf16 once, in another order, so an
+# entry differs by at most one bf16 ulp (max-norm 1e-2 of the output scale)
+# and the relative L2 over all entries stays near 2^-9 / sqrt(3); 4e-3 holds
+# it to about twice the 1.1e-3 that one flipped rounding in three gives.
+K5_TOL_L2 = 4e-3
+K5_SHAPES = [(3072, 9216), (8192, 3072), (3072, 32065), (128, 193)]
+
+
+def _k5_operands(rng, dev, M, K, N, int4):
+    x = _randn(rng, (M, K), dev)
+    wf = _randn(rng, (N, K), dev, K ** -0.5, torch.float32)
+    if int4:
+        return x, quant.quantize_int4(wf, 128)
+    q, s = quant.quantize_int8(wf)
+    return x, (quant.pad_rows8(q), s)
+
+
+def _k5(x, w, int4):
+    if int4:
+        return quant.dequant_gemv_int4(x, *w, 128)
+    return quant.dequant_gemv_int8(x, *w)
+
+
+def _k5_plain(x, w, int4):
+    if int4:
+        return quant._dequant4_matmul_plain(x, *w, 128)
+    return quant._dequant_matmul_plain(x, *w)
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8, 9, 64, 255])
+@pytest.mark.parametrize("K,N", K5_SHAPES)
 def test_k5_int8_gemv_matches_plain(dev, M, K, N):
     rng = np.random.default_rng(7)
     x = _randn(rng, (M, K), dev)
@@ -243,11 +294,11 @@ def test_k5_int8_gemv_matches_plain(dev, M, K, N):
     ref = quant._dequant_matmul_plain(x, wq, s)
     torch.cuda.synchronize()
     _close(got, ref, 1e-2, f"int8 gemv M={M} K={K} N={N}")
+    _close_l2(got, ref, K5_TOL_L2, f"int8 gemv M={M} K={K} N={N}")
 
 
-@pytest.mark.parametrize("M", [1, 3, 64])
-@pytest.mark.parametrize("K,N", [(3072, 9216), (8192, 3072), (3072, 32065),
-                                 (128, 193)])
+@pytest.mark.parametrize("M", [1, 3, 4, 8, 64])
+@pytest.mark.parametrize("K,N", K5_SHAPES)
 def test_k5_int4_gemv_matches_plain(dev, M, K, N):
     rng = np.random.default_rng(8)
     x = _randn(rng, (M, K), dev)
@@ -259,6 +310,76 @@ def test_k5_int4_gemv_matches_plain(dev, M, K, N):
     ref = quant._dequant4_matmul_plain(x, p, s, 128)
     torch.cuda.synchronize()
     _close(got, ref, 1e-2, f"int4 gemv M={M} K={K} N={N}")
+    _close_l2(got, ref, K5_TOL_L2, f"int4 gemv M={M} K={K} N={N}")
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("M", [1, 8])
+def test_k5_strided_x_and_two_calls_bit_equal(dev, int4, M):
+    """x rows further apart than K (a slice of a wider tensor); two calls
+    give the same bits (no atomics, a fixed-order combine of the warps)."""
+    rng = np.random.default_rng(10)
+    K, N = 3072, 9216
+    _, w = _k5_operands(rng, dev, M, K, N, int4)
+    x = _randn(rng, (M, K + 256), dev)[:, 128:128 + K]
+    assert x.stride(0) == K + 256
+    got, again = _k5(x, w, int4), _k5(x, w, int4)
+    ref = _k5_plain(x, w, int4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, ref, 1e-2, "strided x")
+    _close_l2(got, ref, K5_TOL_L2, "strided x")
+
+
+@pytest.mark.parametrize("int4", [False, True])
+def test_k5_captures_into_a_cuda_graph(dev, int4):
+    rng = np.random.default_rng(13)
+    x, w = _k5_operands(rng, dev, 4, 3072, 3072, int4)
+    x1 = x[:1].clone()                  # one row: the CUDA-core route
+    want, want1 = _k5(x, w, int4), _k5(x[-1:].clone(), w, int4)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, y1 = _k5(x, w, int4), _k5(x1, w, int4)
+    x.copy_(x.flip(0))
+    x1.copy_(x[:1])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, want.flip(0)) and torch.equal(y1, want1)
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("M", [1, 8])
+def test_k5_entry_refuses_a_plan_its_kernels_do_not_fit(dev, int4, M):
+    """The C entry holds every region of shared memory in the plan against
+    the constants of the kernel that uses it, so a constant changed on one
+    side only raises instead of writing past its region."""
+    import dataclasses
+    rng = np.random.default_rng(14)
+    K, N = 3072, 9216
+    x, w = _k5_operands(rng, dev, M, K, N, int4)
+    kind, group = ("int4", 128) if int4 else ("int8", 0)
+    plan = quant.k5_plan(M, N, K, group, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    got = quant._launch_gemv(kind, x, w[0], w[1], N, group, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _k5(x, w, int4))
+    if plan.mma:
+        bad = [dict(ring_off=-(-(plan.red_off + 1024) // 128) * 128),  # warps' sums
+               dict(red_off=plan.s_off + 16),            # the CTA's scales
+               dict(s_off=plan.x_off + 7 * plan.xstride),  # 8 rows of x
+               dict(per_sm=2)]
+    else:
+        bad = [dict(xstride=plan.xstride - 16),          # x's rows
+               dict(smem=plan.s_off + 16),               # the units' sums
+               dict(per_sm=3 - plan.per_sm),             # launch bounds
+               dict(smem=116 * 1024)]                    # CTAs an SM side by side
+    before = quant.LAUNCHES[kind]
+    for change in bad:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            quant._launch_gemv(kind, x, w[0], w[1], N, group,
+                               dataclasses.replace(plan, **change))
+    assert quant.LAUNCHES[kind] == before
 
 
 def test_k5_routing_and_refusals(dev):
@@ -1127,3 +1248,19 @@ def test_k6_compiles_to_hgmma(dev):
     for n, s in mma.items():
         assert "HGMMA" in s and "HMMA" not in s, n
     assert not any("HMMA" in s for s in k6.values())
+
+
+def test_k5_compiles_without_i2f(dev):
+    """K5's int -> float steps are magic-number integer logic and FADDs (or
+    bf16 subtractions): no I2F anywhere in its kernels, at every
+    instantiation (int8 / int4 x one to three rows on the CUDA cores / the
+    tensor-core route), and only the tensor-core route issues mma (HMMA)."""
+    from videoglamm_torch.ops import _cuda
+    k5 = _sass_functions(_cuda.load("dequant_gemv").path)
+    rows = {n: s for n, s in k5.items() if "gemv_rows_kernel" in n}
+    mma = {n: s for n, s in k5.items() if "gemv_mma_kernel" in n}
+    assert len(rows) == 6 and len(mma) == 2
+    for n, s in rows.items():
+        assert "I2F" not in s and "HMMA" not in s, n
+    for n, s in mma.items():
+        assert "I2F" not in s and "HMMA" in s, n

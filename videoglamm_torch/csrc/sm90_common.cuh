@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
-// (attention_fwd.cu's wgmma route, gemm_epilogue.cu, flash_bwd.cu):
-// shared-memory matrix descriptors and `wgmma.mma_async` wrappers, mbarrier
-// helpers, TMA tensor loads and stores, proxy fences, named barriers,
+// (attention_fwd.cu's wgmma route, gemm_epilogue.cu, flash_bwd.cu,
+// dequant_gemv.cu): shared-memory matrix descriptors and `wgmma.mma_async`
+// wrappers, mbarrier helpers, TMA tensor loads and stores, 1-D bulk copies,
+// proxy fences, named barriers,
 // register reallocation, and the host-side tensor-map encoder. Inline PTX,
 // no CuTe or CUTLASS device code, so that a source builds in seconds.
 // Included inside each source's anonymous namespace, after <cuda.h>.
@@ -109,6 +110,16 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       "[%0, {%2, %3, %4, %5}], [%1];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+// plain 1-D bulk copy global -> shared (no tensor map): `bytes`, `dst` and
+// `src` 16-byte aligned; completes `bytes` of transaction on `bar`
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");

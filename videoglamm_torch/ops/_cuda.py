@@ -9,6 +9,7 @@ CPU tests import every module on a machine with no nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -85,6 +86,14 @@ def load_all(names) -> dict:
     names = list(names)
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         return dict(zip(names, pool.map(load, names)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (persistent grids
+    are sized from it)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(t) -> int:

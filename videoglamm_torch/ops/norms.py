@@ -3,12 +3,17 @@ videoglamm_tpu/ops/norms.py).
 
 K3 is a Triton row-norm kernel with an RMS mode and a LayerNorm mode. It
 replaces the Pallas kernels `_rms_kernel` (norms.py:45) and `_ln_kernel`
-(norms.py:116). The op is a memory-bound single pass: one read and one
-write per element, with the row statistics kept in registers. Masked loads
-with `BLOCK_D = next_pow2(d)` cover the widths that are not powers of two
-(1408, 1152, 144) with coalesced access. A few rows go to each program
-when rows are narrow. `triton` is imported inside the launcher, so this
-module imports on machines that have no Triton.
+(norms.py:116). The op is bound by memory: one read and one write per
+element, with the row statistics kept in registers. A norm has no product
+for the tensor cores and no tile for TMA, so Triton serves it as well as
+CUDA C++ would. The design (`k3_plan`): a few persistent programs per SM
+walk blocks of rows in a strided loop; the f32 weight, and the bias where
+there is one, load once per program, not once per row; the next block's
+load is issued before the current one reduces; x streams with the
+evict-first hint; rows up to 1024 wide go in blocks of rows reduced along
+axis 1, and `num_warps` is sized to the row's 16-byte vectors, not to the
+padded block. `triton` is imported inside the launcher, so this module
+imports on machines that have no Triton.
 
 Training: the JAX package has no Pallas backward for the norms. Its
 `custom_vjp` rules recompute through the reference (`_rms_bwd` norms.py:100,
@@ -21,6 +26,8 @@ import collections
 import functools
 
 import torch
+
+from . import _cuda
 
 # K3 launches by mode ("rms", "ln"); counted where the kernel launches
 LAUNCHES = collections.Counter()
@@ -46,6 +53,38 @@ def _layer_norm_plain(x, weight, bias, eps):
     return y.to(x.dtype)
 
 
+K3_BLOCK_ELEMS = 4096     # elements of a program's block of rows
+K3_WARPS_PER_SM = 32      # warps of K3's persistent programs on one SM
+
+
+def _next_pow2(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+def k3_plan(n_rows: int, d: int, elt: int, sms: int) -> dict:
+    """K3's launch for n_rows rows of d elements of `elt` bytes on a card
+    of `sms` SMs: BLOCK_D (d padded to a power of two), ROWS (rows of a
+    block: 1 past d = 1024), num_warps (one per four 16-byte vectors of the
+    block's real elements a lane, a power of two up to 8) and `programs`
+    (persistent, at most K3_WARPS_PER_SM warps of them an SM). Program p
+    takes the blocks p, p + programs, ... (`k3_rows`)."""
+    block_d = _next_pow2(d)
+    rows = max(1, K3_BLOCK_ELEMS // block_d) if block_d <= 1024 else 1
+    vecs = -(-rows * d * elt // 16)
+    warps = min(8, _next_pow2(-(-vecs // (32 * 4))))
+    blocks = -(-n_rows // rows)
+    programs = max(1, min(blocks, sms * max(1, K3_WARPS_PER_SM // warps)))
+    return dict(block_d=block_d, rows=rows, num_warps=warps,
+                programs=programs, blocks=blocks)
+
+
+def k3_rows(plan: dict, n_rows: int, program: int):
+    """The rows a program of `plan` normalises, in its order."""
+    return [b * plan["rows"] + r
+            for b in range(program, plan["blocks"], plan["programs"])
+            for r in range(plan["rows"]) if b * plan["rows"] + r < n_rows]
+
+
 @functools.lru_cache(maxsize=None)
 def _row_norm_kernel():
     import triton
@@ -53,7 +92,7 @@ def _row_norm_kernel():
 
     @triton.jit
     def kernel(x_ptr, w_ptr, b_ptr, o_ptr, n_rows, d, stride_x, stride_o, eps,
-               RMS: tl.constexpr, HAS_BIAS: tl.constexpr,
+               n_blocks, n_progs, RMS: tl.constexpr, HAS_BIAS: tl.constexpr,
                BLOCK_D: tl.constexpr, ROWS: tl.constexpr):
         pid = tl.program_id(0)
         cols = tl.arange(0, BLOCK_D)
@@ -61,25 +100,34 @@ def _row_norm_kernel():
         w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
         if HAS_BIAS:
             b = tl.load(b_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        for i in tl.static_range(ROWS):
-            row = (pid * ROWS + i).to(tl.int64)
-            m = cmask & (row < n_rows)
-            x = tl.load(x_ptr + row * stride_x + cols, mask=m,
-                        other=0.0).to(tl.float32)
+        r = tl.arange(0, ROWS)
+        # the first block's load, then each block's next before it reduces
+        rows = (pid * ROWS + r).to(tl.int64)
+        m = (rows < n_rows)[:, None] & cmask[None, :]
+        x_next = tl.load(x_ptr + rows[:, None] * stride_x + cols[None, :],
+                         mask=m, other=0.0, eviction_policy="evict_first")
+        for blk in range(pid, n_blocks, n_progs):
+            x = x_next.to(tl.float32)
+            rows = (blk * ROWS + r).to(tl.int64)
+            m = (rows < n_rows)[:, None] & cmask[None, :]
+            nrows = rows + n_progs * ROWS
+            mn = (nrows < n_rows)[:, None] & cmask[None, :]
+            x_next = tl.load(x_ptr + nrows[:, None] * stride_x + cols[None, :],
+                             mask=mn, other=0.0, eviction_policy="evict_first")
             if RMS:
-                var = tl.sum(x * x, axis=0) / d
-                y = x * tl.rsqrt(var + eps) * w
+                var = tl.sum(x * x, axis=1) / d
+                y = x * tl.rsqrt(var + eps)[:, None] * w[None, :]
             else:
-                mean = tl.sum(x, axis=0) / d
-                xc = tl.where(cmask, x - mean, 0.0)   # pad lanes stay out of var
-                var = tl.sum(xc * xc, axis=0) / d
-                y = xc * tl.rsqrt(var + eps) * w
+                mean = tl.sum(x, axis=1) / d
+                xc = tl.where(cmask[None, :], x - mean[:, None], 0.0)  # pad lanes stay out of var
+                var = tl.sum(xc * xc, axis=1) / d
+                y = xc * tl.rsqrt(var + eps)[:, None] * w[None, :]
                 if HAS_BIAS:
-                    y = y + b
-            tl.store(o_ptr + row * stride_o + cols,
+                    y = y + b[None, :]
+            tl.store(o_ptr + rows[:, None] * stride_o + cols[None, :],
                      y.to(o_ptr.dtype.element_ty), mask=m)
 
-    return kernel, triton.next_power_of_2
+    return kernel
 
 
 def row_norm(x, weight, bias, eps: float, *, rms: bool):
@@ -98,20 +146,20 @@ def row_norm(x, weight, bias, eps: float, *, rms: bool):
     d = x.shape[-1]
     if weight.shape != (d,) or (bias is not None and bias.shape != (d,)):
         raise ValueError("row_norm: weight/bias must be [d]")
-    kernel, next_pow2 = _row_norm_kernel()
+    kernel = _row_norm_kernel()
     x2 = x.reshape(-1, d)
     if x2.stride(-1) != 1:
         x2 = x2.contiguous()
     n = x2.shape[0]
     out = torch.empty((n, d), dtype=x.dtype, device=x.device)
-    block_d = next_pow2(d)
-    rows = 4 if block_d <= 1024 else 1
+    plan = k3_plan(n, d, x.element_size(), _cuda.sm_count(x.device.index))
     w = weight.contiguous()
     b = bias.contiguous() if bias is not None else w
-    kernel[((n + rows - 1) // rows,)](
+    kernel[(plan["programs"],)](
         x2, w, b, out, n, d, x2.stride(0), out.stride(0), float(eps),
-        RMS=rms, HAS_BIAS=bias is not None, BLOCK_D=block_d, ROWS=rows,
-        num_warps=4 if block_d <= 1024 else 8)
+        plan["blocks"], plan["programs"], RMS=rms, HAS_BIAS=bias is not None,
+        BLOCK_D=plan["block_d"], ROWS=plan["rows"],
+        num_warps=plan["num_warps"])
     LAUNCHES["rms" if rms else "ln"] += 1
     return out.view(x.shape)
 

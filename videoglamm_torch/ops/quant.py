@@ -11,9 +11,13 @@ K5 (`csrc/dequant_gemv.cu`) is the decode GEMV, with two entry points. The
 int8 entry replaces the Pallas kernel `_kernel` (quant.py:36): y = (x . w_q)
 * scale with f32 accumulation and the per-channel scale in the epilogue.
 The int4 entry replaces `_kernel4` (quant.py:132): nibbles are
-sign-extended, multiplied by their group scale, then by x, f32
-accumulation. Both are bound by the bytes of the weights, which they read
-once, as 16-byte vectors along K.
+sign-extended and multiplied by x, each 32-k slice summed in f32 and
+multiplied by its group scale once (the Pallas body scales every weight
+first: the same function, f32 rounding in another order). Both are bound by the bytes of the weights, which a persistent
+grid of contiguous row ranges reads once: for 1 to 3 rows of x on the
+CUDA cores straight into registers, for 4 or more on the tensor cores
+through a ring of bulk copies, in tiles of 8 rows. `k5_plan` computes the
+grid and its shared-memory layout and hands them to the kernel.
 
 Routing follows the JAX package. `dequant_matmul` sends M >= `w8a8_min_m`
 rows through dynamic per-token W8A8 (activations quantised per row, an
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -129,16 +134,172 @@ def _dequant4_matmul_plain(x2, packed, scales, group: int):
 
 
 # ---------------------------------------------------------------------------
+# K5's plan: the persistent grid and its shared-memory layout
+# ---------------------------------------------------------------------------
+K5_GROUP_ROWS = 16       # rows of a ring stage (tensor-core route)
+K5_SEGMENT = 1024        # bytes of a row a stage holds (the last one shorter)
+K5_MAX_STAGES = 6
+K5_ROWS_MAX_M = 3        # up to 3 rows on the CUDA cores, from 4 on mma
+K5_MMA_TILE = 8          # rows of x a tensor-core pass takes
+K5_MMA_WARPS = 16        # consumer warps of the tensor-core route (.cu)
+K5_UNIT = {False: 1024, True: 512}  # bytes of a CUDA-core unit, int8 / int4
+K5_ROW_CTAS = (2, 1, 1)  # CUDA-core route: CTAs an SM for M = 1, 2, 3 (.cu)
+K5_SMEM = 232448         # dynamic shared memory a block can use (H100)
+K5_SMEM_SM = 233472      # shared memory of an SM (228 KB)
+K5_SMEM_CTA = 1024       # of which the system reserves per CTA
+K5_BARRIERS = 128        # bytes for the full / empty mbarriers at offset 0
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _div_mul(d: int) -> int:
+    """ceil(2^32 / d) as a signed 32-bit int (0 for d <= 1): n // d is then
+    the high word of n * mul for n * d < 2^32, as the kernel's `fast_div`
+    takes it."""
+    if d <= 1:
+        return 0
+    m = -(-(1 << 32) // d)
+    return m - (1 << 32) if m >= 1 << 31 else m
+
+
+@dataclass(frozen=True)
+class K5Plan:
+    """What `csrc/dequant_gemv.cu` launches: `ctas` CTAs along N, each a
+    contiguous range of whole rows (`rows(cta)`), times `m_tiles` tiles of
+    `mt` rows of x. Shared memory holds x at `x_off` (rows `xstride` bytes
+    apart) and `smem` bytes in all.
+
+    CUDA-core route (mt <= 3): `per_sm` CTAs an SM; a CTA's rows are cut
+    into units of 32 lanes x 2 vectors of 16 bytes (int8) or 32 x 1 (int4);
+    their sums sit at `s_off` until a row's add in order.
+    Tensor-core route (mt = 8): one CTA an SM streams its rows in stages of
+    16 rows x one `kseg`-byte segment of each row, through a ring of
+    `stages` slots of 16 rows `rstride` bytes apart at `ring_off`, behind
+    the barriers at 0; the CTA's scales sit at `s_off` and the warps' sums
+    at `red_off`. The C entry checks every region against its own
+    constants before it launches."""
+    M: int
+    N: int
+    K: int
+    group: int          # 0 for int8
+    ctas: int
+    mt: int
+    m_tiles: int
+    kseg: int
+    nseg: int
+    stages: int
+    rstride: int
+    xstride: int
+    x_off: int
+    s_off: int
+    red_off: int
+    ring_off: int
+    smem: int
+    per_sm: int
+
+    def fields(self) -> tuple:
+        """The integers the C entry takes, in its `Plan` struct's order:
+        the layout, then N = ctas * base + extra, two divisors with their
+        multipliers (`fast_div`): a row's units (CUDA-core route) and the
+        32-k slices of a scale group (int4), and the CTAs an SM."""
+        base, extra = divmod(self.N, self.ctas)
+        vpr = 0 if self.mma else -(-self.rowbytes // K5_UNIT[bool(self.group)])
+        gdiv = self.group // 32
+        return (self.ctas, self.mt, self.m_tiles, self.kseg, self.nseg,
+                self.stages, self.rstride, self.xstride, self.x_off,
+                self.s_off, self.red_off, self.ring_off, self.smem, base,
+                extra, vpr, _div_mul(vpr), gdiv, _div_mul(gdiv), self.per_sm)
+
+    @property
+    def mma(self) -> bool:
+        return self.mt == K5_MMA_TILE
+
+    @property
+    def rowbytes(self) -> int:
+        return self.K // 2 if self.group else self.K
+
+    def rows(self, cta: int) -> Tuple[int, int]:
+        """(first row, row count) of a CTA: shares differ by at most one."""
+        base, extra = divmod(self.N, self.ctas)
+        return cta * base + min(cta, extra), base + (cta < extra)
+
+
+def k5_plan(M: int, N: int, K: int, group: int, sms: int) -> K5Plan:
+    """K5's launch for x [M, K] against N weight rows (group = 0: int8 rows
+    of K bytes; else int4 rows of K/2 bytes with a scale per `group` k) on
+    a card of `sms` SMs. Raises ValueError where the layout does not fit."""
+    rowbytes = K // 2 if group else K
+    if M <= K5_ROWS_MAX_M:
+        per_sm = K5_ROW_CTAS[M - 1]
+        ctas = min(N, sms * per_sm)
+        max_rows = -(-N // ctas)
+        # x in f32, in blocks of 32 chunks of 16 bytes (512 k int8, 1024 k
+        # int4), then the units' sums; `per_sm` CTAs an SM side by side (1
+        # KB of each SM's shared memory is the system's a CTA)
+        xstride = 4 * _round_up(K, 32 * (32 if group else 16))
+        s_off = M * xstride
+        smem = s_off + max_rows * -(-rowbytes // K5_UNIT[bool(group)]) * M * 4
+        if smem > K5_SMEM_SM // per_sm - K5_SMEM_CTA:
+            raise ValueError(f"k5_plan: M={M} K={K} N={N} needs {smem} bytes "
+                             "of shared memory")
+        return K5Plan(M, N, K, group, ctas, M, 1, 0, 0, 0, 0, xstride, 0,
+                      s_off, 0, 0, smem, per_sm)
+    ctas = min(N, sms)
+    max_rows = -(-N // ctas)
+    kseg = min(rowbytes, K5_SEGMENT)
+    nseg = -(-rowbytes // kseg)
+    # rows 16 mod 128 bytes apart: the 32-bit loads of rows g = 0..7, word
+    # t = 0..3 fall on 32 different banks; x rows 32 (int8: 8-byte loads)
+    # or 64 (int4: 16-byte loads) mod 128 bytes apart, likewise
+    rstride = _round_up(kseg, 128) + 16
+    xstride = _round_up(2 * K, 128) + (64 if group else 32)
+    x_off = K5_BARRIERS
+    s_off = x_off + K5_MMA_TILE * xstride
+    scols = K // group if group else 1
+    red_off = s_off + _round_up(max_rows * scols * 4, 16)
+    # the warps' 16 x 8 sums, two buffers
+    ring_off = _round_up(red_off + 2 * 4 * K5_MMA_WARPS * 128, 128)
+    stage_bytes = K5_GROUP_ROWS * rstride
+    stages = min(K5_MAX_STAGES, (K5_SMEM - ring_off) // stage_bytes)
+    if stages < 2:
+        raise ValueError(f"k5_plan: M={M} K={K} leaves no room for a ring "
+                         f"of two {stage_bytes}-byte stages")
+    return K5Plan(M, N, K, group, ctas, K5_MMA_TILE, -(-M // K5_MMA_TILE),
+                  kseg, nseg, stages, rstride, xstride, x_off, s_off, red_off,
+                  ring_off, ring_off + stages * stage_bytes, 1)
+
+
+# ---------------------------------------------------------------------------
 # K5 launchers
 # ---------------------------------------------------------------------------
 def _gemv_fn(kind: str):
     fn = getattr(_cuda.load("dequant_gemv").lib, f"vgt_dequant_gemv_{kind}")
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        tail = [I] if kind == "int4" else []
-        fn.argtypes = [P, L, P, P, P, L, I, I, I] + tail + [P]
+        group = [I] if kind == "int4" else []
+        fn.argtypes = [P, L, P, P, P, L, I, I, I] + group + [P, I, P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_gemv(kind, x2, w, scale, N, group, plan=None):
+    """plan: `k5_plan`'s for these shapes unless given (the card tests hand
+    in altered plans, which the C entry must refuse)."""
+    M, K = x2.shape
+    if plan is None:
+        plan = k5_plan(M, N, K, group, _cuda.sm_count(x2.device.index))
+    fields = (ctypes.c_int * len(plan.fields()))(*plan.fields())
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    tail = [group] if kind == "int4" else []
+    err = _gemv_fn(kind)(x2.data_ptr(), x2.stride(0), w.data_ptr(),
+                         scale.data_ptr(), out.data_ptr(), out.stride(0),
+                         M, N, K, *tail, fields, len(fields),
+                         _cuda.stream_ptr(x2))
+    _cuda.check_launch(err, f"dequant_gemv_{kind}")
+    LAUNCHES[kind] += 1
+    return out
 
 
 def _check_gemv(x2, w, scale, row_bytes: int, what: str):
@@ -155,28 +316,31 @@ def _check_gemv(x2, w, scale, row_bytes: int, what: str):
 
 def dequant_gemv_int8(x2, w_q, scale):
     """Launch K5's int8 entry. x2: [M, K] bf16; w_q: [>= N, K] int8 with
-    K % 16 == 0; scale: [N] f32 -> [M, N] bf16. Every M is taken (rows are
-    looped in tiles). Raises unless the operands are CUDA tensors of these
-    types."""
+    K % 16 == 0; scale: [N] f32 -> [M, N] bf16. Every M is taken (tiles of
+    8 rows from M = 4 on). Raises unless the operands are CUDA tensors of
+    these types.
+
+    K5 is a programmatic dependent launch: it starts while the kernel
+    before it on the stream drains and reads the weights and scales before
+    it waits for that kernel (it waits only before it reads x). So no
+    kernel still running on the stream may write w_q or scale: they are
+    written once, when the model is loaded or quantised, and a caller that
+    rewrites them in place must synchronise the stream before the next
+    launch."""
     M, K = x2.shape
     N = scale.shape[0]
     if w_q.dim() != 2 or w_q.shape[0] < N or w_q.shape[1] != K:
         raise ValueError(f"dequant_gemv_int8: weight {tuple(w_q.shape)} for "
                          f"x [{M},{K}] and {N} channels")
     _check_gemv(x2, w_q, scale, K, "dequant_gemv_int8")
-    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    err = _gemv_fn("int8")(x2.data_ptr(), x2.stride(0), w_q.data_ptr(),
-                           scale.data_ptr(), out.data_ptr(), out.stride(0),
-                           M, N, K, _cuda.stream_ptr(x2))
-    _cuda.check_launch(err, "dequant_gemv_int8")
-    LAUNCHES["int8"] += 1
-    return out
+    return _launch_gemv("int8", x2, w_q, scale, N, 0)
 
 
 def dequant_gemv_int4(x2, packed, scales, group: int = 128):
     """Launch K5's int4 entry. x2: [M, K] bf16; packed: [N, K/2] int8 with
     K % 32 == 0; scales: [N, K/group] f32 with group % 32 == 0 -> [M, N]
-    bf16."""
+    bf16. The weights' contract is `dequant_gemv_int8`'s: no kernel still
+    running on the stream writes packed or scales."""
     M, K = x2.shape
     N = packed.shape[0]
     if packed.shape != (N, K // 2) or group % 32 or K % group \
@@ -185,13 +349,7 @@ def dequant_gemv_int4(x2, packed, scales, group: int = 128):
                          f"scales {tuple(scales.shape)}, group {group} for "
                          f"x [{M},{K}]")
     _check_gemv(x2, packed, scales, K // 2, "dequant_gemv_int4")
-    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    err = _gemv_fn("int4")(x2.data_ptr(), x2.stride(0), packed.data_ptr(),
-                           scales.data_ptr(), out.data_ptr(), out.stride(0),
-                           M, N, K, group, _cuda.stream_ptr(x2))
-    _cuda.check_launch(err, "dequant_gemv_int4")
-    LAUNCHES["int4"] += 1
-    return out
+    return _launch_gemv("int4", x2, packed, scales, N, group)
 
 
 # ---------------------------------------------------------------------------
