@@ -29,7 +29,9 @@ failure:
    K6 and the calls timed beside it, whose single call of 1 to 2 ms would
    otherwise carry the host's enqueue of that call). K4 and K5
    rotate over operands larger than the L2 cache, as the decode loop finds
-   them. K5 (int8 and int4) at the five decode products of Phi-3 with one
+   them: K4 at Phi-3 over 32 layers of [1,3456,3072] (698 MB) and at
+   Llama-3.1-8B's GQA over 32 layers of [1,3456,1024] (231 MB), then the
+   host's microseconds an eager K4 call. K5 (int8 and int4) at the five decode products of Phi-3 with one
    row (and the sum of the five), and at qkv and gate_up with 4 rows (the
    speculative verify forward) and 8, held by max-norm and relative L2,
    beside torch's weight-only int8 / int4 products where this torch build
@@ -74,7 +76,8 @@ failure:
    a. the bf16 path on preprocessed streams (1 warm-up + 1 timed request),
    b. the main path, the int8 LLM with the int8 KV cache from RAW uint8
       [1,16,480,854,3] frames (3 requests), then its decode step timed and
-      profiled alone, with K5's share of the device time,
+      profiled alone, with K4's and K5's shares of the device time (one K4
+      device kernel a K4 call, or the run fails),
    c. the video branch on the main path's model: 2 requests from raw
       frames with `use_video_branch=True`, all 16 frames to SAM, the 4
       [SEG] slots tracked through them by the SAM-2 memory tracker (K1 at
@@ -248,7 +251,6 @@ N_SPEC_REQUESTS = 2
 N_LLAMA_REQUESTS = 2
 HARNESS_REPS = 8        # timed passes of each harness variant
 
-K5_DEVICE_KERNELS = ("gemv_rows_kernel", "gemv_mma_kernel")   # K5's kernels
 
 HBM_BYTES_S = 3.35e12   # H100 SXM: device memory rate
 PEAK_OPS = {"bf16": 989e12,    # dense tensor-core rate
@@ -968,8 +970,11 @@ def phase_kernels(K: Kernels):
     decode_case(32, 32, 32, 96, 3456, 3400, 17, "decode_attention_q8",
                 "K4 decode Phi-3 [1,32,1,96] over [32,1,3456,3072] int8, "
                 "layer 17, kv_len 3400")
-    decode_case(4, 32, 8, 128, 3456, 3400, 2, None,
-                "K4 decode GQA G=4 [1,32,1,128] over [4,1,3456,1024] int8")
+    # Llama-3.1-8B's depth: 32 slabs of 7.3 MB (231 MB), past the 50 MB L2
+    decode_case(32, 32, 8, 128, 3456, 3400, 2, "decode_attention_q8@gqa",
+                "K4 decode GQA G=4 [1,32,1,128] over [32,1,3456,1024] int8, "
+                "layer 2, kv_len 3400")
+    k4_host_us()
 
     # K5: the five decode products of Phi-3 (M = 1), and qkv and gate_up at
     # M = 4 (the speculative verify forward) and M = 8, int8 and int4; timed
@@ -1588,6 +1593,47 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def k4_host_us(calls: int = 1000):
+    """Host microseconds of one eager K4 call (the wrapper's checks, plan and
+    launch), mean of `calls` calls at the Phi-3 geometry. kv_len is 1, so
+    that the device keeps up with the enqueue: the host's work does not
+    depend on it."""
+    import torch
+    from videoglamm_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(7)
+    kc, vc = (torch.randint(-127, 128, (2, 1, 3456, 3072), dtype=torch.int8,
+                            generator=g, device="cuda") for _ in range(2))
+    ks, vs = (torch.rand(2, 1, 32, 3456, generator=g, device="cuda") * 0.02
+              for _ in range(2))
+    q = torch.randn(1, 32, 1, 96, generator=g, device="cuda").to(torch.bfloat16)
+    kvl = torch.ones(1, device="cuda", dtype=torch.int32)
+
+    def call():
+        return A.decode_attention_q8(q, kc, vc, ks, vs, kvl, 1,
+                                     sm_scale=96 ** -0.5)
+
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    host_us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    log(f"  K4 host time per eager decode_attention_q8 call: {host_us:.2f} us "
+        f"(mean of {calls}, Phi-3 geometry, kv_len 1)")
+
+
+def source_kernels(name: str) -> tuple:
+    """The __global__ functions of csrc/<name>.cu: the names under which the
+    profiler lists that source's device kernels."""
+    import re
+    from videoglamm_torch.ops import _cuda
+    text = (_cuda.CSRC / f"{name}.cu").read_text()
+    return tuple(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                            r"\s*)?(\w+)\s*\(", text))
+
+
 def measure_decode(model, frames, context, ids, lens, what: str, steps: int = 16,
                    rows: int = 1):
     """The decode step alone: host-clock ms per step over `steps` steps
@@ -1598,6 +1644,7 @@ def measure_decode(model, frames, context, ids, lens, what: str, steps: int = 16
     import torch
     from torch.profiler import ProfilerActivity, profile
     from videoglamm_torch.inference.generate import prefill
+    from videoglamm_torch.ops import attention as A
 
     llm = model.llm
     with torch.no_grad():
@@ -1617,10 +1664,12 @@ def measure_decode(model, frames, context, ids, lens, what: str, steps: int = 16
         t0 = time.perf_counter()
         run(steps)
         host_ms = (time.perf_counter() - t0) * 1e3 / steps
+        k4_calls = A.LAUNCHES["decode_q8"]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run(2 * steps)
             prof_ms = (time.perf_counter() - t0) * 1e3 / steps
+        k4_calls = (A.LAUNCHES["decode_q8"] - k4_calls) / steps
     # kernel rows only: an operator's row repeats its kernels' device time
     kernels = [e for e in prof.key_averages()
                if _device_us(e) > 0 and "cuda" in str(e.device_type).lower()]
@@ -1633,15 +1682,24 @@ def measure_decode(model, frames, context, ids, lens, what: str, steps: int = 16
             f"{steps}); device time not measured (the profiler saw none)")
         return host_ms
     top = sorted(kernels, key=_device_us, reverse=True)[:4]
-    k5 = [e for e in kernels if any(n in e.key for n in K5_DEVICE_KERNELS)]
-    k5_ms = sum(_device_us(e) for e in k5) / 1e3 / steps
-    k5_n = sum(e.count for e in k5) / steps
+    share = {}
+    for label, src in (("K4", "decode_attention_q8"), ("K5", "dequant_gemv")):
+        names = source_kernels(src)
+        mine = [e for e in kernels if any(n in e.key for n in names)]
+        share[label] = (sum(_device_us(e) for e in mine) / 1e3 / steps,
+                        sum(e.count for e in mine) / steps)
     log(f"  {what}: {host_ms:.3f} ms host clock (mean of {steps}); "
         f"under the profiler {prof_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"({busy_ms / prof_ms:.2f}), {launches:.0f} device launches a step; "
-        f"K5 {k5_ms:.3f} ms of it over {k5_n:.0f} launches; top: "
+        + "; ".join(f"{k} {ms:.3f} ms of it over {n:.0f} device launches"
+                    for k, (ms, n) in share.items()) + "; top: "
         + "; ".join(f"{e.key[:48]} {_device_us(e) / 1e3 / steps:.3f} ms x"
                     f"{e.count / steps:.0f}" for e in top))
+    # one device kernel a K4 call: a second kernel a call would double the
+    # count; the profiler may drop a few records of a window, never add one
+    if not 0.9 * k4_calls <= share["K4"][1] <= k4_calls:
+        raise AssertionError(f"{what}: {share['K4'][1]:.1f} K4 device kernels "
+                             f"a step for {k4_calls:.0f} calls")
     return host_ms
 
 

@@ -27,7 +27,8 @@
 //   (`k5_plan` in videoglamm_torch/ops/quant.py computes it, with the
 //   shared-memory layout, and hands it in; the CPU tests check it). No wave
 //   is ragged; no split of K.
-// - Conversions off the I2F pipe. M <= 3 (CUDA cores): int8 codes by the
+// - Conversions off the I2F pipe (csrc/sm90_common.cuh, shared with K4).
+//   M <= 3 (CUDA cores): int8 codes by the
 //   magic number (xor 0x80808080, __byte_perm each byte into the low
 //   mantissa of 0x4B000000, one exact FADD of -(2^23 + 128)); nibbles the
 //   same way (xor 0x88888888, mask, -(2^23 + 8)), the high nibble left in
@@ -113,59 +114,10 @@ __device__ __forceinline__ int fast_div(int n, int d, int mul) {
                                                  static_cast<uint32_t>(mul)));
 }
 
-__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// magic-number conversions (no I2F) ------------------------------------------
-// byte j of u (= code + 128, or nibble + 8) as f32 2^23 + u_j
-__device__ __forceinline__ float magic_byte(uint32_t u, int j) {
-  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u | j));
-}
-// int8 codes of a word -> f32 (byte j -> f[j])
-__device__ __forceinline__ void int8_to_f32(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x80808080u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) f[j] = magic_byte(u, j) - 8388736.0f;   // 2^23 + 128
-}
-// nibbles of a word -> f32: lo[j] = the low nibble of byte j (k = 2j), hi[j]
-// = 16 x its high nibble (k = 2j + 1), which stays in place (no shift); the
-// sums of the hi products are scaled by 1/16 once, exactly
-__device__ __forceinline__ void int4_to_f32(uint32_t w, float* lo, float* hi) {
-  const uint32_t l = (w ^ 0x88888888u) & 0x0F0F0F0Fu;
-  const uint32_t h = (w ^ 0x88888888u) & 0xF0F0F0F0u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    lo[j] = magic_byte(l, j) - 8388616.0f;                            // 2^23 + 8
-    hi[j] = magic_byte(h, j) - 8388736.0f;                            // 2^23 + 128
-  }
-}
-__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-// int8 codes of a word -> two bf16 pairs: p02 = (byte 0, byte 2), p13 =
-// (byte 1, byte 3), the low half the first. A byte's low 7 bits in the
-// mantissa of bf16 128 give 128 + low7; its sign bit picks 128 or 256 to
-// subtract.
-__device__ __forceinline__ void int8_to_bf16x2(uint32_t w, uint32_t& p02, uint32_t& p13) {
-  const uint32_t v = w >> 8;
-  p02 = sub_bf16x2((w & 0x007F007Fu) | 0x43004300u, (w & 0x00800080u) | 0x43004300u);
-  p13 = sub_bf16x2((v & 0x007F007Fu) | 0x43004300u, (v & 0x00800080u) | 0x43004300u);
-}
-// nibbles of a word -> four bf16 pairs: p[i] = (nibble i, nibble i + 4), where
-// nibble i is bits 4i..4i+3 (k = i of the word's 8)
-__device__ __forceinline__ void int4_to_bf16x2(uint32_t w, uint32_t* p) {
-  const uint32_t u = w ^ 0x88888888u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    p[i] = sub_bf16x2(((u >> (4 * i)) & 0x000F000Fu) | 0x43004300u, 0x43084308u);
 }
 
 // shared memory -----------------------------------------------------------

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
 // (attention_fwd.cu's wgmma route, gemm_epilogue.cu, flash_bwd.cu,
-// dequant_gemv.cu): shared-memory matrix descriptors and `wgmma.mma_async`
-// wrappers, mbarrier helpers, TMA tensor loads and stores, 1-D bulk copies,
-// proxy fences, named barriers,
-// register reallocation, and the host-side tensor-map encoder. Inline PTX,
+// dequant_gemv.cu, decode_attention_q8.cu): shared-memory matrix descriptors
+// and `wgmma.mma_async` wrappers, mbarrier helpers, TMA tensor loads and
+// stores, 1-D bulk copies, proxy fences, named barriers, register
+// reallocation, the int8 / int4 -> float conversions of K4 and K5, and the
+// host-side tensor-map encoder. Inline PTX,
 // no CuTe or CUTLASS device code, so that a source builds in seconds.
 // Included inside each source's anonymous namespace, after <cuda.h>.
 //
@@ -278,6 +279,76 @@ template <> struct Wgmma<144> {
   }
 };
 
+
+// ---------------------------------------------------------------------------
+// integer codes -> float without I2F (K5, and K4's images): a code lands
+// in the low mantissa bits of a power of two, and one exact subtraction
+// takes the power off (or, for K4, stays as a denormal's bits); bf16 pairs
+// unpack by shifts
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+// byte j of u (= code + 128, or nibble + 8) as f32 2^23 + u_j
+__device__ __forceinline__ float magic_byte(uint32_t u, int j) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u | j));
+}
+// int8 codes of a word -> f32 (byte j -> f[j])
+__device__ __forceinline__ void int8_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) f[j] = magic_byte(u, j) - 8388736.0f;   // 2^23 + 128
+}
+// nibbles of a word -> f32: lo[j] = the low nibble of byte j (k = 2j), hi[j]
+// = 16 x its high nibble (k = 2j + 1), which stays in place (no shift); the
+// sums of the hi products are scaled by 1/16 once, exactly
+__device__ __forceinline__ void int4_to_f32(uint32_t w, float* lo, float* hi) {
+  const uint32_t l = (w ^ 0x88888888u) & 0x0F0F0F0Fu;
+  const uint32_t h = (w ^ 0x88888888u) & 0xF0F0F0F0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    lo[j] = magic_byte(l, j) - 8388616.0f;                            // 2^23 + 8
+    hi[j] = magic_byte(h, j) - 8388736.0f;                            // 2^23 + 128
+  }
+}
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// int8 codes of a word -> two bf16 pairs: p02 = (byte 0, byte 2), p13 =
+// (byte 1, byte 3), the low half the first. A byte's low 7 bits in the
+// mantissa of bf16 128 give 128 + low7; its sign bit picks 128 or 256 to
+// subtract.
+__device__ __forceinline__ void int8_to_bf16x2(uint32_t w, uint32_t& p02, uint32_t& p13) {
+  const uint32_t v = w >> 8;
+  p02 = sub_bf16x2((w & 0x007F007Fu) | 0x43004300u, (w & 0x00800080u) | 0x43004300u);
+  p13 = sub_bf16x2((v & 0x007F007Fu) | 0x43004300u, (v & 0x00800080u) | 0x43004300u);
+}
+// nibbles of a word -> four bf16 pairs: p[i] = (nibble i, nibble i + 4), where
+// nibble i is bits 4i..4i+3 (k = i of the word's 8)
+__device__ __forceinline__ void int4_to_bf16x2(uint32_t w, uint32_t* p) {
+  const uint32_t u = w ^ 0x88888888u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    p[i] = sub_bf16x2(((u >> (4 * i)) & 0x000F000Fu) | 0x43004300u, 0x43084308u);
+}
+
+// The codes' images: byte j of a word, plus 128, as the bits of an f32,
+// which is (c + 128) * 2^-149, a denormal. One PRMT a code: the FADD that
+// removes a magic number's power of two (K5's conversion) is left to one
+// FFMA a dot product, against operands pre-scaled by powers of two, whose
+// products with the images are normal and exact (FFMA keeps denormals).
+template <int NW> __device__ __forceinline__ void code_images(const uint32_t* w, float* f) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t u = w[i] ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) f[4 * i + j] = __uint_as_float(__byte_perm(u, 0u, 0x4440u | j));
+  }
+}
+// 2^e for -126 <= e <= 127
+__device__ __forceinline__ float pow2(int e) { return __int_as_float((127 + e) << 23); }
 
 // ---------------------------------------------------------------------------
 // host: tensor maps, encoded per call. The encoder comes from libcuda

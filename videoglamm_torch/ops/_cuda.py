@@ -12,6 +12,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -78,6 +79,15 @@ def load(name: str) -> Built:
         built = Built(ctypes.CDLL(str(so)), so, seconds, log)
         _built[name] = built
         return built
+
+
+def constants(name: str) -> dict:
+    """The `constexpr int NAME = <integer>;` lines of `csrc/<name>.cu` as
+    {NAME: value}: a kernel's constants that its Python plan needs too,
+    read from the source so that they have one definition."""
+    text = (CSRC / f"{name}.cu").read_text()
+    return {m[1]: int(m[2]) for m in
+            re.finditer(r"^constexpr int (\w+) = (-?\d+);", text, re.M)}
 
 
 def load_all(names) -> dict:

@@ -35,11 +35,14 @@ twin, attention.py:588-599 and :709-714).
 
 K4 (`csrc/decode_attention_q8.cu`) is the single-query attention over the
 int8 token-major KV cache. It replaces the Pallas kernel `_decode_q_kernel`
-(attention.py:1061): the stacked cache is read in place (the layer is a
-pointer offset), the per-token and per-head scales fold into the logits (K)
-and the probabilities (V), GQA is native, and kv_lens is read on the
-device. `dot_product_attention` sends every Sq == 1 call with `k_scale` on
-a CUDA tensor to K4 (the TPU's lane-layout condition `_decode_group_plan`
+(attention.py:1061): the stacked cache is read in place (TMA tensor maps
+over the whole cache, the layer a coordinate), the per-token and per-head
+scales fold into the logits (K) and the probabilities (V), GQA is native,
+and kv_lens is read on the device. One launch a call: CTAs split the tokens
+of a (row, kv head), and the last split to finish folds the others'
+partials from a workspace kept per device and stream (`k4_plan` sizes it
+all). `dot_product_attention` sends every Sq == 1 call with `k_scale` on a
+CUDA tensor to K4 (the TPU's lane-layout condition `_decode_group_plan`
 has no counterpart here).
 
 K6 (`csrc/flash_bwd.cu`) is the backward of K1 for training. It replaces
@@ -67,7 +70,9 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -99,8 +104,18 @@ K6_ROWS = 128
 K6_TILE = 64
 K6_DEPTHS = K1_DEPTHS[:-1]
 
-# K4 splits the cache axis over this many thread blocks per SM (per batch)
-DECODE_SPLITS_PER_SM = 1
+# K4 (csrc/decode_attention_q8.cu), its constants as that source defines them:
+# consumer warps a CTA (and a producer warp), the splits a fold takes, ring
+# stages, dynamic shared memory, and by query heads a kv head G the dims
+# (int8 codes) a lane owns and the tokens a phase takes from a stage
+# between softmax updates (G = 1 at head dims divisible by 24: the wide lanes)
+_K4 = _cuda.constants("decode_attention_q8")
+K4_CONSUMERS = 32 * _K4["CWARPS"]
+K4_SHAPE = {g: (_K4[f"DPL_G{g}"], _K4[f"CHUNK_G{g}"]) for g in (1, 2, 4)}
+K4_SHAPE_WIDE = (_K4["DPL_G1_WIDE"], _K4["CHUNK_G1_WIDE"])
+K4_MAX_STAGES = _K4["MAX_STAGES"]
+K4_MAX_SPLITS = _K4["MAX_SPLITS"]
+K4_SMEM = _K4["DYN_SMEM"]
 
 
 # ---------------------------------------------------------------------------
@@ -625,14 +640,178 @@ def flash_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool, sm_scale: float,
 
 
 # ---------------------------------------------------------------------------
-# K4 launcher
+# K4 plan and launcher
 # ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class K4Plan:
+    """What `csrc/decode_attention_q8.cu` launches for B rows, Hkv kv heads
+    of `hd` dims (G = Hq / Hkv query heads each) over a cache of C tokens:
+    CTA (split, kv head, row) on a grid (splits, Hkv, B), about one CTA an
+    SM. A split takes ceil(kv_len / splits) contiguous tokens. Its producer
+    warp streams them in stages of `tile` tokens (K and V by `nbox` TMA
+    boxes of `box` rows of `pitch` bytes, the scales by 4-byte copies)
+    through a ring of `stages` slots of `stage_bytes`. Lane v of consumer
+    segment p (`seg` lanes, `vph` of them live) holds `dpl` dims from dpl
+    * v and takes rows p, p + phases, ... (`chunk` of them) of each stage:
+    tokens p, p + phases, ... of the split, `chunk` between softmax
+    updates. The phases of a warp merge in a butterfly of shuffles; the
+    warps' states sit at part_off and pml_off. Each split leaves a partial
+    of `ws_stride` floats (o for the G heads, then their m and l) in the
+    workspace, and the last split of a (row, head) folds them. The C entry
+    takes the choices (`splits`, `pitch`, `box`, `stages`) and derives the
+    rest as this plan does (`vgt_decode_q8_layout`, compared with `fields`
+    on the card), refusing choices that do not fit."""
+    B: int
+    Hq: int
+    Hkv: int
+    hd: int
+    C: int
+    splits: int
+    seg: int
+    chunk: int
+    pitch: int
+    box: int
+    nbox: int
+    stages: int
+    stage_bytes: int
+    v_off: int
+    ks_off: int
+    vs_off: int
+    part_off: int
+    pml_off: int
+    bar_off: int
+    smem: int
+    ws_stride: int
+
+    @property
+    def G(self) -> int:
+        return self.Hq // self.Hkv
+
+    @property
+    def dpl(self) -> int:
+        """Dims (int8 codes) a lane owns."""
+        return _k4_shape(self.G, self.hd)[0]
+
+    @property
+    def vph(self) -> int:
+        return self.hd // self.dpl
+
+    @property
+    def phases(self) -> int:
+        return K4_CONSUMERS // self.seg
+
+    @property
+    def tile(self) -> int:
+        """Tokens a stage."""
+        return self.phases * self.chunk
+
+    @property
+    def ws_floats(self) -> int:
+        """The partials of one call, in floats."""
+        return self.B * self.Hkv * self.splits * self.ws_stride
+
+    def fields(self) -> tuple:
+        """The layout as the C entry's `Plan` struct holds it."""
+        lg = lambda n: n.bit_length() - 1
+        return (self.splits, lg(self.splits), self.seg, lg(self.seg),
+                self.vph, self.phases, self.chunk, self.tile, self.pitch,
+                self.box, self.nbox, self.stages, self.stage_bytes, self.v_off,
+                self.ks_off, self.vs_off, self.part_off, self.pml_off,
+                self.bar_off, self.smem, self.ws_stride)
+
+
+def _round(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _k4_shape(G: int, hd: int) -> Tuple[int, int]:
+    """(dims a lane owns, chunk) of K4's instantiation for G and hd."""
+    return K4_SHAPE_WIDE if G == 1 and hd % K4_SHAPE_WIDE[0] == 0 \
+        else K4_SHAPE[G]
+
+
+def k4_plan(B: int, Hq: int, Hkv: int, hd: int, C: int, sms: int) -> K4Plan:
+    """K4's launch on a card of `sms` SMs: as many splits (a power of two,
+    at most K4_MAX_SPLITS) as keep B * Hkv * splits within one CTA an SM and
+    every split at least one token a phase at kv_len = C; as many ring
+    stages as shared memory holds, up to 8. Raises ValueError for a
+    geometry the kernel does not take."""
+    G = Hq // Hkv if Hkv > 0 else 0
+    if hd % 16 or not 16 <= hd <= 128 or Hkv * hd > 4096 or Hq != G * Hkv \
+            or G not in K4_SHAPE or B < 1 or C < 1:
+        raise ValueError(f"k4_plan: head dim {hd}, Hkv*hd {Hkv * hd}, "
+                         f"Hq/Hkv {Hq}/{Hkv}, B {B}, C {C} unsupported (needs "
+                         "hd % 16 == 0, hd <= 128, Hkv*hd <= 4096, Hq/Hkv in "
+                         "1, 2, 4)")
+    dpl, chunk = _k4_shape(G, hd)
+    vph = hd // dpl
+    seg = 1 << (vph - 1).bit_length()
+    phases = K4_CONSUMERS // seg
+    splits = 1
+    while (2 * splits <= K4_MAX_SPLITS and B * Hkv * 2 * splits <= sms
+           and 2 * splits * phases <= C):
+        splits *= 2
+    # a stage: `chunk` rows a phase, `pitch` bytes a row (hd, or more where
+    # no box of a stage's rows takes a multiple of 128 bytes, the boxes'
+    # alignment); the stage in 1, 3, 5 or 15 TMA boxes of at most 256 rows
+    tile = phases * chunk
+    pitch, nbox = next((pitch, n) for pitch in (hd, _round(hd, 32),
+                                                _round(hd, 64), 128)
+                       for n in (1, 3, 5, 15) if tile % n == 0
+                       and tile // n <= 256 and tile // n * pitch % 128 == 0)
+    box = tile // nbox
+    v_off = _round(tile * pitch, 128)
+    ks_off = v_off + _round(tile * pitch, 128)
+    vs_off = ks_off + _round(4 * tile, 16)
+    stage_bytes = _round(vs_off + 4 * tile, 128)
+    warps = K4_CONSUMERS // 32
+    rest = _round(4 * warps * G * hd, 16) + _round(8 * warps * G, 16) \
+        + 16 * K4_MAX_STAGES
+    stages = min(K4_MAX_STAGES, (K4_SMEM - rest) // stage_bytes)
+    if stages < 2:
+        raise ValueError(f"k4_plan: a {stage_bytes}-byte stage leaves no room "
+                         "for a ring of two")
+    part_off = stages * stage_bytes
+    pml_off = part_off + _round(4 * warps * G * hd, 16)
+    bar_off = pml_off + _round(8 * warps * G, 16)
+    smem = bar_off + 16 * K4_MAX_STAGES
+    ws_stride = -(-G * (hd + 2) // 4) * 4
+    return K4Plan(B, Hq, Hkv, hd, C, splits, seg, chunk, pitch, box, nbox,
+                  stages, stage_bytes, v_off, ks_off, vs_off, part_off,
+                  pml_off, bar_off, smem, ws_stride)
+
+
+# made once per geometry: the decode loop calls K4 with the same one every layer
+_k4_plan_cached = functools.lru_cache(maxsize=256)(k4_plan)
+
+
+# K4's workspace by (device, stream): the splits' partials (f32) and a
+# ticket a (row, kv head) (int32, zero between calls: a call's last split
+# wraps its ticket back to 0). A workspace outgrown by a larger call is
+# kept alive too, for CUDA graphs that captured it.
+_K4_WORKSPACE: dict = {}
+_K4_OUTGROWN: list = []
+
+
+def _k4_workspace(device, stream: int, floats: int, tickets: int):
+    key = (device.index, stream)
+    ws = _K4_WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < tickets:
+        if ws is not None:
+            _K4_OUTGROWN.append(ws)
+        ws = (torch.empty(max(floats, 1 << 16), dtype=torch.float32,
+                          device=device),
+              torch.zeros(max(tickets, 1024), dtype=torch.int32, device=device))
+        _K4_WORKSPACE[key] = ws
+    return ws
+
+
 def _decode_fn():
     fn = _cuda.load("decode_attention_q8").lib.vgt_decode_attention_q8
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [P, L, L, P, P, P, P, P, P, L, L, P, P] + [I] * 7 + [
-            ctypes.c_float, P]
+        fn.argtypes = [P, L, L, P, P, P, P, P, P, L, L, P, L, P, L] + \
+            [I] * 7 + [ctypes.c_float] + [I] * 4 + [P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -645,7 +824,10 @@ def decode_attention_q8(q, k, v, k_scale, v_scale, kv_lens, layer=None, *,
     v_scale: [(L,) B,Hkv,C] f32; kv_lens: [B] ints on the device.
     Returns [B,Hq,1,hd] bf16. Supports hd % 16 == 0, hd <= 128,
     Hkv*hd <= 4096 and G = Hq/Hkv in (1, 2, 4); raises otherwise, and
-    unless q is a bf16 CUDA tensor."""
+    unless q is a bf16 CUDA tensor. One device kernel a call; the wrapper
+    allocates only the output (the splits' partials go to a workspace kept
+    per device and stream, so calls on one stream run one after the other,
+    as a stream runs them)."""
     B, Hq, Sq, hd = q.shape
     if k.dim() == 3:
         k, v, k_scale, v_scale = (t[None] for t in (k, v, k_scale, v_scale))
@@ -659,11 +841,6 @@ def decode_attention_q8(q, k, v, k_scale, v_scale, kv_lens, layer=None, *,
                          f"k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"k_scale{tuple(k_scale.shape)} "
                          f"v_scale{tuple(v_scale.shape)}")
-    G = Hq // Hkv
-    if hd % 16 or hd > 128 or HD > 4096 or Hq != G * Hkv or G not in (1, 2, 4):
-        raise ValueError(f"decode_attention_q8: head dim {hd}, Hkv*hd {HD}, "
-                         f"Hq/Hkv {Hq}/{Hkv} unsupported (needs hd % 16 == 0, "
-                         "hd <= 128, Hkv*hd <= 4096, Hq/Hkv in 1, 2, 4)")
     if layer is None or not 0 <= int(layer) < L:
         raise ValueError(f"decode_attention_q8: layer {layer} of {L}")
     for name, t, dt in (("k", k, torch.int8), ("v", v, torch.int8),
@@ -673,23 +850,22 @@ def decode_attention_q8(q, k, v, k_scale, v_scale, kv_lens, layer=None, *,
                 or t.data_ptr() % 16:
             raise ValueError(f"decode_attention_q8: {name} must be a "
                              f"contiguous {dt} tensor on {q.device}")
-    kvl = _as_int32(kv_lens, B, q.device)
-    # launch geometry (mirrors the kernel): R tokens in parallel per block
-    # for narrow rows; one split of the cache axis per SM, at least R tokens
-    R = max(1, 256 // (HD // 16))
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit = max(1, min(-(-C // R), sms * DECODE_SPLITS_PER_SM // B))
+    if not (kv_lens.dtype == torch.int32 and kv_lens.device == q.device
+            and kv_lens.numel() == B and kv_lens.is_contiguous()):
+        kv_lens = _as_int32(kv_lens, B, q.device)
+    try:
+        plan = _k4_plan_cached(B, Hq, Hkv, hd, C, _cuda.sm_count(q.device.index))
+    except ValueError as e:
+        raise ValueError(f"decode_attention_q8: {e}") from None
+    stream = _cuda.stream_ptr(q)
+    ws, tickets = _k4_workspace(q.device, stream, plan.ws_floats, B * Hkv)
     out = torch.empty((B, Hq, 1, hd), dtype=q.dtype, device=q.device)
-    part_acc = torch.empty((B, Hq, nsplit * R, hd), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, Hq, nsplit * R, 2), dtype=torch.float32,
-                          device=q.device)
     err = _decode_fn()(
         q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), kvl.data_ptr(),
-        out.data_ptr(), out.stride(0), out.stride(1), part_acc.data_ptr(),
-        part_ml.data_ptr(), int(layer), B, Hq, Hkv, C, hd, nsplit,
-        float(sm_scale), _cuda.stream_ptr(q))
+        k_scale.data_ptr(), v_scale.data_ptr(), kv_lens.data_ptr(),
+        out.data_ptr(), out.stride(0), out.stride(1), ws.data_ptr(), ws.numel(),
+        tickets.data_ptr(), tickets.numel(), int(layer), L, B, Hq, Hkv, C, hd,
+        float(sm_scale), plan.splits, plan.pitch, plan.box, plan.stages, stream)
     _cuda.check_launch(err, "decode_attention_q8")
     LAUNCHES["decode_q8"] += 1
     return out
