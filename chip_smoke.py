@@ -49,8 +49,10 @@ failure:
    windows over 8 frames and at an odd window count, K1 at head dim 256
    ([4,1,4096,256], f32 and bf16). K9's four fused decode-layer entries at
    the Phi-3 widths for 1, 4 and 8 rows and at a narrow case whose N and I
-   are no multiples of 1024, each beside the unfused serving chain's time;
-   the W8A8 entry's s32 sums must EQUAL integer products of its own codes.
+   are no multiples of 1024, each beside the unfused serving chain's time
+   and their ratio; the W8A8 entry's s32 sums must EQUAL integer products
+   of its own codes; 9 rows must take the unfused chain (K3, K5) and agree
+   with its twin.
    K1 and K7 at the memory self-attention's shapes are timed as CUDA-graph
    replays (a call of an f32 route is two launches, the staging pass and
    the body, of some 0.03 to 0.15 ms, below the host's enqueue of them),
@@ -1156,12 +1158,16 @@ def phase_decode_fused(K: Kernels):
             chain_ms = time_ms(rotating(lambda l: BD.layer_fn(variant)(x, w, l)),
                                graphed=True)
             log(f"    the unfused chain ({variant}) over the same weights: "
-                f"{chain_ms:.4f} ms, the fused entry {ms:.4f} ms")
+                f"{chain_ms:.4f} ms, the fused entry {ms:.4f} ms, fused / chain "
+                f"{ms / chain_ms:.3f}")
             if key_ is not None:
                 K.rows[key_]["chain_ms"] = chain_ms
+            return chain_ms
 
         shape = f"M={M} K={Kd}"
         io = lambda n: 2 * M * (Kd + n)
+        # 1 to 3 rows sum in f32 FMAs (__dp4a for W8A8); 4 and more take mma.sync
+        rate = "f32" if M <= DM.k9_constants()["ROWS_MAX_M"] else "bf16"
         # norm_matmul (qkv): weights, scales and the norm weight once
         ms = K.compare(
             key("norm_matmul"), f"K9 norm_matmul {shape} N={Nq}",
@@ -1170,7 +1176,7 @@ def phase_decode_fused(K: Kernels):
             lambda: DM._norm_matmul_plain(x, w["nw"][0], w["wqkv"][0],
                                           w["sqkv"][0], BD.EPS), TOL_GEMV,
             nbytes=Nq * Kd + 4 * Nq + 4 * Kd + io(Nq), ops=2 * M * Nq * Kd,
-            rate="f32", graphed=True,
+            rate=rate, graphed=True,
             timed_fn=rotating(lambda l: DM.fused_norm_matmul_int8(
                 x, w["nw"][l], w["wqkv"][l], w["sqkv"][l], BD.EPS)))
         chain_of(key("norm_matmul"), "qkv_chain", ms)
@@ -1180,7 +1186,7 @@ def phase_decode_fused(K: Kernels):
             lambda: DM.matmul_residual_int8(o, w["wo"][0], w["so"][0], x),
             lambda: DM._matmul_residual_plain(o, w["wo"][0], w["so"][0], x),
             TOL_GEMV, nbytes=Kd * Kd + 4 * Kd + 2 * M * 3 * Kd,
-            ops=2 * M * Kd * Kd, rate="f32", graphed=True,
+            ops=2 * M * Kd * Kd, rate=rate, graphed=True,
             timed_fn=rotating(lambda l: DM.matmul_residual_int8(
                 o, w["wo"][l], w["so"][l], x)))
         chain_of(key("matmul_residual"), "o_chain", ms)
@@ -1193,11 +1199,11 @@ def phase_decode_fused(K: Kernels):
             lambda: DM.fused_decode_mlp_int8(*mlp_args(0)),
             lambda: DM._mlp_plain(*mlp_args(0)), TOL_FUSED_MLP,
             tol_l2=TOL_ATTN_L2, nbytes=mlp_bytes, ops=2 * M * 3 * Id * Kd,
-            rate="f32", graphed=True,
+            rate=rate, graphed=True,
             timed_fn=rotating(lambda l: DM.fused_decode_mlp_int8(*mlp_args(l))))
-        chain_of(key("mlp"), "chain", ms)
+        mlp_chain_ms = chain_of(key("mlp"), "chain", ms)
         w8a8_integers(x, w, 0, group, f"{shape} I={Id} group={min(group, Id)}")
-        K.compare(
+        ms = K.compare(
             key("mlp_w8a8"), f"K9 mlp_w8a8 {shape} I={Id} group={min(group, Id)}",
             lambda: DM.fused_decode_mlp_int8(*mlp_args(0), w8a8=True, group=group),
             lambda: DM._mlp_w8a8_plain(*mlp_args(0), group), TOL_FUSED_MLP,
@@ -1205,6 +1211,9 @@ def phase_decode_fused(K: Kernels):
             rate="int8", graphed=True,
             timed_fn=rotating(lambda l: DM.fused_decode_mlp_int8(
                 *mlp_args(l), w8a8=True, group=group)))
+        log(f"    the unfused chain (chain) over the same weights: "
+            f"{mlp_chain_ms:.4f} ms, the fused entry {ms:.4f} ms, fused / chain "
+            f"{ms / mlp_chain_ms:.3f}")
         if keyed:
             K.rows[key("mlp_w8a8")]["chain_ms"] = K.rows[key("mlp")]["chain_ms"]
 
@@ -1213,6 +1222,29 @@ def phase_decode_fused(K: Kernels):
     # N and I that no 1024 divides (three groups of 512, then one of 768)
     case(4, 256, 1536, 1000, ring=2, keyed=False, group=512)
     case(8, 256, 768, 1000, ring=2, keyed=False)
+    torch.cuda.empty_cache()
+
+    # more than 8 rows: the unfused chain of the port's own kernels (K3, K5),
+    # as the JAX entries fall back; no K9 launch
+    w = BD.make_weights(1, BD.K, BD.I, BD.N_QKV, "cuda", seed=3)
+    x9 = torch.randn(9, BD.K, generator=g, device="cuda").to(bf)
+    before = dict(DM.LAUNCHES)
+    args = (x9, w["nw"][0], w["wgu"][0], w["sgu"][0], w["wd"][0], w["sd"][0],
+            BD.EPS)
+    got, ref = DM.fused_decode_mlp_int8(*args), DM._fused_mlp_ref(*args)
+    qkv = DM.fused_norm_matmul_int8(x9, w["nw"][0], w["wqkv"][0], w["sqkv"][0],
+                                    BD.EPS)
+    qkv_ref = DM._norm_matmul_ref(x9, w["nw"][0], w["wqkv"][0], w["sqkv"][0],
+                                  BD.EPS)
+    torch.cuda.synchronize()
+    (_, rel), (_, rel_q) = rel_err(got, ref), rel_err(qkv, qkv_ref)
+    fused = {e: DM.LAUNCHES[e] - before.get(e, 0) for e in DM.ENTRIES}
+    log(f"  9 rows through the unfused chain: mlp rel={rel:.3e}, norm_matmul "
+        f"rel={rel_q:.3e} against the chain's twins; K9 launches {fused}")
+    if rel > TOL_FUSED_MLP or rel_q > TOL_GEMV or any(fused.values()):
+        raise AssertionError("9 rows: the chain disagrees with its twin or "
+                             "launched K9")
+    del w
     torch.cuda.empty_cache()
 
     # flash_attention_bshd: K1 through BSHD strides at the prefill shape
@@ -1275,6 +1307,14 @@ def phase_experiments():
             raise AssertionError(f"{name}: {counts[name]} launches in the "
                                  f"harnesses, expected {n}")
     log("  harness launches: " + json.dumps({k: counts[k] for k in want}))
+    us = {(r["rows"], r["variant"]): r["graph_us"] for r in rows}
+    for m in (1, DRAFT_K):
+        log(f"  K9 against the chain, graph replays, us a layer, M={m}: "
+            + ", ".join(f"{f} {us[m, f]:.1f} / {c} {us[m, c]:.1f} = "
+                        f"{us[m, f] / us[m, c]:.3f}"
+                        for f, c in (("fused", "chain"), ("w8a8", "chain"),
+                                     ("qkv_fused", "qkv_chain"),
+                                     ("o_fused", "o_chain"))))
     return counts
 
 

@@ -19,6 +19,8 @@ entries round where their twins round and sum in another order (a few bf16
 ulps where a rounding of g, u or h flips); its W8A8 entry is held by its
 integers, which are exact.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -1033,11 +1035,13 @@ def _decode_layer_weights(rng, dev, K, I, N):
 K9_SHAPES = [(3072, 8192, 9216), (256, 1536, 1000), (4096, 14336, 6144)]
 
 
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8])
 @pytest.mark.parametrize("K,I,N", K9_SHAPES)
 def test_k9_bf16_entries_match_plain(dev, M, K, I, N):
     """norm_matmul, matmul_residual and mlp at the Phi-3 widths, at a narrow
-    case whose N and I are no multiples of 1024, and at the Llama widths."""
+    case whose N and I are no multiples of 1024, and at the Llama widths
+    (where h takes two passes through shared memory from 4 rows on): the
+    CUDA-core route (1 to 3 rows) and the tensor-core route (4 to 8)."""
     rng = np.random.default_rng(90 + M)
     p = _decode_layer_weights(rng, dev, K, I, N)
     x = _randn(rng, (M, K), dev)
@@ -1059,9 +1063,9 @@ def test_k9_bf16_entries_match_plain(dev, M, K, I, N):
         assert dm.LAUNCHES[name] == before.get(name, 0) + 1
 
 
-@pytest.mark.parametrize("M", [1, 4, 8])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8])
 @pytest.mark.parametrize("K,I,group", [(3072, 8192, 1024), (256, 1536, 512),
-                                       (256, 768, 1024)])
+                                       (256, 768, 1024), (4096, 14336, 1024)])
 def test_k9_w8a8_integers_equal(dev, M, K, I, group):
     """The W8A8 entry's s32 sums are exact: on the kernel's own codes they
     equal an integer product; the codes equal the twin's but where an f32
@@ -1086,6 +1090,10 @@ def test_k9_w8a8_integers_equal(dev, M, K, I, group):
     _close_l2(got, ref, 1e-2, "mlp_w8a8")
     if torch.equal(tr.xq, rt.xq) and torch.equal(tr.hq, rt.hq):
         assert torch.equal(tr.gu, rt.gu) and torch.equal(tr.down, rt.down)
+    # each group's scale is that of its largest |h| (the maximum over the
+    # slots of the CTAs covering it): that value's code is 127
+    assert (tr.hq.view(M, I // g, g).abs().amax(-1) == 127).all()
+    assert torch.allclose(tr.hs, rt.hs, rtol=1e-5, atol=0)
 
 
 def test_k9_captures_into_a_cuda_graph(dev):
@@ -1116,14 +1124,131 @@ def test_k9_refuses_unsupported_operands(dev):
     rng = np.random.default_rng(6)
     p = _decode_layer_weights(rng, dev, 256, 512, 64)
     x = _randn(rng, (9, 256), dev)
-    with pytest.raises(ValueError):               # more than 8 rows
-        dm.fused_norm_matmul_int8(x, p["nw"], p["w"], p["s"])
+    with pytest.raises(ValueError):               # more than 8 rows, launched
+        dm.norm_matmul_kernel(x, p["nw"], p["w"], p["s"], 1e-5)
     with pytest.raises(ValueError):               # f32 rows on the card
         dm.fused_decode_mlp_int8(x[:2].float(), p["nw"], p["wgu"], p["sgu"],
                                  p["wd"], p["sd"])
     with pytest.raises(ValueError):               # a group that does not divide I
         dm.fused_decode_mlp_int8(x[:2], p["nw"], p["wgu"], p["sgu"], p["wd"],
                                  p["sd"], w8a8=True, group=384)
+
+
+@pytest.mark.parametrize("M", [9, 16])
+def test_k9_above_8_rows_takes_the_chain(dev, M):
+    """More rows than a fused program takes go, as in the JAX entries, to
+    the unfused chain: on the card the K3 norm, K5, SiLU times up, K5 and an
+    add, counted under those kernels and not under K9, with the chain's
+    rounding points; the W8A8 variant runs K9 on tiles of 8 rows."""
+    rng = np.random.default_rng(16)
+    K, I, N = 3072, 8192, 3072
+    p = _decode_layer_weights(rng, dev, K, I, N)
+    x = _randn(rng, (M, K), dev)
+    res = _randn(rng, (M, N), dev)
+    k9, k5, k3 = dict(dm.LAUNCHES), quant.LAUNCHES["int8"], norms.LAUNCHES["rms"]
+    got = dm.fused_norm_matmul_int8(x, p["nw"], p["w"], p["s"], 1e-5)
+    _close(got, dm._norm_matmul_ref(x, p["nw"], p["w"], p["s"], 1e-5), 1e-2,
+           "norm_matmul")
+    got = dm.matmul_residual_int8(x, p["w"], p["s"], res)
+    _close(got, dm._matmul_residual_ref(x, p["w"], p["s"], res), 1e-2,
+           "matmul_residual")
+    args = (x, p["nw"], p["wgu"], p["sgu"], p["wd"], p["sd"], 1e-5)
+    got = dm.fused_decode_mlp_int8(*args)
+    ref = dm._fused_mlp_ref(*args)
+    torch.cuda.synchronize()
+    _close(got, ref, 2e-2, "mlp")
+    _close_l2(got, ref, 1e-2, "mlp")
+    assert {e: dm.LAUNCHES[e] - k9.get(e, 0) for e in dm.ENTRIES} == dict.fromkeys(
+        dm.ENTRIES, 0)
+    assert quant.LAUNCHES["int8"] - k5 == 4 and norms.LAUNCHES["rms"] - k3 == 2
+    got = dm.fused_decode_mlp_int8(*args, w8a8=True)
+    ref = dm._mlp_w8a8_plain(*args)
+    torch.cuda.synchronize()
+    _close(got, ref, 2e-2, "mlp_w8a8")
+    _close_l2(got, ref, 1e-2, "mlp_w8a8")
+    assert dm.LAUNCHES["mlp_w8a8"] - k9.get("mlp_w8a8", 0) == -(-M // 8)
+
+
+def _k9_calls(p, x, res):
+    """The four entries on one set of operands."""
+    args = (x, p["nw"], p["wgu"], p["sgu"], p["wd"], p["sd"], 1e-5)
+    return {"norm_matmul": lambda: dm.fused_norm_matmul_int8(
+                x, p["nw"], p["w"], p["s"], 1e-5),
+            "matmul_residual": lambda: dm.matmul_residual_int8(
+                x, p["w"], p["s"], res),
+            "mlp": lambda: dm.fused_decode_mlp_int8(*args),
+            "mlp_w8a8": lambda: dm.fused_decode_mlp_int8(*args, w8a8=True)}
+
+
+@pytest.mark.parametrize("M", [1, 3, 4, 8])
+def test_k9_one_kernel_a_call_and_bit_equal_repeats(dev, M):
+    """Each entry is one device kernel a call (the profiler; a window that
+    falls short of the launches is taken again, at most three, as the
+    profiler now and then drops a record), and repeated calls give the
+    same bits: fixed summation orders, exact maxima, no atomics."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(17)
+    K, I, N = 3072, 8192, 3072
+    p = _decode_layer_weights(rng, dev, K, I, N)
+    x = _randn(rng, (M, K), dev)
+    res = _randn(rng, (M, N), dev)
+    for name, call in _k9_calls(p, x, res).items():
+        first = call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(call(), first) for _ in range(3)), name
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    call()
+                torch.cuda.synchronize()
+            kernels = [(e.key, e.count) for e in prof.key_averages()
+                       if (getattr(e, "self_device_time_total", 0)
+                           or getattr(e, "self_cuda_time_total", 0))]
+            assert all("k9_kernel" in k for k, _ in kernels), (name, kernels)
+            if sum(n for _, n in kernels) == 4:
+                break
+        assert sum(n for _, n in kernels) == 4, (name, kernels)
+
+
+@pytest.mark.parametrize("entry", ["norm_matmul", "mlp", "mlp_w8a8"])
+@pytest.mark.parametrize("M", [1, 8])
+def test_k9_entry_refuses_a_plan_that_does_not_fit(dev, entry, M):
+    """The C entry holds every region of shared memory in the plan against
+    its own constants, so a constant changed on one side only raises
+    instead of writing past its region."""
+    import dataclasses
+    rng = np.random.default_rng(18)
+    K, I, N = 3072, 8192, 9216
+    p = _decode_layer_weights(rng, dev, K, I, N)
+    x = _randn(rng, (M, K), dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n, d = (N, 0) if entry == "norm_matmul" else (I, K)
+    plan = dm.k9_plan(entry, M, n, K, d, sms)
+
+    def launch(pl):
+        if entry == "norm_matmul":
+            return dm.norm_matmul_kernel(x, p["nw"], p["w"], p["s"], 1e-5, plan=pl)
+        args = (x, p["nw"], p["wgu"], p["sgu"], p["wd"], p["sd"], 1e-5)
+        if entry == "mlp":
+            return dm.mlp_kernel(*args, plan=pl)
+        return dm.mlp_w8a8_kernel(*args, plan=pl)
+
+    got = launch(plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, launch(None))
+    bad = [dict(xstride=plan.xstride - 48),               # the rows of x / h
+           dict(sc_off=plan.x_off + 16),                   # scales over x
+           dict(red_off=plan.sc_off + 16),                 # sums over scales
+           dict(smem=plan.ring_off + 16),                  # the ring
+           dict(stages=9),                                 # mbarriers
+           dict(kseg1=2 * dm.k9_constants()["KSEG"])]      # segment > KSEG
+    if entry != "norm_matmul":
+        bad.append(dict(segs_pass=plan.nseg2 + 1))
+    before = dm.LAUNCHES[entry]
+    for change in bad:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch(dataclasses.replace(plan, **change))
+    assert dm.LAUNCHES[entry] == before
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,D,kv,qs", [
@@ -1375,6 +1500,27 @@ def test_k4_compiles_without_i2f(dev):
     assert len(body) == 4
     for n, s in k4.items():
         assert "I2F" not in s, n
+
+
+def test_k9_compiles_without_i2f(dev):
+    """K9 turns codes into floats by magic numbers and bf16 subtractions,
+    s32 sums into f32 by two exact halves, quantises by a magic-number
+    rounding and divides by no runtime integer: no I2F in any of its
+    sixteen instantiations (four entries x one, two, three rows on the CUDA
+    cores and the tensor-core route). The tensor-core route issues HMMA
+    (bf16 entries) or IMMA (W8A8), the CUDA-core route neither."""
+    from videoglamm_torch.ops import _cuda
+    k9 = _sass_functions(_cuda.load("decode_fused").path)
+    body = {n: s for n, s in k9.items() if "k9_kernel" in n}
+    assert len(body) == 16
+    for n, s in k9.items():
+        assert "I2F" not in s, n
+    # the mangled template arguments <MT, KIND>: MT 8 is the tensor-core
+    # route, KIND 3 the W8A8 entry
+    for n, s in body.items():
+        mt, kind = (int(v) for v in re.search(r"k9_kernelILi(\d)ELi(\d)E", n).groups())
+        assert ("IMMA" in s) == (mt == 8 and kind == 3), n
+        assert ("HMMA" in s) == (mt == 8 and kind != 3), n
 
 
 def test_k5_compiles_without_i2f(dev):

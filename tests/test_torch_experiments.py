@@ -242,6 +242,35 @@ def test_fused_mlp_w8a8_matches_jax(M, dt, pallas_refs):
     _close(got, plain.float().numpy(), 5e-2, "w8a8 vs weight-only")
 
 
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("M", [9, 16])
+def test_entries_above_8_rows_follow_the_jax_gate(M, dt):
+    """More than 8 rows: the JAX entries take their unfused compositions
+    (decode_mlp_experiment.py:270-276, :339-343, :392-398), and so do the
+    port's (on the card through K3 and K5, here through their twins). The
+    W8A8 variant, whose Pallas body takes any row count, is the same
+    function row by row: the card runs it on tiles of 8 rows."""
+    tdt, jdt, tol = DTYPES[dt]
+    p, j = _port_layer(M, tdt), _layer(M)
+    jx, jres = jnp.asarray(j["x"]).astype(jdt), jnp.asarray(j["res"]).astype(jdt)
+    jw = {k: jnp.asarray(j[k]) for k in ("nw", "w", "s", "wgu", "sgu", "wd", "sd")}
+    got = dm.fused_norm_matmul_int8(p["x"], p["nw"], p["w"], p["s"], EPS)
+    ref = jdm.fused_norm_matmul_int8(jx, jw["nw"], jw["w"], jw["s"], EPS)
+    _close(got, np.asarray(ref.astype(jnp.float32)), tol, "norm_matmul")
+    got = dm.matmul_residual_int8(p["x"], p["w"], p["s"], p["res"])
+    ref = jdm.matmul_residual_int8(jx, jw["w"], jw["s"], jres)
+    _close(got, np.asarray(ref.astype(jnp.float32)), tol, "matmul_residual")
+    args = (p["x"], p["nw"], p["wgu"], p["sgu"], p["wd"], p["sd"])
+    got = dm.fused_decode_mlp_int8(*args, EPS)
+    ref = jdm.fused_decode_mlp_int8(jx, jw["nw"], jw["wgu"], jw["sgu"],
+                                    jw["wd"], jw["sd"], EPS)
+    _close(got, np.asarray(ref.astype(jnp.float32)), tol, "mlp")
+    w8 = dm.fused_decode_mlp_int8(*args, EPS, w8a8=True)
+    tiles = torch.cat([dm._mlp_w8a8_plain(p["x"][i:i + 8], *args[1:], EPS)
+                       for i in range(0, M, 8)])
+    assert torch.equal(w8, tiles)
+
+
 def test_w8a8_trace_is_consistent():
     """The traced integers are the ones the output is made of: the s32 sums
     are integer products of the traced codes, group by group."""

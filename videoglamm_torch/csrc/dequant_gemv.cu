@@ -96,41 +96,6 @@ struct Plan {
 };
 constexpr int PLAN_FIELDS = 20;
 
-// Programmatic dependent launch: a K5 launch may start while the kernel
-// before it on the stream finishes; it streams weights (never written by a
-// kernel) at once and waits for the grid before it only where it reads x.
-// It lets the next launch be scheduled as soon as its own CTAs are running.
-__device__ __forceinline__ void wait_prior_grid() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-__device__ __forceinline__ void allow_next_grid() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-// n / d for the divisors above, without a division (whose reciprocal step
-// is an I2F): mul = ceil(2^32 / d) from `k5_plan`; exact while n * d < 2^32
-__device__ __forceinline__ int fast_div(int n, int d, int mul) {
-  return d == 1 ? n : static_cast<int>(__umulhi(static_cast<uint32_t>(n),
-                                                 static_cast<uint32_t>(mul)));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// shared memory -----------------------------------------------------------
-__device__ __forceinline__ uint4 lds128(const unsigned char* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ uint2 lds64(const unsigned char* p) {
-  return *reinterpret_cast<const uint2*>(p);
-}
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // Stage x rows m0 .. m0+MT-1 (zeros past M) into shared memory, NT threads.
 // CUDA-core route (MT <= 3): f32, each block of 32 chunks of 16 weight bytes
 // permuted so that the lanes' 16-byte loads of one quarter-chunk q are

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
 // (attention_fwd.cu's wgmma route, gemm_epilogue.cu, flash_bwd.cu,
-// dequant_gemv.cu, decode_attention_q8.cu): shared-memory matrix descriptors
-// and `wgmma.mma_async` wrappers, mbarrier helpers, TMA tensor loads and
+// dequant_gemv.cu, decode_attention_q8.cu, decode_fused.cu): shared-memory
+// matrix descriptors and `wgmma.mma_async` wrappers, programmatic dependent
+// launch, mbarrier helpers, TMA tensor loads and
 // stores, 1-D bulk copies, proxy fences, named barriers, register
 // reallocation, the int8 / int4 -> float conversions of K4 and K5, and the
 // host-side tensor-map encoder. Inline PTX,
@@ -38,6 +39,44 @@ template <int N> __device__ __forceinline__ void reg_alloc() {
 }
 template <int N> __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// programmatic dependent launch (K5, K9): a launch may start while the
+// kernel before it on the stream drains; it streams weights (never written
+// by a kernel) at once and waits for that grid only where it reads what the
+// grid wrote. It lets the next launch be scheduled as soon as its own CTAs
+// are running.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void allow_next_grid() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// n / d without a division (whose reciprocal step is an I2F): mul = ceil(2^32
+// / d) from the kernel's Python plan; exact while n * d < 2^32
+__device__ __forceinline__ int fast_div(int n, int d, int mul) {
+  return d == 1 ? n : static_cast<int>(__umulhi(static_cast<uint32_t>(n),
+                                                 static_cast<uint32_t>(mul)));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// shared-memory loads of 16, 8 and 4 bytes
+__device__ __forceinline__ uint4 lds128(const unsigned char* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ uint2 lds64(const unsigned char* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // ---------------------------------------------------------------------------

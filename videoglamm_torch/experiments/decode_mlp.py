@@ -11,13 +11,24 @@ or the `draft_k` rows of a speculative iteration):
   fused_decode_mlp_int8    x + down(silu(gate) * up)(norm)   (K9 mlp, mlp_w8a8)
 
 K9 (`csrc/decode_fused.cu`) holds the four kernels; its header says which
-Pallas body each replaces and how the sum over the intermediate width
-crosses thread blocks (a cooperative launch with grid barriers, one warp
-per output channel, a fixed summation order). It is an experiment: no
+Pallas body each replaces and how the work is laid out on the card (K5's
+design: persistent row ranges fed by a ring of bulk copies, CUDA cores for
+1 to 3 rows and tensor cores from 4, and for the two MLP entries one grid
+barrier that the weight stream runs through). `k9_plan` computes each
+launch's row ranges and shared-memory layout. It is an experiment: no
 serving path calls these functions, as in the JAX package, whose Phi-3 only
 points at the script (videoglamm_tpu/models/phi3.py:81-86).
 `experiments/bench_decode_fused.py` is the A/B harness against the port's
 serving chain.
+
+Rows: the JAX entries run their Pallas bodies for at most 8 rows and the
+unfused composition above that (decode_mlp_experiment.py:270-276, :339-343,
+:392-398). The port does the same by shape, before any launch: up to 8 rows
+go to K9 (or, on the CPU, its twin), more rows to the chain, which on the
+card is the port's own kernels (K3 norm, K5 products, SiLU, add) rounding
+where the JAX composition rounds. The W8A8 variant has no JAX gate (its
+Pallas body takes any row count); above 8 rows it runs K9 on tiles of 8
+rows, which is the same function row by row.
 
 Weights are in the port's orientation, [N, K] int8 with [N] f32 scales, so
 a `QDense`'s `weight` and `scale` go in with no copy (rows past N are its
@@ -34,17 +45,20 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import NamedTuple, Optional
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..ops import _cuda
+from ..ops import _cuda, norms, quant
 
 # K9 launches by entry ("norm_matmul", "matmul_residual", "mlp", "mlp_w8a8")
 LAUNCHES = collections.Counter()
 
 MAX_ROWS = 8          # rows a fused program takes (decode, speculative rows)
 W8A8_GROUP = 1024     # decode_mlp_experiment.py:201, `block_i`
+ENTRIES = ("norm_matmul", "matmul_residual", "mlp", "mlp_w8a8")
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +197,202 @@ def _fused_mlp_ref(x2, norm_w, wgu_q, wgu_s, wd_q, wd_s, eps: float):
     return x2 + (y * wd_s.float()).to(dt)
 
 
+def _matmul_residual_ref(x2, w_q, s, res2):
+    """The `jnp.dot` branch of `matmul_residual_int8` (:395-397): the
+    product is rounded to x's dtype BEFORE the residual is added."""
+    N = s.shape[0]
+    return res2 + (_dot_f32(x2, w_q[:N]) * s.float()).to(x2.dtype)
+
+
+# the same chains on the card, through the port's own kernels: the K3 row
+# norm, K5 at any row count (tiles of 8 rows), SiLU times up, K5, add
+def _norm_matmul_chain(x2, norm_w, w_q, s, eps: float):
+    return quant.dequant_gemv_int8(norms.row_norm(x2, norm_w, None, eps, rms=True),
+                                   w_q, s)
+
+
+def _matmul_residual_chain(x2, w_q, s, res2):
+    return res2 + quant.dequant_gemv_int8(x2, w_q, s)
+
+
+def _mlp_chain(x2, norm_w, wgu_q, wgu_s, wd_q, wd_s, eps: float):
+    I = wgu_s.shape[0] // 2
+    h = norms.row_norm(x2, norm_w, None, eps, rms=True)
+    gu = quant.dequant_gemv_int8(h, wgu_q, wgu_s)
+    gate, up = gu[:, :I].float(), gu[:, I:].float()
+    m = (gate * torch.sigmoid(gate) * up).to(x2.dtype)
+    return x2 + quant.dequant_gemv_int8(m, wd_q, wd_s)
+
+
+# ---------------------------------------------------------------------------
+# K9's plan: the persistent grid, the ring and the shared-memory layout
+# ---------------------------------------------------------------------------
+@lru_cache(maxsize=None)
+def k9_constants() -> dict:
+    """K9's `constexpr int` constants, read from its source (one
+    definition for the kernel and the plan)."""
+    return _cuda.constants("decode_fused")
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+@dataclass(frozen=True)
+class K9Plan:
+    """What `csrc/decode_fused.cu` launches for one entry: `ctas` CTAs, one
+    an SM, each a contiguous range of whole rows of phase 1 (the N output
+    rows, or for the MLP entries the I columns of h, a gate and an up row
+    each) and of phase 2 (the D rows of the down product): `rows(phase,
+    cta)`. A producer warp streams the rows in stages of 16 rows (8 gate +
+    8 up rows in phase 1 of the MLP entries) x one segment of `kseg1` (phase
+    1) or `kseg2` bytes (phase 2) through `stages` ring slots, rows
+    `rstride` bytes apart, at `ring_off`. The activation rows (x, then h)
+    sit at `x_off`, `xstride` bytes apart, `acols` columns each: h takes
+    `segs_pass` phase-2 segments at a time (all of them where it fits). The
+    scales and residual of the CTA's rows sit at `sc_off`, the consumers'
+    sums at `red_off`, W8A8's h of the CTA and group scales at `loc_off`.
+    The C entry checks every region against its own constants."""
+    entry: str
+    M: int
+    N: int              # phase-1 rows: N, or I for the MLP entries
+    K: int
+    D: int              # phase-2 rows (MLP entries), else 0
+    group: int          # W8A8 group along I, else 0
+    ctas: int
+    mt: int
+    kseg1: int
+    nseg1: int
+    kseg2: int
+    nseg2: int
+    segs_pass: int
+    segs_group: int
+    stages: int
+    rstride: int
+    xstride: int
+    acols: int
+    x_off: int
+    sc_off: int
+    red_off: int
+    loc_off: int
+    ring_off: int
+    smem: int
+
+    def fields(self) -> tuple:
+        """The integers the C entry takes, in its `Plan` struct's order."""
+        base1, extra1 = divmod(self.N, self.ctas)
+        base2, extra2 = divmod(self.D, self.ctas)
+        groups = self.N // self.group if self.group else 0
+        return (self.ctas, self.mt, self.kseg1, self.nseg1, self.kseg2,
+                self.nseg2, self.segs_pass, self.segs_group, self.stages,
+                self.rstride, self.xstride, self.acols, self.x_off,
+                self.sc_off, self.red_off, self.loc_off, self.ring_off,
+                self.smem, base1, extra1, base2, extra2, groups,
+                quant._div_mul(self.group) if self.group else 0)
+
+    @property
+    def mma(self) -> bool:
+        return self.mt == k9_constants()["MMA_TILE"]
+
+    def rows(self, phase: int, cta: int) -> Tuple[int, int]:
+        """(first row, row count) of a CTA in phase 1 or 2: shares differ
+        by at most one."""
+        n = self.N if phase == 1 else self.D
+        base, extra = divmod(n, self.ctas)
+        return cta * base + min(cta, extra), base + (cta < extra)
+
+
+def k9_plan(entry: str, M: int, N: int, K: int, D: int, sms: int,
+            group: int = W8A8_GROUP) -> K9Plan:
+    """K9's launch of `entry` for x [M, K] on a card of `sms` SMs: the CUDA
+    cores up to ROWS_MAX_M rows, the tensor cores above. N: the output rows
+    (norm_matmul, matmul_residual) or I (mlp, mlp_w8a8, whose down product
+    has D rows); group: mlp_w8a8's activation group along I (min(group, I)
+    is taken). Raises ValueError where the layout does not fit."""
+    c = k9_constants()
+    if entry not in ENTRIES:
+        raise ValueError(f"k9_plan: unknown entry {entry!r}")
+    if not 1 <= M <= c["MMA_TILE"] or K <= 0 or K % 16 or N <= 0 \
+            or (N % 16 and entry in ENTRIES[2:]):
+        raise ValueError(f"k9_plan: {entry} takes 1 to {c['MMA_TILE']} rows "
+                         f"and 16-byte rows (M={M}, K={K}, N={N})")
+    two, w8 = entry in ENTRIES[2:], entry == "mlp_w8a8"
+    mma = M > c["ROWS_MAX_M"]
+    if w8:
+        group = min(group, N)
+        if group % 16 or N % group:
+            raise ValueError(f"k9_plan: group {group} must be a multiple of 16 "
+                             f"that divides I={N}")
+    else:
+        group = 0
+    tile, rows_a_stage = c["MMA_TILE"], c["GROUP_ROWS"]
+    n2 = D if two else 0
+    ctas = min(sms, max(N, n2))
+    rmax1, rmax2 = -(-N // ctas), -(-n2 // ctas)
+    rres = rmax2 if two else rmax1
+    sc_bytes = 4 * (2 * rmax1 + rmax2 + tile * rres)
+    groups = N // group if w8 else 0
+    # the sums: two buffers of the warps' 16 x 8 tiles (mma; W8A8 also two
+    # row groups of a tile per group of I) or of a sum a (stage row, row of x)
+    red = 2 * 4 * (max(c["CONS_WARPS"], groups) * 128 if mma else rows_a_stage * tile)
+    loc = 4 * (rmax1 * tile + tile * groups) if w8 else 0
+
+    def xstride_of(acols):
+        # x / h rows: int8 codes (W8A8); bf16 in 4-k pairs (mma); f32 in K5's
+        # permuted blocks of 512 k (CUDA cores); mma rows 16 (W8A8) or 32
+        # (bf16) mod 128 bytes apart, so that the fragment loads hit 32 banks
+        if w8:
+            return _round_up(acols, 128) + 16 if mma else _round_up(acols, 16)
+        return _round_up(2 * acols, 128) + 32 if mma else 4 * _round_up(acols, 512)
+
+    def layout(kseg, segs_pass):
+        """The layout with segments of at most `kseg` bytes and h staged
+        `segs_pass` phase-2 segments at a time (0: all of it)."""
+        if w8:
+            # phase-2 segments never cross a group: a divisor of it; phase 1
+            # no longer, or the ring's slots would be half empty in phase 2
+            kseg2 = max(d for d in range(16, min(group, kseg) + 1, 16)
+                        if group % d == 0)
+            kseg1 = min(K, kseg2)
+        else:
+            kseg1, kseg2 = min(K, kseg), (min(N, kseg) if two else 0)
+        nseg2 = -(-N // kseg2) if two else 0
+        segs_pass = segs_pass or nseg2
+        acols = max(K, min(N, segs_pass * kseg2) if two else 0)
+        # rows 16 mod 128 bytes apart: no bank conflicts in the mma loads
+        rstride = _round_up(max(kseg1, kseg2), 128) + 16
+        xstride = xstride_of(acols)
+        x_off = c["BARRIER_BYTES"]
+        sc_off = _round_up(x_off + M * xstride, 16)
+        red_off = _round_up(sc_off + sc_bytes, 16)
+        loc_off = red_off + red
+        ring_off = _round_up(loc_off + loc, 128)
+        stages = min(c["MAX_STAGES"],
+                     (c["SMEM_MAX"] - ring_off) // (rows_a_stage * rstride))
+        return dict(kseg1=kseg1, nseg1=-(-K // kseg1), kseg2=kseg2, nseg2=nseg2,
+                    segs_pass=segs_pass if two else 0,
+                    segs_group=group // kseg2 if w8 else 0, stages=stages,
+                    rstride=rstride, xstride=xstride, acols=acols, x_off=x_off,
+                    sc_off=sc_off, red_off=red_off, loc_off=loc_off,
+                    ring_off=ring_off,
+                    smem=ring_off + stages * rows_a_stage * rstride)
+
+    # 2 KB segments halve the handshakes a byte where they leave a ring of
+    # GOOD_STAGES; else 1 KB, and h in passes where even that leaves no ring
+    lay = layout(c["KSEG"], 0)
+    if lay["stages"] < c["GOOD_STAGES"]:
+        lay = layout(c["KSEG"] // 2, 0)
+    if two and lay["stages"] < c["MIN_STAGES"]:
+        for segs in range(lay["nseg2"] - 1, 0, -1):
+            lay = layout(c["KSEG"] // 2, segs)
+            if lay["stages"] >= c["MIN_STAGES"]:
+                break
+    if lay["stages"] < c["MIN_STAGES"]:
+        raise ValueError(f"k9_plan: {entry} M={M} K={K} N={N} D={D} leaves no "
+                         f"room for a ring of {c['MIN_STAGES']} stages")
+    return K9Plan(entry, M, N, K, n2, group, ctas, tile if mma else M, **lay)
+
+
 # ---------------------------------------------------------------------------
 # K9 launchers
 # ---------------------------------------------------------------------------
@@ -192,14 +402,25 @@ def _fn(entry: str):
         P, L, I, F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_float)
         fn.argtypes = {
-            "norm_matmul": [P, L, P, P, P, P, L, I, I, I, F, P],
-            "matmul_residual": [P, L, P, P, P, L, P, L, I, I, I, P],
-            "mlp": [P, L, P, P, P, P, P, P, P, L, I, I, I, I, F, P],
-            "mlp_w8a8": [P, L, P, P, P, P, P, P, P, P, P, L, I, I, I, I, I, F,
-                         P, P, P, P, P],
-        }[entry]
+            "norm_matmul": [P, L, P, P, P, P, L, I, I, I, F],
+            "matmul_residual": [P, L, P, P, P, L, P, L, I, I, I],
+            "mlp": [P, L, P, P, P, P, P, P, P, L, I, I, I, I, F],
+            "mlp_w8a8": [P, L, P, P, P, P, P, P, P, P, L, I, I, I, I, I, F,
+                         P, P, P, P, P, P],
+        }[entry] + [P, I, P]                  # plan, its length, stream
         fn.restype = ctypes.c_int
     return fn
+
+
+def _plan(entry: str, x2, n: int, d: int = 0, group: int = 0, plan=None):
+    """`k9_plan`'s plan for this launch unless one is given (the card tests
+    hand in altered plans, which the C entry must refuse), and its fields
+    as a C array."""
+    if plan is None:
+        plan = k9_plan(entry, x2.shape[0], n, x2.shape[1], d,
+                       _cuda.sm_count(x2.device.index), group or W8A8_GROUP)
+    f = plan.fields()
+    return plan, (ctypes.c_int * len(f))(*f)
 
 
 def _check_x(x2, what: str):
@@ -227,30 +448,36 @@ def _check_weight(w_q, s, K: int, what: str, rows: Optional[int] = None):
 
 def _check_norm(norm_w, K: int, what: str):
     if not norm_w.is_cuda or norm_w.dtype != torch.float32 \
-            or norm_w.shape != (K,) or not norm_w.is_contiguous():
-        raise ValueError(f"{what}: the norm weight must be a contiguous CUDA "
-                         f"f32 [{K}] tensor")
+            or norm_w.shape != (K,) or not norm_w.is_contiguous() \
+            or norm_w.data_ptr() % 16:
+        raise ValueError(f"{what}: the norm weight must be a contiguous, "
+                         f"16-byte aligned CUDA f32 [{K}] tensor")
 
 
-def norm_matmul_kernel(x2, norm_w, w_q, s, eps: float):
+def norm_matmul_kernel(x2, norm_w, w_q, s, eps: float, plan=None):
     """Launch K9 norm_matmul. x2: [M <= 8, K] bf16; norm_w: [K] f32; w_q:
-    [>= N, K] int8, K % 16 == 0; s: [N] f32 -> [M, N] bf16."""
+    [>= N, K] int8, K % 16 == 0; s: [N] f32 -> [M, N] bf16.
+
+    K9 is a programmatic dependent launch, as K5 (`dequant_gemv_int8`):
+    it reads the weights and scales before the kernel before it on the
+    stream has finished, so no kernel still running may write them."""
     M, K = x2.shape
     N = s.shape[0]
     _check_x(x2, "norm_matmul")
     _check_norm(norm_w, K, "norm_matmul")
     _check_weight(w_q, s, K, "norm_matmul")
+    _, fields = _plan("norm_matmul", x2, N, plan=plan)
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     err = _fn("norm_matmul")(
         x2.data_ptr(), x2.stride(0), norm_w.data_ptr(), w_q.data_ptr(),
         s.data_ptr(), out.data_ptr(), out.stride(0), M, N, K, float(eps),
-        _cuda.stream_ptr(x2))
+        fields, len(fields), _cuda.stream_ptr(x2))
     _cuda.check_launch(err, "decode_fused norm_matmul")
     LAUNCHES["norm_matmul"] += 1
     return out
 
 
-def matmul_residual_kernel(x2, w_q, s, res2):
+def matmul_residual_kernel(x2, w_q, s, res2, plan=None):
     """Launch K9 matmul_residual. x2: [M <= 8, K] bf16; w_q: [>= N, K]
     int8; s: [N] f32; res2: [M, N] bf16 -> [M, N] bf16."""
     M, K = x2.shape
@@ -261,11 +488,12 @@ def matmul_residual_kernel(x2, w_q, s, res2):
     if res2.shape != (M, N):
         raise ValueError(f"matmul_residual: res {tuple(res2.shape)} for an "
                          f"output [{M},{N}]")
+    _, fields = _plan("matmul_residual", x2, N, plan=plan)
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     err = _fn("matmul_residual")(
         x2.data_ptr(), x2.stride(0), w_q.data_ptr(), s.data_ptr(),
         res2.data_ptr(), res2.stride(0), out.data_ptr(), out.stride(0),
-        M, N, K, _cuda.stream_ptr(x2))
+        M, N, K, fields, len(fields), _cuda.stream_ptr(x2))
     _cuda.check_launch(err, "decode_fused matmul_residual")
     LAUNCHES["matmul_residual"] += 1
     return out
@@ -284,25 +512,28 @@ def _check_mlp(x2, norm_w, wgu_q, wgu_s, wd_q, wd_s, what: str):
     return M, K, I, D
 
 
-def mlp_kernel(x2, norm_w, wgu_q, wgu_s, wd_q, wd_s, eps: float):
+def mlp_kernel(x2, norm_w, wgu_q, wgu_s, wd_q, wd_s, eps: float, plan=None):
     """Launch K9 mlp. x2: [M <= 8, K] bf16; wgu_q: [2I, K] int8 (gate rows,
     then up rows) with wgu_s [2I]; wd_q: [>= K, I] int8 with wd_s [K]; K
-    and I multiples of 16 -> [M, K] bf16."""
+    and I multiples of 16 -> [M, K] bf16. A cooperative launch (one grid
+    barrier between h and the down product); the weights' contract is
+    `norm_matmul_kernel`'s."""
     M, K, I, D = _check_mlp(x2, norm_w, wgu_q, wgu_s, wd_q, wd_s, "mlp")
+    _, fields = _plan("mlp", x2, I, D, plan=plan)
     out = torch.empty((M, D), dtype=x2.dtype, device=x2.device)
     hbuf = torch.empty((M, I), dtype=x2.dtype, device=x2.device)
     err = _fn("mlp")(
         x2.data_ptr(), x2.stride(0), norm_w.data_ptr(), wgu_q.data_ptr(),
         wgu_s.data_ptr(), wd_q.data_ptr(), wd_s.data_ptr(), hbuf.data_ptr(),
         out.data_ptr(), out.stride(0), M, K, I, D, float(eps),
-        _cuda.stream_ptr(x2))
+        fields, len(fields), _cuda.stream_ptr(x2))
     _cuda.check_launch(err, "decode_fused mlp")
     LAUNCHES["mlp"] += 1
     return out
 
 
 def mlp_w8a8_kernel(x2, norm_w, wgu_q, wgu_s, wd_q, wd_s, eps: float,
-                    group: int = W8A8_GROUP, trace: bool = False):
+                    group: int = W8A8_GROUP, trace: bool = False, plan=None):
     """Launch K9 mlp_w8a8; operands as `mlp_kernel`. group: the columns of
     I that share one activation scale (min(group, I) must divide I and be a
     multiple of 16). trace=True also returns the kernel's integers as a
@@ -312,29 +543,31 @@ def mlp_w8a8_kernel(x2, norm_w, wgu_q, wgu_s, wd_q, wd_s, eps: float,
     if group % 16 or I % group:
         raise ValueError(f"mlp_w8a8: group {group} must be a multiple of 16 "
                          f"that divides I={I}")
+    plan, fields = _plan("mlp_w8a8", x2, I, D, group, plan=plan)
     dev, G = x2.device, I // group
     out = torch.empty((M, D), dtype=x2.dtype, device=dev)
     hf = torch.empty((M, I), dtype=torch.float32, device=dev)
-    hq = torch.empty((M, I), dtype=torch.int8, device=dev)
-    hs = torch.empty((M, G), dtype=torch.float32, device=dev)
-    dbg = [None] * 4
+    slots = torch.empty((plan.ctas, M, G), dtype=torch.float32, device=dev)
+    dbg = [None] * 6
     if trace:
         dbg = [torch.empty((M, K), dtype=torch.int8, device=dev),
                torch.empty((M,), dtype=torch.float32, device=dev),
                torch.empty((M, 2 * I), dtype=torch.int32, device=dev),
-               torch.empty((G, M, D), dtype=torch.int32, device=dev)]
+               torch.empty((G, M, D), dtype=torch.int32, device=dev),
+               torch.empty((M, I), dtype=torch.int8, device=dev),
+               torch.empty((M, G), dtype=torch.float32, device=dev)]
     err = _fn("mlp_w8a8")(
         x2.data_ptr(), x2.stride(0), norm_w.data_ptr(), wgu_q.data_ptr(),
         wgu_s.data_ptr(), wd_q.data_ptr(), wd_s.data_ptr(), hf.data_ptr(),
-        hq.data_ptr(), hs.data_ptr(), out.data_ptr(), out.stride(0), M, K, I,
-        D, group, float(eps),
-        *(t.data_ptr() if t is not None else None for t in dbg),
-        _cuda.stream_ptr(x2))
+        slots.data_ptr(), out.data_ptr(), out.stride(0), M, K, I, D, group,
+        float(eps), *(t.data_ptr() if t is not None else None for t in dbg),
+        fields, len(fields), _cuda.stream_ptr(x2))
     _cuda.check_launch(err, "decode_fused mlp_w8a8")
     LAUNCHES["mlp_w8a8"] += 1
     if not trace:
         return out
-    return out, W8A8Trace(dbg[0], dbg[1], dbg[2], hq, hs, dbg[3])
+    xq, xs, gu, down, hq, hs = dbg
+    return out, W8A8Trace(xq, xs, gu, hq, hs, down)
 
 
 # ---------------------------------------------------------------------------
@@ -342,11 +575,15 @@ def mlp_w8a8_kernel(x2, norm_w, wgu_q, wgu_s, wd_q, wd_s, eps: float,
 # ---------------------------------------------------------------------------
 def fused_norm_matmul_int8(x, norm_w, w_q, s, eps: float = 1e-5):
     """rmsnorm(x) @ dequant(w_q, s) in one program (decode qkv projection;
-    `fused_norm_matmul_int8`, :333). x: [..., K] with at most 8 rows; w_q:
-    [>= N, K] int8; s: [N] -> [..., N]."""
+    `fused_norm_matmul_int8`, :333). x: [..., K]; w_q: [>= N, K] int8; s:
+    [N] -> [..., N]. More than 8 rows take the unfused chain."""
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
-    if x2.device.type == "cpu":
+    cpu = x2.device.type == "cpu"
+    if x2.shape[0] > MAX_ROWS:
+        y = (_norm_matmul_ref if cpu else _norm_matmul_chain)(
+            x2, norm_w, w_q, s, float(eps))
+    elif cpu:
         y = _norm_matmul_plain(x2, norm_w, w_q, s, float(eps))
     else:
         y = norm_matmul_kernel(x2, norm_w, w_q, s, float(eps))
@@ -356,11 +593,16 @@ def fused_norm_matmul_int8(x, norm_w, w_q, s, eps: float = 1e-5):
 def matmul_residual_int8(x, w_q, s, res):
     """res + x @ dequant(w_q, s) in one program (decode o_proj;
     `matmul_residual_int8`, :384). x: [..., K]; w_q: [>= N, K] int8; s:
-    [N]; res: [..., N] -> [..., N]."""
+    [N]; res: [..., N] -> [..., N]. More than 8 rows take the unfused
+    chain, which rounds the product before the residual is added."""
     lead, K = x.shape[:-1], x.shape[-1]
     N = s.shape[0]
     x2, r2 = x.reshape(-1, K), res.reshape(-1, N)
-    if x2.device.type == "cpu":
+    cpu = x2.device.type == "cpu"
+    if x2.shape[0] > MAX_ROWS:
+        y = (_matmul_residual_ref if cpu else _matmul_residual_chain)(
+            x2, w_q, s, r2)
+    elif cpu:
         y = _matmul_residual_plain(x2, w_q, s, r2)
     else:
         y = matmul_residual_kernel(x2, w_q, s, r2)
@@ -372,14 +614,23 @@ def fused_decode_mlp_int8(x, norm_w, wgu_q, wgu_s, wd_q, wd_s,
                           group: int = W8A8_GROUP):
     """x + down(silu(gate) * up) over rmsnorm(x) in one program
     (`fused_decode_mlp_int8`, :259; w8a8=True is `_fused_mlp_pallas_w8a8`,
-    :201). x: [..., D] with at most 8 rows; wgu_q: [2I, D] int8 (+ scale
-    [2I]); wd_q: [>= D, I] int8 (+ scale [D]) -> [..., D]. group: the
-    w8a8 variant's activation-scale width along I."""
+    :201). x: [..., D]; wgu_q: [2I, D] int8 (+ scale [2I]); wd_q: [>= D, I]
+    int8 (+ scale [D]) -> [..., D]. group: the w8a8 variant's
+    activation-scale width along I. More than 8 rows take the unfused chain
+    (w8a8: K9 on tiles of 8 rows)."""
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     args = (x2, norm_w, wgu_q, wgu_s, wd_q, wd_s, float(eps))
-    if x2.device.type == "cpu":
-        y = _mlp_w8a8_plain(*args, group) if w8a8 else _mlp_plain(*args)
+    cpu = x2.device.type == "cpu"
+    if w8a8 and cpu:
+        y = _mlp_w8a8_plain(*args, group)
+    elif w8a8 and x2.shape[0] <= MAX_ROWS:
+        y = mlp_w8a8_kernel(*args, group)
+    elif w8a8:
+        y = torch.cat([mlp_w8a8_kernel(x2[i:i + MAX_ROWS], *args[1:], group)
+                       for i in range(0, x2.shape[0], MAX_ROWS)])
+    elif x2.shape[0] > MAX_ROWS:
+        y = (_fused_mlp_ref if cpu else _mlp_chain)(*args)
     else:
-        y = mlp_w8a8_kernel(*args, group) if w8a8 else mlp_kernel(*args)
+        y = _mlp_plain(*args) if cpu else mlp_kernel(*args)
     return y.reshape(*lead, wd_s.shape[0])
