@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the videoglamm_torch port once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases all|kernels,experiments,serve,train]
+    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,train]
 
 Run from the root of a checkout. `--phases` (default all, as the contract
 runs it) picks phases 3 (kernels), the experiment harnesses, 4-5 (serve and
-check) and 6-7 (train) to run; the build always runs. Phases, each fatal on
-failure:
+check), 6 (predictors) and 7-8 (train) to run; the build always runs.
+Phases, each fatal on failure:
 
 1. device: needs CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off for matmuls and cuDNN;
@@ -121,7 +121,25 @@ failure:
    2 objects, at 1024 and at 512) on the card against the CPU twins in
    f32, step by step on the reference's memory bank: all mask candidates,
    IoUs, object scores and the encoded memories;
-6. train: builds the flagship model for training through `build_training`
+6. predictors: SAM-2 alone at flagship width (`SAM2Config()`, Hiera-L at
+   1024, seeded random weights) through `build_sam2`, its three surfaces
+   with the counters set to 0 just before each path and read just after:
+   the image predictor (`set_image` on a raw 480x854 uint8 frame, points
+   with three masks, a box, a refinement fed the low-res logits back,
+   `set_image_batch` of 4 and `predict_batch`, hole and sprinkle filling
+   on, so that connected components run on the card); the automatic mask
+   generator on a 1024x1024 uint8 image (32x32 grid, 64 points a batch, at
+   the JAX defaults and with both thresholds at 0, then an 8x8 grid over
+   one crop layer with m2m and small-region filling); the interactive
+   predictor over 16 raw frames and 2 objects (points on frame 0, a box on
+   8, a mask on 15, propagation forward from 0 and back from 15, with
+   clear_non_cond_mem_around_input, then `to_video_res` with non-overlapping
+   masks). Each image-encoder forward must launch K1 flash 3, K1 window 42,
+   K2 168 and K3 85 times, whatever its batch; each propagated frame K1 at
+   head dim 256 and its staging pass 4 times. Prints the stage times, the
+   device-busy share of one AMG pass and of one propagation, then holds a
+   narrow SAM-2 in bf16 on the card to its f32 CPU twin on each surface;
+7. train: builds the flagship model for training through `build_training`
    (LoRA rank 8 on q and v, remat, f32 masters of the trainable weights,
    seeded random weights with a non-zero LoRA B) and takes four optimizer
    steps of two micro-steps each on a synthetic batch from the seed (2
@@ -133,7 +151,7 @@ failure:
    micro-step, and a checkpoint saved and restored repeats the next step's
    loss. Prints per step the wall seconds, LLM positions/s, the forward /
    backward / optimizer split and the peak memory;
-7. train check: a narrow model at the real sequence length (so K1 and K6
+8. train check: a narrow model at the real sequence length (so K1 and K6
    are taken) in bf16 on the card against the same weights in f32 on the
    CPU through the plain twins: the loss and the gradient of every
    trainable leaf, by relative L2.
@@ -438,7 +456,7 @@ def device_split_ms(fn, parts: dict, calls: int = 10) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):     # a profiling window that recorded no kernel at all
+    for _ in range(3):     # a profiling window that missed one of the parts
         with profile(activities=[ProfilerActivity.CUDA]) as prof:   # is taken again
             for _ in range(calls):
                 fn()
@@ -448,9 +466,10 @@ def device_split_ms(fn, parts: dict, calls: int = 10) -> dict:
             for label, key in parts.items():
                 if key in e.key:
                     out[label] = out.get(label, 0.0) + _device_us(e) / 1e3 / calls
-        if out:
+        if set(out) == set(parts):
             break
-        log("    the profiler recorded no kernel in this window; profiling again")
+        log(f"    the profiler recorded {sorted(out)} of {sorted(parts)} in this "
+            "window; profiling again")
     if set(out) != set(parts):
         raise AssertionError(f"the profiler saw {sorted(out)} of {sorted(parts)}")
     return out
@@ -1995,12 +2014,41 @@ def phase_small_reference():
             del dev_q, ref_q
 
 
+def device_busy(fn, what: str, smi: str = "", top: int = 6):
+    """Run fn once under torch.profiler and log its wall ms, device-busy ms
+    and their share, the device launches and the `top` kernels by device
+    time. Returns (fn's result, the profiler rows with device time: empty
+    when the profiler saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    tag = f" [{smi}]" if smi else ""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if _device_us(e) > 0 and "cuda" in str(e.device_type).lower()]
+    if not rows:
+        log(f"  {what} under the profiler: {wall_ms:.1f} ms; device time not "
+            f"measured (the profiler saw none){tag}")
+        return out, rows
+    busy_ms = sum(_device_us(e) for e in rows) / 1e3
+    best = sorted(rows, key=_device_us, reverse=True)[:top]
+    log(f"  {what} under the profiler: {wall_ms:.1f} ms wall, device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.3f}), "
+        f"{sum(e.count for e in rows)} device launches; top: "
+        + "; ".join(f"{e.key[:56]} {_device_us(e) / 1e3:.1f} ms x{e.count}"
+                    for e in best) + tag)
+    return out, rows
+
+
 def profile_track(gi, cfg, raw):
     """The tracker alone under torch.profiler: `track_masks` on one clip's
     16 SAM frames and 4 seeded [SEG] prompts; wall, device-busy share,
     launches and the kernels that take most device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from videoglamm_torch.ops.preprocess import preprocess_sam_stream
 
     m = gi.model
@@ -2010,28 +2058,14 @@ def profile_track(gi, cfg, raw):
         frames_sam = preprocess_sam_stream(raw, cfg.sam2.image_size,
                                            torch.bfloat16)[0]
         m.track_masks(frames_sam, seg)                       # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            masks = m.track_masks(frames_sam, seg)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        masks, rows = device_busy(
+            lambda: m.track_masks(frames_sam, seg),
+            f"tracker ({tuple(frames_sam.shape)} frames, "
+            f"{cfg.max_seg_tokens} objects)", top=8)
     if not torch.isfinite(masks).all():
         raise AssertionError("profiled tracker: non-finite masks")
-    rows = [e for e in prof.key_averages()
-            if _device_us(e) > 0 and "cuda" in str(e.device_type).lower()]
     if not rows:
-        log(f"  tracker under the profiler: {wall_ms:.1f} ms; device time not "
-            "measured (the profiler saw none)")
         return
-    busy_ms = sum(_device_us(e) for e in rows) / 1e3
-    top = sorted(rows, key=_device_us, reverse=True)[:8]
-    log(f"  tracker under the profiler ({tuple(frames_sam.shape)} frames, "
-        f"{cfg.max_seg_tokens} objects): {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.2f}), "
-        f"{sum(e.count for e in rows)} device launches; top: "
-        + "; ".join(f"{e.key[:56]} {_device_us(e) / 1e3:.1f} ms x{e.count}"
-                    for e in top))
     # the memory self-attention: K1 (64x64 grid) or K7 (32x32) and the
     # staging pass of its f32 operands
     mem = [(name, [e for e in rows if key in e.key]) for name, key in
@@ -2438,33 +2472,17 @@ def profile_train_step(tr, state, batch) -> float:
     """One optimizer step under torch.profiler: wall, device-busy share, the
     device launches and the kernels that take most device time. Returns the
     step's loss."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, metrics = tr.train_step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages()
-            if _device_us(e) > 0 and "cuda" in str(e.device_type).lower()]
+    (_, metrics), rows = device_busy(lambda: tr.train_step(state, batch),
+                                     "train step", top=12)
     if not rows:
-        log(f"  train step under the profiler: {wall_ms:.1f} ms; device time "
-            "not measured (the profiler saw none)")
         return float(metrics["loss"])
     busy_ms = sum(_device_us(e) for e in rows) / 1e3
-    top = sorted(rows, key=_device_us, reverse=True)[:12]
-    log(f"  train step under the profiler: {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.2f}), "
-        f"{sum(e.count for e in rows)} device launches; top: "
-        + "; ".join(f"{e.key[:56]} {_device_us(e) / 1e3:.1f} ms x{e.count}"
-                    for e in top))
     # K6's kernels by name, in the top list or not
     k6 = {part: [e for e in rows if f"flash_bwd_{part}" in e.key]
           for part in ("delta", "dq", "dkv")}
     if not all(k6.values()):
         raise AssertionError("train step: the profiler does not name K6's "
-                             f"kernels: {[e.key[:56] for e in top]}")
+                             f"kernels: {sorted(e.key[:56] for e in rows)}")
     k6_ms = {p: sum(_device_us(e) for e in es) / 1e3 for p, es in k6.items()}
     log("  train step, K6 under the profiler: "
         + ", ".join(f"{p} {k6_ms[p]:.1f} ms x{sum(e.count for e in k6[p])}"
@@ -2553,7 +2571,517 @@ def phase_small_train_reference(seed: int):
                              "disagree with the CPU reference")
 
 
-PHASES = ("kernels", "experiments", "serve", "train")
+# ---------------------------------------------------------------------------
+# predictors: the SAM-2 image predictor, the automatic mask generator and
+# the interactive video predictor
+# ---------------------------------------------------------------------------
+# one image-encoder forward of Hiera-L at 1024, whatever its batch: 3
+# global blocks on K1 flash, 42 fused window blocks (K1 window mode, 4 K2
+# products and 2 K3 norms each), and K3 on the one 1152-wide norm of the
+# stage-4 pooling block (Hiera's other norms are 144, 288 and 576 wide,
+# which K3's gate leaves to the plain twin). All K1 launches take the
+# "wgmma" route.
+ENCODE = {"attention_fwd[flash]": 3, "attention_fwd[window]": 42,
+          "fused_window_block": 42, "gemm_epilogue": 168,
+          "row_norm[ln]": 2 * 42 + 1, "k1_route[wgmma]": 45,
+          "attention_fwd[flash_d256]": 0, "k1_route[wgmma_f32]": 0,
+          "stage_bf16": 0, "attention_fwd[bshd]": 0, "window_attention": 0}
+ENCODE_KERNELS = ("attention_fwd[flash]", "attention_fwd[window]",
+                  "fused_window_block", "gemm_epilogue", "k1_route[wgmma]")
+N_PROPAGATE_FRAMES = 16
+N_OBJECTS = 2
+AMG_SMALL_GRID = 8      # points a side of the crop pass (5 crops, m2m)
+TOL_PRED_REF = 2e-2     # relative L2, narrow SAM-2 in bf16 on the card vs f32
+                        # on the CPU: bf16 image features, f32 heads (as
+                        # TOL_TRACK_REF)
+TOL_STABILITY = 5e-2    # |d| of a stability score (a ratio of pixel counts
+                        # whose boundary pixels move with bf16 logits)
+
+
+def check_launches(counts: dict, want: dict, what: str):
+    bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if bad:
+        raise AssertionError(f"{what}: launches (got, expected) {bad}")
+
+
+def _wall(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _blob_masks(B: int, S: int):
+    """User-drawn masks: one rectangle an object, the second with a hole."""
+    import torch
+    m = torch.zeros(B, S, S)
+    for b in range(B):
+        y0, x0 = (S // 8) * (b + 1), (S // 6) * (b + 1)
+        m[b, y0:y0 + S // 3, x0:x0 + S // 4] = 1.0
+    if B > 1:
+        m[1, S // 4 + S // 16:S // 4 + S // 8, S // 3 + S // 16:S // 3 + S // 8] = 0.0
+    return m
+
+
+def phase_predictors(smi: str) -> dict:
+    """The three SAM-2 surfaces at flagship width (`SAM2Config()`: Hiera-L
+    at 1024, seeded random weights, bf16 image encoder, f32 heads) through
+    `build_sam2`, with the launch counters set to 0 just before each path
+    and read just after it. Returns the counts of the interactive session's
+    propagations (K1 at head dim 256) and of one image encode."""
+    import torch
+    import numpy as np
+    from videoglamm_torch.config import SAM2Config
+    from videoglamm_torch.inference.pipeline import build_sam2
+    from videoglamm_torch.models.sam2.amg import (SAM2AutomaticMaskGenerator,
+                                                  generate_crop_boxes)
+    from videoglamm_torch.models.sam2.image_predictor import SAM2ImagePredictor
+    from videoglamm_torch.models.sam2.interactive import (
+        SAM2InteractivePredictor, propagation_frames)
+    from videoglamm_torch.ops.connected_components import connected_components
+    from videoglamm_torch.ops.preprocess import preprocess_sam_stream
+
+    cfg = SAM2Config()
+    t0 = time.perf_counter()
+    sam = build_sam2(cfg, device="cuda", dtype=torch.bfloat16,
+                     init=lambda m: seeded_init(
+                         m, torch.Generator(device="cuda").manual_seed(5)))
+    torch.cuda.synchronize()
+    log(f"  SAM-2 Hiera-L at {cfg.image_size}: "
+        f"{sum(p.numel() for p in sam.parameters()) / 1e6:.1f} M parameters, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(51)
+    frames = torch.randint(0, 256, (N_PROPAGATE_FRAMES, RAW_H, RAW_W, 3),
+                           dtype=torch.uint8, generator=g, device="cuda")
+    E4 = 4 * cfg.low_res_size
+
+    # --- image predictor -------------------------------------------------
+    pred = SAM2ImagePredictor(sam, max_hole_area=64.0, max_sprinkle_area=64.0)
+    pred.set_image(frames[0])                                  # warm-up
+    reset_counts()
+    _, enc_ms = _wall(lambda: pred.set_image(frames[0]))
+    encode_counts = read_counts()
+    check_launches(encode_counts, ENCODE, "set_image (one Hiera-L encode)")
+    pts = np.array([[300.0, 200.0], [520.0, 260.0]])
+    pred.predict(point_coords=pts, point_labels=np.array([1, 0]))   # warm-up
+    reset_counts()
+    (masks, ious, low), pt_ms = _wall(lambda: pred.predict(
+        point_coords=pts, point_labels=np.array([1, 0]), multimask_output=True))
+    check_launches(read_counts(), {k: 0 for k in ENCODE_KERNELS},
+                   "predict (the decoder launches no encoder kernel)")
+    if masks.shape != (3, RAW_H, RAW_W) or ious.shape != (3,) \
+            or low.shape != (3, E4, E4) or not np.isfinite(low).all():
+        raise AssertionError(f"predict: shapes {masks.shape} {ious.shape} {low.shape}")
+    (bm, bi, bl), box_ms = _wall(lambda: pred.predict(
+        box=np.array([100.0, 80.0, 600.0, 400.0]), multimask_output=False))
+    best = int(np.argmax(ious))
+    (rm, ri, rl), ref_ms = _wall(lambda: pred.predict(
+        point_coords=pts, point_labels=np.array([1, 0]),
+        mask_input=low[best:best + 1], multimask_output=False))
+    if rm.shape != (1, RAW_H, RAW_W) and rm.shape != (RAW_H, RAW_W):
+        raise AssertionError(f"refinement: shape {rm.shape}")
+    if not (np.isfinite(bl).all() and np.isfinite(rl).all()
+            and np.abs(rl).max() <= 32.0):
+        raise AssertionError("predict: box / refinement logits")
+    reset_counts()
+    _, batch_ms = _wall(lambda: pred.set_image_batch(list(frames[:4])))
+    check_launches(read_counts(), ENCODE, "set_image_batch of 4 (one encode)")
+    (bmasks, bious, blows), pb_ms = _wall(lambda: pred.predict_batch(
+        point_coords_batch=[pts[:1]] * 4, point_labels_batch=[np.array([1])] * 4))
+    if len(bmasks) != 4 or bmasks[0].shape != (3, RAW_H, RAW_W):
+        raise AssertionError("predict_batch: shapes")
+    # connected components alone at the predictor's shape: 3 masks of the
+    # low-res logits
+    lowt = torch.from_numpy(low).cuda()
+    _, cc_ms = _wall(lambda: connected_components(lowt > 0))
+    log(f"  image predictor, raw [{RAW_H},{RAW_W},3] uint8: set_image {enc_ms:.1f} ms "
+        f"(launches {', '.join(f'{k} {encode_counts[k]}' for k in ENCODE if encode_counts[k])}); "
+        f"predict 2 points x3 masks {pt_ms:.1f} ms, box {box_ms:.1f} ms, "
+        f"refinement with mask_input {ref_ms:.1f} ms (hole and sprinkle "
+        f"filling on: connected components run); set_image_batch of 4 "
+        f"{batch_ms:.1f} ms, predict_batch {pb_ms:.1f} ms; connected "
+        f"components alone on [3,{E4},{E4}] {cc_ms:.2f} ms [{smi}]")
+
+    # --- automatic mask generator ------------------------------------------
+    img = torch.randint(0, 256, (cfg.image_size, cfg.image_size, 3),
+                        dtype=torch.uint8, generator=g, device="cuda")
+
+    def amg_pass(what, **kw):
+        gen = SAM2AutomaticMaskGenerator(sam, **kw)
+        n_crops = len(generate_crop_boxes(img.shape[:2], gen.crop_n_layers,
+                                          gen.crop_overlap_ratio)[0])
+        timings = {}
+        reset_counts()
+        recs, ms = _wall(lambda: gen.generate(img, timings=timings))
+        counts = read_counts()
+        want = {k: ENCODE[k] * n_crops for k in ENCODE_KERNELS}
+        want["attention_fwd[flash_d256]"] = 0
+        check_launches(counts, want, f"AMG {what}")
+        if counts["row_norm[ln]"] < ENCODE["row_norm[ln]"] * n_crops:
+            raise AssertionError(f"AMG {what}: K3 launched {counts['row_norm[ln]']} times")
+        for r in recs:
+            if not (0 <= r["area"] <= img.shape[0] * img.shape[1]) \
+                    or not np.isfinite(r["predicted_iou"]):
+                raise AssertionError(f"AMG {what}: record {r['bbox']}")
+        stages = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(
+            timings.items(), key=lambda kv: -kv[1]))
+        cc = timings.get("connected_components", 0.0)
+        log(f"  AMG {what}: {len(recs)} records in {ms:.1f} ms over {n_crops} "
+            f"crop(s); stage ms: {stages}; connected components "
+            f"{cc / max(sum(timings.values()), 1e-12):.3f} of the pass; K1 "
+            f"{counts['k1_route[wgmma]']}, K2 {counts['gemm_epilogue']}, K3 "
+            f"{counts['row_norm[ln]']} launches [{smi}]")
+        return gen, recs
+
+    gen, _ = amg_pass("warm-up, 32x32 grid, JAX defaults")
+    gen, recs = amg_pass("32x32 grid, points_per_batch 64, JAX defaults")
+    device_busy(lambda: gen.generate(img), "one AMG pass at the JAX defaults", smi)
+    _, recs0 = amg_pass("32x32 grid, pred_iou_thresh=0, stability_score_thresh=0",
+                        pred_iou_thresh=0.0, stability_score_thresh=0.0,
+                        output_mode="coco_rle")
+    if not recs0:
+        raise AssertionError("AMG with zero thresholds: no record")
+    amg_pass(f"{AMG_SMALL_GRID}x{AMG_SMALL_GRID} grid, crop_n_layers=1, "
+             "use_m2m, min_mask_region_area=100",
+             points_per_side=AMG_SMALL_GRID, crop_n_layers=1, use_m2m=True,
+             min_mask_region_area=100, pred_iou_thresh=0.0,
+             stability_score_thresh=0.0)
+    del gen, recs, recs0
+    torch.cuda.empty_cache()
+
+    # --- interactive video predictor ---------------------------------------
+    T, B = N_PROPAGATE_FRAMES, N_OBJECTS
+    with torch.no_grad():
+        sam_frames = preprocess_sam_stream(frames, cfg.image_size)
+    reset_counts()
+    sess, sess_ms = _wall(lambda: SAM2InteractivePredictor(
+        sam, sam_frames, num_objects=B, non_overlap_masks=True,
+        clear_non_cond_mem_around_input=True,
+        clear_non_cond_mem_for_multi_obj=True))
+    check_launches(read_counts(), ENCODE, f"interactive: encode of {T} frames")
+    reset_counts()
+    m0, pm = _wall(lambda: sess.add_new_points(
+        0, np.array([[[300.0, 200.0]], [[700.0, 600.0]]]) * cfg.image_size / 1024,
+        np.ones((B, 1), np.int32)))
+    m8, bx = _wall(lambda: sess.add_new_box(
+        8, np.array([[100.0, 100.0, 500.0, 400.0], [520, 300, 900, 800]])))
+    m15, mk = _wall(lambda: sess.add_new_mask(15, _blob_masks(B, cfg.image_size)))
+    check_launches(read_counts(), {"attention_fwd[flash_d256]": 0,
+                                   **{k: 0 for k in ENCODE_KERNELS}},
+                   "interactive prompts (fresh cond frames: no memory attention)")
+    for what, m in (("points", m0), ("box", m8), ("mask", m15)):
+        if tuple(m.shape) != (B, E4, E4) or not torch.isfinite(m).all():
+            raise AssertionError(f"interactive {what} prompt: {tuple(m.shape)}")
+    prop_counts = {}
+    for what, kw in (("forward from 0", dict()),
+                     ("reverse from 15", dict(start_frame_idx=T - 1, reverse=True))):
+        start, end = sess.propagation_range(**kw)
+        pinned = np.zeros(T, bool)
+        pinned[list(sess.pinned)] = True
+        n = len(propagation_frames(T, start, end, kw.get("reverse", False),
+                                   sess.bank.cond_frame, pinned))
+        reset_counts()
+        out, ms = _wall(lambda: sess.propagate_in_video(**kw))
+        counts = read_counts()
+        layers = cfg.memory_attention_layers
+        check_launches(counts, {"attention_fwd[flash_d256]": layers * n,
+                                "k1_route[wgmma_f32]": layers * n,
+                                "stage_bf16": layers * n,
+                                "k1_route[wgmma]": 0, "window_attention": 0},
+                       f"propagation {what} ({n} frames)")
+        for k, v in counts.items():
+            prop_counts[k] = prop_counts.get(k, 0) + v
+        if tuple(out.shape) != (B, T, E4, E4) or not torch.isfinite(out).all():
+            raise AssertionError(f"propagation {what}: {tuple(out.shape)}")
+        log(f"  interactive propagation {what}: {n} frames, {ms:.1f} ms, "
+            f"{ms / max(n, 1):.1f} ms a frame ({B} objects); K1 at head dim "
+            f"256 x{counts['attention_fwd[flash_d256]']} + staging "
+            f"x{counts['stage_bf16']} [{smi}]")
+    vid = sess.to_video_res((RAW_H, RAW_W))
+    if tuple(vid.shape) != (B, T, RAW_H, RAW_W) or not torch.isfinite(vid).all() \
+            or int(((vid > -10.0).sum(dim=0) > 1).sum()) != 0:
+        raise AssertionError("to_video_res with non_overlap_masks")
+    log(f"  interactive session: {T} raw frames encoded in {sess_ms:.1f} ms "
+        f"(one forward), points {pm:.1f} ms (the session's first decode), "
+        f"box {bx:.1f} ms, mask {mk:.1f} ms; "
+        f"to_video_res {tuple(vid.shape)}, at most one object above -10 a pixel "
+        f"[{smi}]")
+    device_busy(lambda: sess.propagate_in_video(),
+                "one forward propagation (13 frames, 2 objects)", smi)
+    del sess, vid, sam, pred
+    torch.cuda.empty_cache()
+    return prop_counts, encode_counts
+
+
+def check_amg_records(gens, binm, up, ious, img):
+    """The AMG's device-side filter and run boundaries on the card against
+    the CPU. `gens`: the CPU and card generators, thresholds at 0 and NMS
+    at IoU 1; binm: the CPU's binary masks of the one grid batch [N, H, W];
+    up: its upscaled logits (f32, CPU); ious: each side's IoU predictions
+    [P, M] of that batch.
+
+    - `rles_from_device_masks` on the card equals the CPU's bit for bit on
+      the same masks (with an empty and a full one, placed at an offset on a
+      larger canvas), and the CPU's equals `rle_encode` of the canvases;
+    - `generate` on both keeps all N candidates. Each record goes back to
+      its candidate by its point and its IoU. A candidate's box is held
+      exactly where the reference's row and column maxima lie outside the
+      band on both sides of the box's edges (where the edge cannot move);
+      the decoded RLEs are held pixel by pixel outside the band."""
+    import torch
+    import numpy as np
+    from videoglamm_torch.data.rle import rle_decode, rle_encode
+    from videoglamm_torch.models.sam2.amg import rles_from_device_masks
+
+    N, H, W = binm.shape
+    masks = torch.cat([binm, torch.zeros(1, H, W, dtype=torch.bool),
+                       torch.ones(1, H, W, dtype=torch.bool)])
+    (x0, y0), canvas_hw = (37, 21), (H + 50, W + 80)
+    want = rles_from_device_masks(masks, (x0, y0), canvas_hw)
+    got = rles_from_device_masks(masks.cuda(), (x0, y0), canvas_hw)
+    canvas = np.zeros((len(masks), *canvas_hw), bool)
+    canvas[:, y0:y0 + H, x0:x0 + W] = masks.numpy()
+    enc = [rle_encode(c, compress=False) for c in canvas]
+    runs = sum(len(r["counts"]) for r in want)
+    log(f"  narrow SAM-2, AMG run boundaries of {len(masks)} masks ({runs} runs) "
+        f"on a {canvas_hw} canvas: card {'equal to' if got == want else 'DIFFERS from'}"
+        f" CPU, CPU {'equal to' if want == enc else 'DIFFERS from'} rle_encode")
+    if got != want or want != enc:
+        raise AssertionError("narrow SAM-2: AMG run boundaries disagree")
+
+    recs = [gen.generate(im) for gen, im in zip(gens, (img, img.cuda()))]
+    P, M = ious[0].shape
+    pts = gens[0].point_grids[0] * np.array([W, H])[None]
+    if not len(recs[0]) == len(recs[1]) == N == P * M:
+        raise AssertionError(f"narrow SAM-2: AMG generate kept {len(recs[0])} "
+                             f"records on the CPU, {len(recs[1])} on the card, "
+                             f"of {N} candidates")
+    by_cand = []
+    for side, rs in enumerate(recs):
+        io = ious[side].float().cpu().numpy()
+        cand = {}
+        for r in rs:
+            p = int(np.abs(pts - np.asarray(r["point_coords"][0])).sum(1).argmin())
+            cand[p * M + int(np.abs(io[p] - r["predicted_iou"]).argmin())] = r
+        if len(cand) != N:
+            raise AssertionError("narrow SAM-2: AMG records do not map one to "
+                                 "one onto the candidates")
+        by_cand.append(cand)
+    thr = float(gens[0].mask_threshold)
+    band = TOL_PRED_REF * up.abs().max().item()
+    far_r = ((up.amax(dim=2) - thr).abs() > band).numpy()     # [N, H]
+    far_c = ((up.amax(dim=1) - thr).abs() > band).numpy()     # [N, W]
+    held, bad_box, bad_px, far_px = 0, [], 0, 0
+    for c in range(N):
+        rc, rd = by_cand[0][c], by_cand[1][c]
+        x, y, w, h = (int(v) for v in rc["bbox"])
+        if rc["area"] == 0:
+            fixed = far_r[c].all()
+        else:
+            fixed = (far_r[c, :y + 1].all() and far_r[c, y + h:].all()
+                     and far_c[c, :x + 1].all() and far_c[c, x + w:].all())
+        if fixed:
+            held += 1
+            if rd["bbox"] != rc["bbox"]:
+                bad_box.append((c, rc["bbox"], rd["bbox"]))
+        far = ((up[c] - thr).abs() > band).numpy()
+        far_px += int(far.sum())
+        bad_px += int((rle_decode(rd["segmentation"])[far]
+                       != rle_decode(rc["segmentation"])[far]).sum())
+    log(f"  narrow SAM-2, AMG generate, {N} records on both: boxes of the "
+        f"{held} whose edges lie outside the band {'equal' if not bad_box else 'DIFFER'}"
+        f"; decoded RLEs: {bad_px} of {far_px} pixels outside the band differ")
+    if not held:
+        raise AssertionError("narrow SAM-2: no AMG box could be held outside "
+                             "the band")
+    if bad_box or bad_px:
+        raise AssertionError(f"narrow SAM-2: AMG records disagree: boxes "
+                             f"{bad_box[:4]}, {bad_px} pixels")
+
+
+def phase_small_predictors_reference(smi: str):
+    """A narrow SAM-2 (`track_config(1024)`: narrow Hiera, full-width heads
+    and memory modules, so the memory self-attention still takes K1 at head
+    dim 256) built through `build_sam2` in bf16 on the card, against the
+    same weights in f32 on the CPU through the plain twins, for each of the
+    three surfaces. Logits are held by relative L2 (TOL_PRED_REF); binary
+    outputs are equal wherever the reference logit lies farther than
+    TOL_PRED_REF * max|ref| from the threshold."""
+    import torch
+    import numpy as np
+    from videoglamm_torch.inference.pipeline import build_sam2
+    from videoglamm_torch.models.sam2 import interactive as I
+    from videoglamm_torch.models.sam2.amg import SAM2AutomaticMaskGenerator
+    from videoglamm_torch.models.sam2.image_predictor import SAM2ImagePredictor
+    from videoglamm_torch.ops.connected_components import postprocess_mask_scores
+    from videoglamm_torch.ops.preprocess import preprocess_sam_stream
+    from videoglamm_torch.ops.resize import resize_bilinear
+
+    cfg = track_config(1024)
+
+    def init(m):
+        seeded_init(m, torch.Generator().manual_seed(61))
+        with torch.no_grad():   # objects present by a margin above rounding
+            m.sam_mask_decoder.pred_obj_score_head.layers[-1].bias.fill_(2.0)
+
+    ref = build_sam2(cfg, device="cpu", dtype=torch.float32, init=init)
+    dev = build_sam2(cfg, ref.state_dict(), device="cuda", dtype=torch.bfloat16)
+
+    def hold(got, want, what, tol=TOL_PRED_REF):
+        a = torch.as_tensor(got).float().cpu()
+        w = torch.as_tensor(want).float()
+        rel = ((a - w).norm() / w.norm().clamp_min(1e-12)).item()
+        ok = rel <= tol and bool(torch.isfinite(a).all())
+        log(f"  narrow SAM-2, {what} {tuple(w.shape)}: card vs CPU f32 rel L2 "
+            f"{rel:.3e} (tol {tol:g}){'' if ok else ' MISS'}")
+        if not ok:
+            raise AssertionError(f"narrow SAM-2, {what}: the card disagrees "
+                                 "with the CPU reference")
+
+    def hold_binary(got, want_logits, what, thr=0.0):
+        w = torch.as_tensor(want_logits).float()
+        band = TOL_PRED_REF * w.abs().max().item()
+        far = (w - thr).abs() > band
+        got = torch.as_tensor(got).bool().cpu()
+        bad = int((got[far] != (w > thr)[far]).sum())
+        log(f"  narrow SAM-2, {what}: {bad} of {int(far.sum())} pixels outside "
+            f"the band +-{band:.3g} differ ({int((~far).sum())} inside, not held)")
+        if bad:
+            raise AssertionError(f"narrow SAM-2, {what}: binary output differs")
+
+    g = torch.Generator().manual_seed(62)
+    raw = torch.randint(0, 256, (4, RAW_H, RAW_W, 3), dtype=torch.uint8, generator=g)
+
+    # image predictor. Hole and sprinkle filling is a step function of the
+    # logits (a component one pixel larger is not filled), so the logits
+    # are held unfilled, and the filling is held apart on equal inputs.
+    preds = [SAM2ImagePredictor(m) for m in (ref, dev)]
+    preds[0].set_image(raw[0])
+    preds[1].set_image(raw[0].cuda())
+    hold(preds[1].get_image_embedding(), preds[0].get_image_embedding(),
+         "image embedding")
+    pts = np.array([[300.0, 200.0]])
+    for what, kw in (("points", dict(point_coords=pts, point_labels=np.array([1]))),
+                     ("box", dict(box=np.array([100.0, 80.0, 600.0, 400.0])))):
+        (rl, ri, rlow), (dl, di, dlow) = (p.predict(return_logits=True, **kw)
+                                          for p in preds)
+        dm, _, _ = preds[1].predict(**kw)
+        hold(dl, rl, f"predict {what} logits")
+        hold(di, ri, f"predict {what} ious")
+        hold(dlow, rlow, f"predict {what} low-res logits")
+        hold_binary(dm, rl, f"predict {what} masks")
+    filled = [postprocess_mask_scores(torch.from_numpy(dlow).to(d), 16.0, 16.0)
+              for d in ("cpu", "cuda")]
+    same = torch.equal(filled[1].cpu(), filled[0])
+    log(f"  narrow SAM-2, hole and sprinkle filling of the same logits "
+        f"{tuple(dlow.shape)}: card {'equal to' if same else 'DIFFERS from'} CPU")
+    if not same:
+        raise AssertionError("narrow SAM-2: connected components on the card")
+    rlow_best = rlow[:1] if rlow.ndim == 3 else rlow[None]
+    (rl, _, _), (dl, _, _) = (p.predict(point_coords=pts, point_labels=np.array([1]),
+                                        mask_input=rlow_best, multimask_output=False,
+                                        return_logits=True) for p in preds)
+    hold(dl, rl, "predict refinement logits")
+    preds[0].set_image_batch(list(raw[:2]))
+    preds[1].set_image_batch([r.cuda() for r in raw[:2]])
+    outs = [p.predict_batch(point_coords_batch=[pts, pts + 50],
+                            point_labels_batch=[np.array([1])] * 2,
+                            return_logits=True) for p in preds]
+    for i in range(2):
+        hold(outs[1][0][i], outs[0][0][i], f"predict_batch image {i} logits")
+
+    # automatic mask generator: the decoded candidates of one grid batch,
+    # then their scores, binary masks and boxes
+    # (thresholds at 0 and NMS at IoU 1 keep every candidate in `generate`)
+    gens = [SAM2AutomaticMaskGenerator(m, points_per_side=4, points_per_batch=16,
+                                       pred_iou_thresh=0.0,
+                                       stability_score_thresh=0.0,
+                                       box_nms_thresh=1.0,
+                                       output_mode="uncompressed_rle")
+            for m in (ref, dev)]
+    lows, scores = [], []
+    for gen, img in zip(gens, (raw[1], raw[1].cuda())):
+        gen.predictor.set_image(img)
+        feats = gen._crop_features()
+        pts_g = gen.point_grids[0] * np.array([RAW_W, RAW_H])[None]
+        coords = torch.from_numpy(gen._model_coords(pts_g, (RAW_H, RAW_W))
+                                  .astype(np.float32)).to(img.device)[:, None]
+        with torch.no_grad():
+            low, ious = gen._decode_fn(16, True, False)(*feats, coords, None)
+            low = low.reshape(-1, *low.shape[2:])
+            lows.append((low, ious))
+            scores.append(gen._score_fn(low.shape[0], (RAW_H, RAW_W))(low))
+    hold(lows[1][0], lows[0][0], "AMG decoded low-res logits")
+    hold(lows[1][1], lows[0][1], "AMG IoU predictions")
+    with torch.no_grad():
+        up = resize_bilinear(lows[0][0][..., None], (RAW_H, RAW_W))[..., 0]
+    hold_binary(scores[1][0], up, "AMG binary masks")
+    d_stab = (scores[1][1].cpu() - scores[0][1]).abs().max().item()
+    log(f"  narrow SAM-2, AMG stability scores: max |d| {d_stab:.3e} "
+        f"(tol {TOL_STABILITY:g})")
+    if d_stab > TOL_STABILITY:
+        raise AssertionError("narrow SAM-2: AMG stability scores disagree")
+    check_amg_records(gens, scores[0][0], up, [lw[1] for lw in lows], raw[1])
+
+    # interactive predictor: the prompts on both, then each propagated frame
+    # teacher-forced on the reference's bank
+    T, B = 4, 2
+    sess = [I.SAM2InteractivePredictor(m, preprocess_sam_stream(
+                raw.to(I.model_device(m)), cfg.image_size), num_objects=B)
+            for m in (ref, dev)]
+    mask = _blob_masks(B, cfg.image_size)
+    for what, fn in (("points", lambda s: s.add_new_points(
+                          0, np.array([[[300.0, 200.0]], [[700.0, 600.0]]]),
+                          np.ones((B, 1), np.int32))),
+                     ("box", lambda s: s.add_new_box(
+                          2, np.array([[100.0, 100.0, 500.0, 400.0],
+                                       [520, 300, 900, 800]]))),
+                     ("mask", lambda s: s.add_new_mask(3, mask))):
+        with torch.no_grad():
+            r, d = fn(sess[0]), fn(sess[1])
+        hold(d, r, f"interactive {what} prompt logits")
+    if not (np.array_equal(sess[0].bank.cond_frame, sess[1].bank.cond_frame)):
+        raise AssertionError("interactive: cond frames differ")
+    rel = ((sess[1].bank.cond_mem.cpu() - sess[0].bank.cond_mem).norm()
+           / sess[0].bank.cond_mem.norm()).item()
+    log(f"  narrow SAM-2, interactive cond memories, each side from its own "
+        f"binarised mask: rel L2 {rel:.3e}, not held")
+    reset_counts()
+    n = 0
+    for reverse in (False, True):
+        pinned = np.zeros(T, bool)
+        pinned[list(sess[0].pinned)] = True
+        start, end = (T - 1, 0) if reverse else (0, T - 1)
+        for t in I.propagation_frames(T, start, end, reverse,
+                                      sess[0].bank.cond_frame, pinned):
+            rb = sess[0].bank
+            db = I.InteractiveBank(*(x.clone().cuda() if torch.is_tensor(x)
+                                     else x.copy() for x in rb))
+            with torch.no_grad():
+                feats = [[f[t][None].expand(B, *f.shape[1:]) for f in s.feats]
+                         for s in sess]
+                rh = I.propagate_step(ref, feats[0], sess[0].pos[-1], rb, t, T, reverse)
+                dh = I.propagate_step(dev, feats[1], sess[1].pos[-1], db, t, T, reverse)
+                mem, _ = dev.encode_new_memory(
+                    feats[1][-1], rh.high_res_masks.permute(0, 2, 3, 1).cuda(),
+                    rh.object_score_logits.cuda())
+            n += 1
+            what = f"interactive {'reverse' if reverse else 'forward'} frame {t}"
+            for name in ("low_res_multimasks", "ious", "object_score_logits"):
+                hold(getattr(dh, name), getattr(rh, name), f"{what} {name}")
+            hold(mem, rb.mem_ring[:, t], f"{what} memory")
+    counts = read_counts()
+    if counts["attention_fwd[flash_d256]"] != cfg.memory_attention_layers * n:
+        raise AssertionError(f"narrow SAM-2 interactive: K1 at head dim 256 "
+                             f"launched {counts['attention_fwd[flash_d256]']} times "
+                             f"for {n} frames")
+    log(f"  narrow SAM-2, interactive: {n} propagated frames held, K1 at head "
+        f"dim 256 x{counts['attention_fwd[flash_d256]']} [{smi}]")
+
+
+PHASES = ("kernels", "experiments", "serve", "predictors", "train")
 SOURCES = {
     "attention_fwd": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
     "gemm_epilogue": ("cuda", "videoglamm_torch/csrc/gemm_epilogue.cu"),
@@ -2749,6 +3277,15 @@ def main() -> int:
             for image_size in (1024, 512):
                 phase_small_track_reference(image_size)
 
+        if "predictors" in chosen:
+            phase("[predictors] SAM-2 image predictor, automatic mask generator "
+                  "and interactive video predictor, Hiera-L at 1024")
+            pred_counts, encode_counts = phase_predictors(smi)
+            torch.cuda.empty_cache()
+            phase("[check] narrow SAM-2 predictors on the card against the CPU twins")
+            phase_small_predictors_reference(smi)
+            torch.cuda.empty_cache()
+
         if "train" in chosen:
             phase(f"[train] flagship, {TRAIN_STEPS} optimizer steps of {GRAD_ACCUM} "
                 "micro-steps, LoRA + lm_head + embed_tokens + text_hidden_fcs + "
@@ -2773,7 +3310,9 @@ def main() -> int:
     # K7's from the video branch at image size 512 (2 requests); K8's from
     # the unhoisted Hiera forward; the staging pass's from the video branch
     # on the main path's model; K9's four entries and the BSHD launcher
-    # from the run of the two experiment harnesses. A row keyed
+    # from the run of the two experiment harnesses; launches_predictors:
+    # one image predictor `set_image` and the interactive session's two
+    # propagations (26 frames: K1 at head dim 256). A row keyed
     # "<counter>@<shape>" is another shape of the counter's kernel. Phases
     # that did not run leave their counts null.
     if "serve" in chosen:
@@ -2787,6 +3326,11 @@ def main() -> int:
         counts["flash_bwd"] = train_counts["flash_bwd"]
     else:
         train_counts = {}
+    if "predictors" in chosen:
+        pred_counts = {k: pred_counts.get(k, 0) + encode_counts[k]
+                       for k in encode_counts}
+    else:
+        pred_counts = {}
     if "experiments" in chosen:
         for key in experiment_counts:
             if key.startswith("decode_fused") or key == "flash_bshd":
@@ -2799,7 +3343,8 @@ def main() -> int:
                             replaces=REPLACES[counter],
                             launches=counts.get(counter),
                             launches_train=train_counts.get(counter),
-                            launches_track=track_counts.get(counter), **row))
+                            launches_track=track_counts.get(counter),
+                            launches_predictors=pred_counts.get(counter), **row))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     result = {"ok": True, "device": {

@@ -1537,3 +1537,101 @@ def test_k5_compiles_without_i2f(dev):
         assert "I2F" not in s and "HMMA" not in s, n
     for n, s in mma.items():
         assert "I2F" not in s and "HMMA" in s, n
+
+
+# ---------------------------------------------------------------------------
+# the SAM-2 surfaces: connected components, the image predictor, the
+# automatic mask generator and the interactive predictor on the card
+# ---------------------------------------------------------------------------
+def _narrow_sam2(dev):
+    """A narrow SAM-2 at image size 256 built through `build_sam2`: f32 on
+    the CPU (the plain twins) and bf16 on the card, the same weights."""
+    from videoglamm_torch.config import HieraConfig, SAM2Config
+    from videoglamm_torch.inference.pipeline import build_sam2
+    cfg = SAM2Config(hiera=HieraConfig(embed_dim=16, num_heads=1,
+                                       stages=(1, 2, 3, 1),
+                                       global_att_blocks=(5,)),
+                     image_size=256, memory_attention_layers=1)
+    g = torch.Generator().manual_seed(0)
+
+    def init(m):
+        with torch.no_grad():
+            for p in m.parameters():
+                p.normal_(0.0, 0.02, generator=g)
+            for b in m.buffers():
+                b.normal_(0.0, 1.0, generator=g)
+            m.sam_mask_decoder.pred_obj_score_head.layers[-1].bias.fill_(2.0)
+
+    ref = build_sam2(cfg, device="cpu", dtype=torch.float32, init=init)
+    return ref, build_sam2(cfg, ref.state_dict(), device=dev, dtype=torch.bfloat16)
+
+
+def test_connected_components_on_card_equal_cpu(dev):
+    """The same sweeps on the card: labels, areas and the filled logits
+    equal to the CPU's bit for bit."""
+    from videoglamm_torch.ops import connected_components as cc
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((6, 64, 80)), dtype=torch.float32)
+    for _ in range(3):
+        x = (x + x.roll(1, 1) + x.roll(1, 2)) / 3
+    for m in (x > 0, x > 0.3, torch.as_tensor(rng.random((3, 33, 47)) > 0.5)):
+        got, ref = cc.connected_components(m.to(dev)), cc.connected_components(m)
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b)
+    assert torch.equal(cc.postprocess_mask_scores(x.to(dev), 20.0, 20.0).cpu(),
+                       cc.postprocess_mask_scores(x, 20.0, 20.0))
+
+
+def test_image_predictor_and_amg_on_card_match_cpu(dev):
+    from videoglamm_torch.models.sam2.amg import (SAM2AutomaticMaskGenerator,
+                                                  rles_from_device_masks)
+    from videoglamm_torch.models.sam2.image_predictor import SAM2ImagePredictor
+    from videoglamm_torch.data.rle import rle_decode
+    ref, card = _narrow_sam2(dev)
+    img = torch.as_tensor(np.random.default_rng(1).integers(0, 256, (120, 200, 3)),
+                          dtype=torch.uint8)
+    preds = [SAM2ImagePredictor(m) for m in (ref, card)]
+    preds[0].set_image(img)
+    preds[1].set_image(img.to(dev))
+    outs = [p.predict(point_coords=np.array([[50.0, 60.0]]),
+                      point_labels=np.array([1]), return_logits=True) for p in preds]
+    for a, b, what in zip(outs[1], outs[0], ("logits", "ious", "low-res")):
+        _close_l2(torch.as_tensor(a), torch.as_tensor(b), 2e-2, what)
+    gens = [SAM2AutomaticMaskGenerator(m, points_per_side=4, pred_iou_thresh=0.0,
+                                       stability_score_thresh=0.0, box_nms_thresh=1.0,
+                                       output_mode="uncompressed_rle")
+            for m in (ref, card)]
+    recs = [g.generate(im) for g, im in zip(gens, (img, img.to(dev)))]
+    assert len(recs[0]) == len(recs[1]) == 48
+    for side in recs:
+        assert sorted(r["point_coords"] for r in side) == \
+            sorted(r["point_coords"] for r in recs[0])
+        for r in side:
+            assert int(rle_decode(r["segmentation"]).sum()) == r["area"]
+    # the run boundaries found on the card, bit for bit
+    masks = torch.as_tensor(np.stack([rle_decode(r["segmentation"]) for r in recs[1]]))
+    assert rles_from_device_masks(masks.to(dev), (5, 3), (130, 210)) == \
+        rles_from_device_masks(masks, (5, 3), (130, 210))
+
+
+def test_interactive_step_on_card_matches_cpu(dev):
+    """Prompts and one propagated frame on the reference's bank: the masks
+    of every candidate, the IoUs and the object scores."""
+    from videoglamm_torch.models.sam2 import interactive as I
+    ref, card = _narrow_sam2(dev)
+    frames = torch.randn(3, 256, 256, 3, generator=torch.Generator().manual_seed(2))
+    sess = [I.SAM2InteractivePredictor(m, frames.to(I.model_device(m)), num_objects=2)
+            for m in (ref, card)]
+    pts = np.array([[[60.0, 50.0]], [[180.0, 200.0]]])
+    outs = [s.add_new_points(0, pts, np.ones((2, 1), np.int32)) for s in sess]
+    _close_l2(outs[1].cpu(), outs[0], 2e-2, "points prompt")
+    rb = sess[0].bank
+    db = I.InteractiveBank(*(x.clone().to(dev) if torch.is_tensor(x) else x.copy()
+                             for x in rb))
+    with torch.no_grad():
+        heads = [I.propagate_step(m, [f[1][None].expand(2, *f.shape[1:]) for f in s.feats],
+                                  s.pos[-1], b, 1, 3)
+                 for m, s, b in ((ref, sess[0], rb), (card, sess[1], db))]
+    for name in ("low_res_multimasks", "ious", "object_score_logits"):
+        _close_l2(getattr(heads[1], name).cpu(), getattr(heads[0], name), 2e-2, name)
+    assert list(db.mem_frame) == list(rb.mem_frame)

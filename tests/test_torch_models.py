@@ -181,7 +181,11 @@ def test_mask_decoder_matches_jax():
     s1 = rng.randn(B, 2 * E, 2 * E, C // 4).astype(np.float32)
     text = rng.randn(B, 1, C).astype(np.float32)
     jp = JPrompt(cfg)
-    pp = seeded_params(lambda: jp.init(jax.random.PRNGKey(0), text_embeds=text), 5)
+    # a mask prompt at init makes the mask-prompt convs too, which the
+    # port's PromptEncoder holds
+    mask = np.zeros((B, 4 * E, 4 * E, 1), np.float32)
+    pp = seeded_params(lambda: jp.init(jax.random.PRNGKey(0), text_embeds=text,
+                                       masks=mask), 5)
     sparse, dense = jp.apply(pp, text_embeds=text)
     image_pe = jp.apply(pp, method=lambda m: m.get_dense_pe())
     jd = JMaskDec(cfg, dtype=jnp.float32)

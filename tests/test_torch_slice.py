@@ -162,7 +162,11 @@ def test_port_imports_and_runs_without_jax():
         "from videoglamm_torch.io import from_jax\n"
         "from videoglamm_torch.ops import preprocess, quant, resize, rope\n"
         "from videoglamm_torch.models.sam2 import (memory, sam2_base,\n"
-        "    video_predictor, prompt_encoder, transformer, hiera)\n"
+        "    video_predictor, prompt_encoder, transformer, hiera,\n"
+        "    image_predictor, amg, interactive)\n"
+        "from videoglamm_torch.ops import connected_components\n"
+        "from videoglamm_torch.data import rle\n"
+        "from videoglamm_torch.inference.pipeline import build_sam2\n"
         "from videoglamm_torch.inference.pipeline import build_inference\n"
         "from videoglamm_torch.config import VideoGLaMMConfig\n"
         "cfg = VideoGLaMMConfig.tiny(num_frames=4)\n"

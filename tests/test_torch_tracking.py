@@ -143,7 +143,12 @@ def test_state_dict_has_the_reference_checkpoint_names(sam_setup):
               "no_mem_pos_enc", "no_obj_ptr", "obj_ptr_proj.layers.2.weight",
               "mask_downsample.weight",
               "sam_prompt_encoder.point_embeddings.3.weight",
-              "sam_prompt_encoder.not_a_point_embed.weight"):
+              "sam_prompt_encoder.not_a_point_embed.weight",
+              "sam_prompt_encoder.mask_downscaling.0.weight",
+              "sam_prompt_encoder.mask_downscaling.1.weight",
+              "sam_prompt_encoder.mask_downscaling.3.bias",
+              "sam_prompt_encoder.mask_downscaling.4.bias",
+              "sam_prompt_encoder.mask_downscaling.6.weight"):
         assert k in keys, k
     assert tm.maskmem_tpos_enc.shape == (SCFG.num_maskmem, 1, 1, MD)
     assert tm.no_obj_ptr.shape == (1, C)

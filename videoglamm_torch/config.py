@@ -177,6 +177,9 @@ class SAM2Config:
     max_obj_ptrs_in_encoder: int = 16
     # the memory bank's temporal stride at evaluation (the `r` of XMem)
     memory_temporal_stride_for_eval: int = 1
+    # cond frames cross-attended per tracked frame by the interactive
+    # predictor (-1 = all)
+    max_cond_frames_in_attn: int = -1
     # prompted-frame masks are hard-thresholded before memory encoding
     binarize_mask_from_pts_for_mem_enc: bool = True
     sigmoid_scale_for_mem_enc: float = 20.0
@@ -185,6 +188,10 @@ class SAM2Config:
     multimask_output_in_sam: bool = True
     iou_prediction_use_sigmoid: bool = True
     multimask_output_for_tracking: bool = True
+    # a prompt of this many points (padding included) takes the multimask
+    # output in the interactive predictor
+    multimask_min_pt_num: int = 0
+    multimask_max_pt_num: int = 1
     use_multimask_token_for_obj_ptr: bool = True
     dynamic_multimask_via_stability: bool = True
     dynamic_multimask_stability_delta: float = 0.05

@@ -9,18 +9,23 @@ prompted on frame 0 and propagated through the frames.
 `build_inference` is the port's model construction (counterpart of
 `load_model`, videoglamm_tpu/cli/common.py:53): it builds on the card
 unless the caller asks for the CPU, quantises the LLM when asked and
-chooses the KV-cache storage."""
+chooses the KV-cache storage. `build_sam2` builds SAM-2 alone under the
+same rules, for the image predictor, the automatic mask generator and the
+interactive video predictor (`models/sam2/`)."""
 from __future__ import annotations
 
-import time
 from typing import Callable, Mapping, NamedTuple, Optional
 
 import torch
 
+from ..config import SAM2Config
+from ..models.common import cast_compute
 from ..models.phi3 import quantize_llm
+from ..models.sam2.sam2_base import SAM2Base
 from ..models.videoglamm import SegExtraction, VideoGLaMM
 from ..ops.preprocess import (preprocess_clip_stream, preprocess_iv_stream,
                               preprocess_sam_stream, sample_frame_indices)
+from ..timing import StageClock
 from .generate import GenerateResult, generate_with_prefix, terminators_for
 
 
@@ -104,7 +109,7 @@ class GroundedInference:
         other, where the JAX pipeline maps its tracker over them
         (pipeline.py:94-97)."""
         m = self.model
-        clock = _StageClock(timings, frames.device)
+        clock = StageClock(timings, frames.device)
         visual = m.encode_visual_prefix(frames, context_images)
         clock("visual")
         gen = generate_with_prefix(m, visual, input_ids, text_lens,
@@ -142,7 +147,7 @@ class GroundedInference:
         dtype (`preprocess` stage) -> `__call__`. num_sam_frames=None sends
         every frame to SAM, as the tracker is driven."""
         m = self.model
-        clock = _StageClock(timings, raw_frames.device)
+        clock = StageClock(timings, raw_frames.device)
         dtype = m.llm.model.embed_tokens.weight.dtype
         streams = prepare_vision_inputs(raw_frames, m.cfg,
                                         num_sam_frames=num_sam_frames,
@@ -180,11 +185,7 @@ def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
         raise ValueError(f"quant {quant!r}: the {cfg.llm_type} base has no "
                          "quantised projections; only Phi-3 serves int8 / int4 "
                          "weights")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"build_inference: device {device!r} asked for, but no CUDA "
-            "device is present; pass device='cpu' to run on the CPU")
+    dev = _device(device, "build_inference")
     head = state_dict.get("llm.lm_head.weight") if state_dict else None
     prequant = head is not None and head.dtype == torch.int8
     if prequant and quant == "none":
@@ -208,19 +209,42 @@ def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
                              draft_k=draft_k)
 
 
-class _StageClock:
-    def __init__(self, timings, device):
-        self.timings, self.device = timings, device
-        self.t0 = self._now()
+def _device(device, what: str) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what}: device {device!r} asked for, but no CUDA device is "
+            "present; pass device='cpu' to run on the CPU")
+    return dev
 
-    def _now(self):
-        if self.timings is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
 
-    def __call__(self, stage: str):
-        if self.timings is None:
-            return
-        t = self._now()
-        self.timings[stage] = t - self.t0
-        self.t0 = t
+def build_sam2(cfg: Optional[SAM2Config] = None,
+               state_dict: Optional[Mapping] = None, *, device="cuda",
+               dtype=torch.bfloat16,
+               init: Optional[Callable] = None) -> SAM2Base:
+    """Build SAM-2 (`SAM2Config()`, Hiera-L at 1024, by default) on
+    `device` for the predictors of `models/sam2/`: image_predictor,
+    amg and interactive each take the built model.
+
+    device: the card by default; a CUDA device with no card present
+    raises. Pass "cpu" to run the plain twins.
+    state_dict: the port's SAM2Base weights (`io/from_jax.sam2_state_dict`
+    makes them), loaded strictly. Without one, `init` (a callable that
+    fills the f32 model in place) or torch's default initialisation
+    stands in.
+    dtype: the image encoder's compute dtype (and the skip projections
+    conv_s0 / conv_s1); the prompt encoder, the mask decoder, the memory
+    modules and parameters stay f32, as the tracking path keeps them."""
+    dev = _device(device, "build_sam2")
+    with torch.device(dev):
+        model = SAM2Base(cfg if cfg is not None else SAM2Config())
+    model.to(dev)     # tensors made from numpy ignore the device context
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    elif init is not None:
+        init(model)
+    if dtype != torch.float32:
+        cast_compute(model.image_encoder, dtype)
+        model.sam_mask_decoder.conv_s0.to(dtype)
+        model.sam_mask_decoder.conv_s1.to(dtype)
+    return model.eval()

@@ -22,10 +22,9 @@ multiple of 8, as `QDense` holds it) resp. [out, in/2] and [out, in/group].
 The transpose keeps the nibble order along K: packed byte r of a row still
 holds k = 2r low and k = 2r + 1 high.
 
-Parameters the port does not build (the mask-prompt convs of the SAM-2
-prompt encoder) are skipped. A tree initialised without the tracker has no
-leaves for the memory encoder, the memory attention, `obj_ptr_proj` or
-`mask_downsample`; the state dict then has none either
+A tree initialised without the tracker has no leaves for the memory
+encoder, the memory attention, `obj_ptr_proj`, `mask_downsample` or the
+prompt encoder's mask-prompt convs; the state dict then has none either
 (`VideoGLaMM.load_weights` takes such a one).
 """
 from __future__ import annotations
@@ -278,14 +277,21 @@ def image_encoder_state_dict(p) -> Dict[str, torch.Tensor]:
 
 
 def prompt_encoder_state_dict(p) -> Dict[str, torch.Tensor]:
-    """PromptEncoder params -> port PromptEncoder (the random-Fourier
+    """PromptEncoder params -> port PromptEncoder: the random-Fourier
     matrix, the four point-label embeddings, the not-a-point and no-mask
-    embeddings; the mask-prompt convs are not built)."""
+    embeddings, and, where the tree has them, the mask-prompt convs and
+    norms under the reference names `mask_downscaling.{0,1,3,4,6}`
+    (videoglamm_tpu/io/import_torch.py:256-260)."""
     sd = {"pe_layer.positional_encoding_gaussian_matrix": _t(p["pe_gauss"]),
           "not_a_point_embed.weight": _t(np.asarray(p["not_a_point_embed"])[None]),
           "no_mask_embed.weight": _t(np.asarray(p["no_mask_embed"])[None])}
     for i, row in enumerate(np.asarray(p["point_embeddings"])):
         sd[f"point_embeddings.{i}.weight"] = _t(row[None])
+    if "mask_conv1" in p:
+        for leaf, idx in (("mask_conv1", 0), ("mask_conv2", 3), ("mask_conv3", 6)):
+            sd.update(_conv(p[leaf], f"mask_downscaling.{idx}"))
+        for leaf, idx in (("mask_ln1", 1), ("mask_ln2", 4)):
+            sd.update(_norm(p[leaf], f"mask_downscaling.{idx}"))
     return sd
 
 

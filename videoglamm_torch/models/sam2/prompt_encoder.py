@@ -1,19 +1,24 @@
 """SAM-2 prompt encoder with the VideoGLaMM text-prompt extension (PyTorch
-port of the parts of videoglamm_tpu/models/sam2/prompt_encoder.py that the
-GCG and tracking paths run): `text_embeds` become sparse prompts, point
-prompts get the random-Fourier PE plus a learned embedding per label
-(label -1 is padding: the not-a-point embedding alone), and the dense
-prompt is the learned no-mask embedding. Boxes and mask prompts come with
-the interactive predictors (ROADMAP.md). Parameter names follow the
-reference checkpoint."""
+port of videoglamm_tpu/models/sam2/prompt_encoder.py): `text_embeds` become
+sparse prompts; point prompts get the random-Fourier PE plus a learned
+embedding per label (label -1 is padding: the not-a-point embedding alone);
+a box is its two corners as points labelled 2 and 3; a mask prompt
+[B, 4E, 4E, 1] goes through the downscaling convs (2x2 stride 2,
+LayerNorm, erf-GELU, twice, then 1x1 to d_model) as the dense prompt, which
+is otherwise the learned no-mask embedding. Parameter names follow the
+reference checkpoint (`mask_downscaling.{0,1,3,4,6}`)."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...config import SAM2Config
+from ..common import LayerNorm
+from .fpn import conv1x1_nhwc
+from .memory import _conv_nhwc
 from .pos_enc import random_pe_grid
 
 
@@ -22,6 +27,9 @@ class _RandomPE(nn.Module):
         super().__init__()
         self.register_buffer("positional_encoding_gaussian_matrix",
                              torch.randn(2, num_pos_feats))
+
+
+MASK_IN_CHANS = 16
 
 
 class PromptEncoder(nn.Module):
@@ -34,6 +42,13 @@ class PromptEncoder(nn.Module):
             nn.Embedding(1, cfg.d_model) for _ in range(4))
         self.not_a_point_embed = nn.Embedding(1, cfg.d_model)
         self.no_mask_embed = nn.Embedding(1, cfg.d_model)
+        ch = MASK_IN_CHANS
+        self.mask_downscaling = nn.ModuleDict({
+            "0": nn.Conv2d(1, ch // 4, 2, stride=2),
+            "1": LayerNorm(ch // 4, eps=1e-6),
+            "3": nn.Conv2d(ch // 4, ch, 2, stride=2),
+            "4": LayerNorm(ch, eps=1e-6),
+            "6": nn.Conv2d(ch, cfg.d_model, 1)})
 
     @property
     def embed_size(self) -> int:
@@ -60,22 +75,44 @@ class PromptEncoder(nn.Module):
             pe = pe + torch.where(lab == li, emb.weight[0].float(), 0.0)
         return pe
 
-    def forward(self, text_embeds=None, points=None):
-        """points: (coords [B, P, 2], labels [B, P]) or None; text_embeds
-        [B, N, d] or None -> (sparse [B, P + 1 + N, d] f32, dense
-        [B, E, E, d]). Points are padded with one not-a-point entry, as the
-        reference does when no box comes with them (prompt_encoder.py:92-99)."""
+    def embed_boxes(self, boxes):
+        """boxes [B, 4] xyxy pixels -> [B, 2, d] (prompt_encoder.py:73-78)."""
+        B = boxes.shape[0]
+        labels = torch.tensor([[2, 3]], dtype=torch.int32,
+                              device=boxes.device).expand(B, 2)
+        return self.embed_points(boxes.reshape(B, 2, 2), labels)
+
+    def embed_masks(self, masks):
+        """masks [B, 4E, 4E, 1] -> [B, E, E, d] (prompt_encoder.py:80-86)."""
+        md = self.mask_downscaling
+        x = F.gelu(md["1"](_conv_nhwc(masks.float(), md["0"])))
+        x = F.gelu(md["4"](_conv_nhwc(x, md["3"])))
+        return conv1x1_nhwc(x, md["6"])
+
+    def forward(self, text_embeds=None, points=None, boxes=None, masks=None):
+        """text_embeds [B, N, d]; points (coords [B, P, 2], labels [B, P]);
+        boxes [B, 4]; masks [B, 4E, 4E, 1]; each or None -> (sparse
+        [B, n, d] f32: points, box corners, text, in that order; dense
+        [B, E, E, d]). Points are padded with one not-a-point entry when no
+        box comes with them (prompt_encoder.py:93-99); with no sparse
+        prompt at all, sparse is [B, 0, d]."""
         parts = []
         if points is not None:
             coords, labels = points
-            coords = torch.cat([coords, torch.zeros_like(coords[:, :1])], dim=1)
-            labels = torch.cat([labels, -torch.ones_like(labels[:, :1])], dim=1)
+            if boxes is None:
+                coords = torch.cat([coords, torch.zeros_like(coords[:, :1])], dim=1)
+                labels = torch.cat([labels, -torch.ones_like(labels[:, :1])], dim=1)
             parts.append(self.embed_points(coords, labels))
+        if boxes is not None:
+            parts.append(self.embed_boxes(boxes))
         if text_embeds is not None:
             parts.append(text_embeds.float())
-        B = parts[0].shape[0]
-        sparse = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        d = self.cfg.d_model
+        B = parts[0].shape[0] if parts else (
+            masks.shape[0] if masks is not None else 1)
+        sparse = torch.cat(parts, dim=1) if parts else torch.zeros(
+            B, 0, d, device=self.no_mask_embed.weight.device)
+        if masks is not None:
+            return sparse, self.embed_masks(masks)
         e = self.embed_size
-        dense = self.no_mask_embed.weight[0].float().expand(B, e, e,
-                                                             self.cfg.d_model)
-        return sparse, dense
+        return sparse, self.no_mask_embed.weight[0].float().expand(B, e, e, d)

@@ -9,8 +9,9 @@ lives in video_predictor.py as a fixed-shape memory bank, consumed here by
 The image encoder runs in the compute dtype (bf16); the prompt encoder,
 the mask decoder, the memory encoder, the memory attention, `obj_ptr_proj`
 and the memory parameters stay f32, as sam2_base.py:49-75 keeps them.
-`use_mask_as_output` and mask prompts come with the interactive predictor;
-`mask_downsample` is carried so that the state dict is whole.
+`forward_sam_heads` takes points, mask prompts and text prompts;
+`use_mask_as_output` turns a given mask into the heads' output, as the
+interactive predictor's mask prompts do.
 """
 from __future__ import annotations
 
@@ -20,11 +21,11 @@ import torch
 from torch import nn
 
 from ...config import SAM2Config
-from ...ops.resize import resize_bilinear
+from ...ops.resize import resize_bilinear, resize_bilinear_antialias
 from ..common import MLPBlock
 from .fpn import SAM2ImageEncoder, conv1x1_nhwc
 from .mask_decoder import MaskDecoder
-from .memory import MemoryAttention, MemoryEncoder
+from .memory import MemoryAttention, MemoryEncoder, _conv_nhwc
 from .prompt_encoder import PromptEncoder
 
 NO_OBJ_SCORE = -1024.0
@@ -38,6 +39,11 @@ class SamHeadsOutput(NamedTuple):
     high_res_masks: torch.Tensor       # [B, 1, S, S]
     obj_ptr: torch.Tensor              # [B, C]
     object_score_logits: torch.Tensor  # [B, 1]
+
+
+def model_device(model) -> torch.device:
+    """The device a built SAM2Base lives on."""
+    return model.no_mem_embed.device
 
 
 class SAM2Base(nn.Module):
@@ -73,18 +79,30 @@ class SAM2Base(nn.Module):
     def forward_sam_heads(self, backbone_features, text_inputs=None,
                           high_res_features=None,
                           multimask_output: bool = False,
-                          training: bool = False) -> SamHeadsOutput:
-        """Prompt encoder + mask decoder (sam2_base.py:87-148): one padding
-        point (label -1) and the text prompts; multimask argmax; the mask
+                          training: bool = False, *, point_inputs=None,
+                          mask_inputs=None) -> SamHeadsOutput:
+        """Prompt encoder + mask decoder (sam2_base.py:87-148): the points
+        (coords [B, P, 2], labels [B, P]; one padding point, label -1,
+        without them), the mask prompt [B, h, w, 1] (resized to 4E x 4E
+        where it is not), the text prompts; multimask argmax; the mask
         logits of an absent object set to NO_OBJ_SCORE; the object pointer
         mixed hard with `no_obj_ptr`."""
         cfg = self.cfg
         B = backbone_features.shape[0]
         dev = backbone_features.device
-        coords = torch.zeros(B, 1, 2, device=dev)
-        labels = -torch.ones(B, 1, dtype=torch.int32, device=dev)
-        sparse, dense = self.sam_prompt_encoder(text_embeds=text_inputs,
-                                                points=(coords, labels))
+        if point_inputs is None:
+            coords = torch.zeros(B, 1, 2, device=dev)
+            labels = -torch.ones(B, 1, dtype=torch.int32, device=dev)
+        else:
+            coords, labels = point_inputs
+        mask_prompt = None
+        if mask_inputs is not None:
+            tgt = 4 * (cfg.image_size // cfg.backbone_stride)
+            mask_prompt = mask_inputs.float()
+            if mask_inputs.shape[1] != tgt:
+                mask_prompt = resize_bilinear(mask_prompt, (tgt, tgt))
+        sparse, dense = self.sam_prompt_encoder(
+            text_embeds=text_inputs, points=(coords, labels), masks=mask_prompt)
         dec = self.sam_mask_decoder(
             backbone_features, self.sam_prompt_encoder.get_dense_pe(), sparse,
             dense, multimask_output=multimask_output,
@@ -114,6 +132,29 @@ class SAM2Base(nn.Module):
         return SamHeadsOutput(low_res_multimasks, high_res_multimasks,
                               dec.iou_pred, low_res_masks, high_res_masks,
                               obj_ptr, dec.object_score_logits)
+
+    def use_mask_as_output(self, backbone_features, high_res_features,
+                           mask_inputs) -> SamHeadsOutput:
+        """A given binary mask [B, S, S, 1] as the heads' output
+        (sam2_base.py:151-175): logits +-10, the low-res masks through the
+        antialiased bilinear downsample, IoU 1, the object pointer from a
+        decode prompted by the mask (through `mask_downsample`), and the
+        object score +10 where the mask has a pixel, else -10 with
+        `no_obj_ptr`."""
+        out_scale, out_bias = 20.0, -10.0
+        m = mask_inputs.float()
+        high = (m * out_scale + out_bias).permute(0, 3, 1, 2)    # [B, 1, S, S]
+        S = high.shape[-1]
+        low = resize_bilinear_antialias(high, (S // 4, S // 4),
+                                        channels_last=False)
+        ious = torch.ones(m.shape[0], 1, device=m.device)
+        heads = self.forward_sam_heads(
+            backbone_features, high_res_features=high_res_features,
+            mask_inputs=_conv_nhwc(m, self.mask_downsample))
+        is_obj = (m.reshape(m.shape[0], -1) > 0).any(dim=1, keepdim=True).float()
+        obj_ptr = is_obj * heads.obj_ptr + (1.0 - is_obj) * self.no_obj_ptr
+        return SamHeadsOutput(low, high, ious, low, high, obj_ptr,
+                              out_scale * is_obj + out_bias)
 
     def encode_new_memory(self, pix_feat, high_res_masks, object_score_logits,
                           binarize: bool = False):

@@ -35,12 +35,13 @@ from .projectors import TextHiddenFCs, build_vision_projector, build_visual_pref
 from .sam2.sam2_base import SAM2Base
 
 
-# Submodules that only the tracker runs. A flax parameter tree initialised
+# Submodules that only the tracker and the prompting predictors run (the
+# mask-prompt convs: mask prompts). A flax parameter tree initialised
 # through the framewise or the training forward holds none of their leaves
 # (flax makes a submodule's parameters when it is first called), and the JAX
 # model runs those paths with such a tree.
 TRACKER_MODULES = ("memory_encoder", "memory_attention", "obj_ptr_proj",
-                   "mask_downsample")
+                   "mask_downsample", "sam_prompt_encoder.mask_downscaling")
 
 
 class SegExtraction(NamedTuple):

@@ -1,6 +1,8 @@
 """1-D resize matrices (the numpy builders of videoglamm_tpu/ops/resize.py
-that preprocessing reads) and `resize_bilinear`, the differentiable resize
-of mask logits to the ground-truth size in the training forward.
+that preprocessing reads), `resize_bilinear`, the differentiable resize
+of mask logits (to the ground-truth size in the training forward, to the
+image size in the predictors), and `resize_bilinear_antialias`, the
+downsample of a mask prompt.
 
 Every resize of the preprocessing front is a separable linear map with a
 static (in_size, out_size) matrix, so `ops/preprocess.py` applies it as two
@@ -95,6 +97,24 @@ def resize_bilinear(x, out_hw, channels_last: bool = True):
     H, W = x.shape[-3], x.shape[-2]
     mh = torch.from_numpy(_linear_matrix(H, oh)).to(x.device)
     mw = torch.from_numpy(_linear_matrix(W, ow)).to(x.device)
+    y = _apply_separable(x, mh, mw).to(x.dtype)
+    if not channels_last:
+        y = y.movedim(-1, -3)
+    return y
+
+
+def resize_bilinear_antialias(x, out_hw, channels_last: bool = True):
+    """torch F.interpolate(mode='bilinear', antialias=True) semantics
+    (resize.py:152): the triangle kernel's support scales with the
+    downscale factor and clipped boundary windows renormalise, the math of
+    PIL's BILINEAR filter, so `_pil_matrix` serves both. SAM-2 downsamples
+    a mask prompt with it (`SAM2Base.use_mask_as_output`)."""
+    oh, ow = out_hw
+    if not channels_last:
+        x = x.movedim(-3, -1)
+    H, W = x.shape[-3], x.shape[-2]
+    mh = torch.from_numpy(_pil_matrix(H, oh, "bilinear")).to(x.device)
+    mw = torch.from_numpy(_pil_matrix(W, ow, "bilinear")).to(x.device)
     y = _apply_separable(x, mh, mw).to(x.dtype)
     if not channels_last:
         y = y.movedim(-1, -3)
