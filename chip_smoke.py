@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the videoglamm_torch port once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,train]
+    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,sam1,train]
 
 Run from the root of a checkout. `--phases` (default all, as the contract
 runs it) picks phases 3 (kernels), the experiment harnesses, 4-5 (serve and
-check), 6 (predictors) and 7-8 (train) to run; the build always runs.
+check), 6 (predictors), 7 (sam1) and 8-9 (train) to run; the build always
+runs.
 Phases, each fatal on failure:
 
 1. device: needs CUDA; prints the card's name and power limit
@@ -75,7 +76,11 @@ Phases, each fatal on failure:
    std 0.02, norm scales 1) on the card through `build_inference` and
    serves, with every launch counter set to 0 just before each path and
    read just after it:
-   a. the bf16 path on preprocessed streams (1 warm-up + 1 timed request),
+   a. the bf16 path on preprocessed streams (1 warm-up + 1 timed request);
+      then its state_dict goes through `io/reference.to_reference_layout`
+      and `from_reference_layout` in memory, a second model is built from
+      it, and one request on each must give equal tokens and bit-equal
+      masks,
    b. the main path, the int8 LLM with the int8 KV cache from RAW uint8
       [1,16,480,854,3] frames (3 requests), then its decode step timed and
       profiled alone, with K4's and K5's shares of the device time (one K4
@@ -139,7 +144,22 @@ Phases, each fatal on failure:
    head dim 256 and its staging pass 4 times. Prints the stage times, the
    device-busy share of one AMG pass and of one propagation, then holds a
    narrow SAM-2 in bf16 on the card to its f32 CPU twin on each surface;
-7. train: builds the flagship model for training through `build_training`
+7. sam1: SAM-1 ViT-H with the ITM tracker (`SAM1Config.vit_h()`,
+   `with_itm=True`, seeded random weights, bf16 encoder, f32 decoder)
+   through `build_sam1`, the counters set to 0 just before each path and
+   read just after: the image predictor on a raw 480x854 uint8 frame (2
+   points with 3 masks, a box, the box with the low-res mask fed back), the
+   automatic mask generator at the JAX defaults (32x32 grid, 64 points a
+   batch) on that frame, and `track_frames` over 8 frames with 4
+   text-embed objects. K3 is the path's only kernel: 66 launches an encode
+   and, per decode, what `sam1_decode_k3` derives from `layer_norm`'s
+   dispatch rule; nothing else may launch. Prints each path's ms, peak
+   memory and K3 launches, the encode's FLOP bound and its multiple, and
+   the device-busy share of an encode, an AMG pass and `track_frames`. Then
+   a narrow SAM-1 (the real image size, a 256-wide 4-block encoder, the
+   full decoder) in bf16 on the card against its f32 CPU twin: embedding,
+   predictions, the AMG's candidates, scores and records, `track_frames`;
+8. train: builds the flagship model for training through `build_training`
    (LoRA rank 8 on q and v, remat, f32 masters of the trainable weights,
    seeded random weights with a non-zero LoRA B) and takes four optimizer
    steps of two micro-steps each on a synthetic batch from the seed (2
@@ -151,7 +171,7 @@ Phases, each fatal on failure:
    micro-step, and a checkpoint saved and restored repeats the next step's
    loss. Prints per step the wall seconds, LLM positions/s, the forward /
    backward / optimizer split and the peak memory;
-8. train check: a narrow model at the real sequence length (so K1 and K6
+9. train check: a narrow model at the real sequence length (so K1 and K6
    are taken) in bf16 on the card against the same weights in f32 on the
    CPU through the plain twins: the loss and the gradient of every
    trainable leaf, by relative L2.
@@ -884,6 +904,18 @@ def phase_kernels(K: Kernels):
               lambda: N._layer_norm_plain(x, w, None, 1e-5), TOL_BF16_NORM,
               nbytes=nb, ops=ops, rate="f32", graphed=True,
               library_fn=lambda: F.layer_norm(x, (1024,), wb, None, 1e-5))
+    # SAM-1 ViT-H's norm1 / norm2: one image's [1,64,64,1280] (10.5 MB, so
+    # the replay reads it partly from L2), a width K3 pads to 2048
+    x = randn(1, 64, 64, 1280, scale=3.0)
+    w = randn(1280, dtype=torch.float32, scale=0.1) + 1
+    b = randn(1280, dtype=torch.float32, scale=0.1)
+    wb, bb = w.to(bf), b.to(bf)
+    nb, ops = norm_cost(x)
+    K.compare("row_norm[ln]@[1,64,64,1280]", "K3 LN SAM-1 ViT-H [1,64,64,1280] bf16 +bias",
+              lambda: N.row_norm(x, w, b, 1e-6, rms=False),
+              lambda: N._layer_norm_plain(x, w, b, 1e-6), TOL_BF16_NORM,
+              nbytes=nb, ops=ops, rate="f32", graphed=True,
+              library_fn=lambda: F.layer_norm(x, (1280,), wb, bb, 1e-6))
     x = randn(32, 4096, 256, dtype=torch.float32)
     w = randn(256, dtype=torch.float32, scale=0.1) + 1
     b = randn(256, dtype=torch.float32, scale=0.1)
@@ -1588,6 +1620,41 @@ def phase_serve(gi, cfg, mode: str, requests, raw: bool, track: bool = False,
             raise AssertionError(f"{name}: {n} launches on the {mode} path, "
                                  f"expected {per} per request x {len(requests)}")
     return results, counts
+
+
+def check_reference_round_trip(gi, cfg, request):
+    """The served model's state_dict through `to_reference_layout` (the
+    reference's HF export, InternVideo2 and CLIP checkpoints) and
+    `from_reference_layout` in memory, a second model built from it through
+    `build_inference`: one request on each gives equal tokens and
+    bit-equal masks."""
+    import torch
+    from videoglamm_torch.inference.pipeline import build_inference
+    from videoglamm_torch.io.reference import (from_reference_layout,
+                                               to_reference_layout)
+    sd = gi.model.state_dict()
+    hf, iv, clip = to_reference_layout(sd, cfg)
+    back = from_reference_layout(hf, cfg, iv, clip)
+    if set(back) != set(sd) or any(back[k] is not sd[k] for k in sd):
+        raise AssertionError("reference layout: the round trip changed the state dict")
+    t0 = time.perf_counter()
+    gi2 = build_inference(cfg, back, device="cuda", dtype=torch.bfloat16,
+                          max_new_tokens=MAX_NEW)
+    build_s = time.perf_counter() - t0
+    del sd, back
+    outs = [g(*request) for g in (gi, gi2)]
+    same_tokens = torch.equal(outs[0].tokens, outs[1].tokens) \
+        and torch.equal(outs[0].lengths, outs[1].lengths)
+    same_masks = torch.equal(outs[0].pred_masks, outs[1].pred_masks)
+    log(f"  reference layout: {len(hf)} HF-export keys, {len(iv)} InternVideo2, "
+        f"{len(clip)} CLIP; rebuilt in {build_s:.1f} s; one request on each: tokens "
+        f"{'equal' if same_tokens else 'DIFFER'}, masks "
+        f"{'bit-equal' if same_masks else 'DIFFER'} "
+        f"{tuple(outs[0].pred_masks.shape)}")
+    if not (same_tokens and same_masks):
+        raise AssertionError("reference layout: the rebuilt model serves otherwise")
+    del gi2, outs
+    torch.cuda.empty_cache()
 
 
 def check_outputs(cfg, results, what: str, t_sam: int = T_SAM):
@@ -2815,7 +2882,39 @@ def phase_predictors(smi: str) -> dict:
     return prop_counts, encode_counts
 
 
-def check_amg_records(gens, binm, up, ious, img):
+def hold_close(who, got, want, what, tol=TOL_PRED_REF):
+    """Card output against the CPU f32 reference by relative L2."""
+    import torch
+    a = torch.as_tensor(got).float().cpu()
+    w = torch.as_tensor(want).float()
+    rel = ((a - w).norm() / w.norm().clamp_min(1e-12)).item()
+    ok = rel <= tol and bool(torch.isfinite(a).all())
+    log(f"  {who}, {what} {tuple(w.shape)}: card vs CPU f32 rel L2 "
+        f"{rel:.3e} (tol {tol:g}){'' if ok else ' MISS'}")
+    if not ok:
+        raise AssertionError(f"{who}, {what}: the card disagrees with the CPU "
+                             "reference")
+
+
+def hold_masks(who, got, want_logits, what, thr=0.0):
+    """Binary card output equal to the thresholded CPU logits wherever a
+    logit lies farther than TOL_PRED_REF * max|ref| from the threshold;
+    fails if no pixel lies that far."""
+    import torch
+    w = torch.as_tensor(want_logits).float()
+    band = TOL_PRED_REF * w.abs().max().item()
+    far = (w - thr).abs() > band
+    got = torch.as_tensor(got).bool().cpu()
+    bad = int((got[far] != (w > thr)[far]).sum())
+    log(f"  {who}, {what}: {bad} of {int(far.sum())} pixels outside the band "
+        f"+-{band:.3g} differ ({int((~far).sum())} inside, not held)")
+    if not far.any():
+        raise AssertionError(f"{who}, {what}: no pixel outside the band")
+    if bad:
+        raise AssertionError(f"{who}, {what}: binary output differs")
+
+
+def check_amg_records(gens, binm, up, ious, img, who="narrow SAM-2"):
     """The AMG's device-side filter and run boundaries on the card against
     the CPU. `gens`: the CPU and card generators, thresholds at 0 and NMS
     at IoU 1; binm: the CPU's binary masks of the one grid batch [N, H, W];
@@ -2845,17 +2944,17 @@ def check_amg_records(gens, binm, up, ious, img):
     canvas[:, y0:y0 + H, x0:x0 + W] = masks.numpy()
     enc = [rle_encode(c, compress=False) for c in canvas]
     runs = sum(len(r["counts"]) for r in want)
-    log(f"  narrow SAM-2, AMG run boundaries of {len(masks)} masks ({runs} runs) "
+    log(f"  {who}, AMG run boundaries of {len(masks)} masks ({runs} runs) "
         f"on a {canvas_hw} canvas: card {'equal to' if got == want else 'DIFFERS from'}"
         f" CPU, CPU {'equal to' if want == enc else 'DIFFERS from'} rle_encode")
     if got != want or want != enc:
-        raise AssertionError("narrow SAM-2: AMG run boundaries disagree")
+        raise AssertionError(f"{who}: AMG run boundaries disagree")
 
     recs = [gen.generate(im) for gen, im in zip(gens, (img, img.cuda()))]
     P, M = ious[0].shape
     pts = gens[0].point_grids[0] * np.array([W, H])[None]
     if not len(recs[0]) == len(recs[1]) == N == P * M:
-        raise AssertionError(f"narrow SAM-2: AMG generate kept {len(recs[0])} "
+        raise AssertionError(f"{who}: AMG generate kept {len(recs[0])} "
                              f"records on the CPU, {len(recs[1])} on the card, "
                              f"of {N} candidates")
     by_cand = []
@@ -2866,7 +2965,7 @@ def check_amg_records(gens, binm, up, ious, img):
             p = int(np.abs(pts - np.asarray(r["point_coords"][0])).sum(1).argmin())
             cand[p * M + int(np.abs(io[p] - r["predicted_iou"]).argmin())] = r
         if len(cand) != N:
-            raise AssertionError("narrow SAM-2: AMG records do not map one to "
+            raise AssertionError(f"{who}: AMG records do not map one to "
                                  "one onto the candidates")
         by_cand.append(cand)
     thr = float(gens[0].mask_threshold)
@@ -2890,14 +2989,14 @@ def check_amg_records(gens, binm, up, ious, img):
         far_px += int(far.sum())
         bad_px += int((rle_decode(rd["segmentation"])[far]
                        != rle_decode(rc["segmentation"])[far]).sum())
-    log(f"  narrow SAM-2, AMG generate, {N} records on both: boxes of the "
+    log(f"  {who}, AMG generate, {N} records on both: boxes of the "
         f"{held} whose edges lie outside the band {'equal' if not bad_box else 'DIFFER'}"
         f"; decoded RLEs: {bad_px} of {far_px} pixels outside the band differ")
     if not held:
-        raise AssertionError("narrow SAM-2: no AMG box could be held outside "
+        raise AssertionError(f"{who}: no AMG box could be held outside "
                              "the band")
     if bad_box or bad_px:
-        raise AssertionError(f"narrow SAM-2: AMG records disagree: boxes "
+        raise AssertionError(f"{who}: AMG records disagree: boxes "
                              f"{bad_box[:4]}, {bad_px} pixels")
 
 
@@ -2930,26 +3029,10 @@ def phase_small_predictors_reference(smi: str):
     dev = build_sam2(cfg, ref.state_dict(), device="cuda", dtype=torch.bfloat16)
 
     def hold(got, want, what, tol=TOL_PRED_REF):
-        a = torch.as_tensor(got).float().cpu()
-        w = torch.as_tensor(want).float()
-        rel = ((a - w).norm() / w.norm().clamp_min(1e-12)).item()
-        ok = rel <= tol and bool(torch.isfinite(a).all())
-        log(f"  narrow SAM-2, {what} {tuple(w.shape)}: card vs CPU f32 rel L2 "
-            f"{rel:.3e} (tol {tol:g}){'' if ok else ' MISS'}")
-        if not ok:
-            raise AssertionError(f"narrow SAM-2, {what}: the card disagrees "
-                                 "with the CPU reference")
+        hold_close("narrow SAM-2", got, want, what, tol)
 
-    def hold_binary(got, want_logits, what, thr=0.0):
-        w = torch.as_tensor(want_logits).float()
-        band = TOL_PRED_REF * w.abs().max().item()
-        far = (w - thr).abs() > band
-        got = torch.as_tensor(got).bool().cpu()
-        bad = int((got[far] != (w > thr)[far]).sum())
-        log(f"  narrow SAM-2, {what}: {bad} of {int(far.sum())} pixels outside "
-            f"the band +-{band:.3g} differ ({int((~far).sum())} inside, not held)")
-        if bad:
-            raise AssertionError(f"narrow SAM-2, {what}: binary output differs")
+    def hold_binary(got, want_logits, what):
+        hold_masks("narrow SAM-2", got, want_logits, what)
 
     g = torch.Generator().manual_seed(62)
     raw = torch.randint(0, 256, (4, RAW_H, RAW_W, 3), dtype=torch.uint8, generator=g)
@@ -3081,7 +3164,257 @@ def phase_small_predictors_reference(smi: str):
         f"dim 256 x{counts['attention_fwd[flash_d256]']} [{smi}]")
 
 
-PHASES = ("kernels", "experiments", "serve", "predictors", "train")
+# SAM-1 ViT-H: the only kernel of its path is K3, at every LayerNorm that
+# `layer_norm`'s dispatch rule gives it (ops/norms.py: a width that is a
+# multiple of 128 and at least 65,536 elements). Its biased attention, its
+# dense layers, convs and the f32 decoder's attention stay plain.
+SAM1_ENCODE_K3 = 2 * 32 + 2   # norm1 and norm2 of the 32 blocks, the neck's 2
+N_SAM1_TRACK_FRAMES = 8
+N_SAM1_OBJECTS = 4
+
+
+def sam1_decode_k3(B: int, N: int, C: int = 256) -> int:
+    """K3 launches of one SAM-1 decode of B prompts over N tokens (iou, 4
+    mask, 4 track tokens with ITM, the sparse prompts): norm4 of both
+    two-way blocks on the keys [B, 4096, C] always; norm1-3 of both blocks
+    and norm_final_attn on the queries [B, N, C] from B * N * C >= 65,536;
+    `upscale_ln` (C / 4 = 64 wide) and the mask-prompt norms (4 and 16
+    wide) never."""
+    return 2 + (7 if B * N * C >= 1 << 16 else 0)
+
+
+def vit_h_encode_cost(cfg) -> tuple:
+    """(dense FLOP, attention FLOP) of one SAM-1 encode at batch 1: patch
+    embedding, qkv, proj and the 4x MLP of every block, the neck's 1x1 and
+    3x3 convs; QK^T and PV over the windows (zero-padded to whole windows)
+    and over the whole grid in the global blocks."""
+    g, D, C = cfg.image_size // 16, cfg.encoder_embed_dim, cfg.prompt_embed_dim
+    S = g * g
+    dense = 2 * S * (16 * 16 * 3 * D + cfg.encoder_depth * 12 * D * D
+                     + D * C + 9 * C * C)
+    ws = cfg.window_size
+    nw = (-(-g // ws)) ** 2
+    n_glob = len(cfg.encoder_global_attn_indexes)
+    attn = 4 * D * ((cfg.encoder_depth - n_glob) * nw * (ws * ws) ** 2
+                    + n_glob * S * S)
+    return dense, attn
+
+
+def phase_sam1(smi: str) -> dict:
+    """SAM-1 ViT-H with the ITM tracker at its published width
+    (`SAM1Config.vit_h()`, `with_itm=True`, seeded random weights, bf16
+    encoder, f32 decoder) through `build_sam1`, with the launch counters
+    set to 0 just before each path and read just after: the image predictor
+    on a raw 480x854 uint8 frame (2 points and 3 masks, a box, the box with
+    the low-res mask fed back), the automatic mask generator at the JAX
+    defaults on the same frame, and `track_frames` over 8 frames with 4
+    text-embed objects. Returns the counts of the three paths together."""
+    import torch
+    import numpy as np
+    from videoglamm_torch.config import SAM1Config
+    from videoglamm_torch.inference.pipeline import build_sam1
+    from videoglamm_torch.models.sam1_predictor import (
+        SAM1AutomaticMaskGenerator, SAM1ImagePredictor, preprocess_image_longest)
+
+    cfg = dataclasses.replace(SAM1Config.vit_h(), with_itm=True)
+    t0 = time.perf_counter()
+    sam = build_sam1(cfg, device="cuda", dtype=torch.bfloat16,
+                     init=lambda m: seeded_init(
+                         m, torch.Generator(device="cuda").manual_seed(7)))
+    torch.cuda.synchronize()
+    log(f"  SAM-1 ViT-H at {cfg.image_size} with ITM: "
+        f"{sum(p.numel() for p in sam.parameters()) / 1e6:.1f} M parameters, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(71)
+    frames = torch.randint(0, 256, (N_SAM1_TRACK_FRAMES, RAW_H, RAW_W, 3),
+                           dtype=torch.uint8, generator=g, device="cuda")
+    E4 = 4 * cfg.image_size // 16
+    only_k3 = {k: 0 for k in read_counts() if k != "row_norm[ln]"}
+    total = {}
+
+    def run(what, fn, k3):
+        """fn's result and wall ms, its launches checked: K3 `k3` times and
+        no other kernel."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out, ms = _wall(fn)
+        counts = read_counts()
+        check_launches(counts, {**only_k3, "row_norm[ln]": k3}, f"SAM-1 {what}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  SAM-1 {what}: {ms:.1f} ms, K3 x{k3}, peak device memory "
+            f"{peak:.2f} GiB [{smi}]")
+        return out, ms
+
+    # --- image predictor ---------------------------------------------------
+    pred = SAM1ImagePredictor(sam)
+    pred.set_image(frames[0])                                    # warm-up
+    _, enc_ms = run("set_image (one ViT-H encode)", lambda: pred.set_image(frames[0]),
+                    SAM1_ENCODE_K3)
+    dense, attn = vit_h_encode_cost(cfg)
+    bound_ms = (dense + attn) / PEAK_OPS["bf16"] * 1e3
+    log(f"  SAM-1 encode: {(dense + attn) / 1e12:.3f} TFLOP ({dense / 1e12:.3f} dense, "
+        f"{attn / 1e12:.3f} attention), bound {bound_ms:.3f} ms at the bf16 peak; "
+        f"measured {enc_ms:.1f} ms = {enc_ms / bound_ms:.1f} x the bound [{smi}]")
+    device_busy(lambda: pred.set_image(frames[0]), "one SAM-1 ViT-H encode", smi)
+    pts = np.array([[300.0, 200.0], [520.0, 260.0]])
+    pred.predict(point_coords=pts, point_labels=np.array([1, 0]))  # warm-up
+    (masks, ious, low), _ = run(
+        "predict 2 points x3 masks", lambda: pred.predict(
+            point_coords=pts, point_labels=np.array([1, 0])),
+        sam1_decode_k3(1, 5 + 3))
+    box = np.array([100.0, 80.0, 600.0, 400.0])
+    (bm, bi, bl), _ = run("predict box", lambda: pred.predict(
+        box=box, multimask_output=False), sam1_decode_k3(1, 5 + 2))
+    best = int(np.argmax(ious))
+    (rm, ri, rl), _ = run("predict box + low-res mask fed back", lambda: pred.predict(
+        box=box, mask_input=low[best:best + 1], multimask_output=False),
+        sam1_decode_k3(1, 5 + 2))
+    for what, (m, i, lo), n in (("points", (masks, ious, low), 3),
+                                ("box", (bm, bi, bl), 1), ("refinement", (rm, ri, rl), 1)):
+        if m.shape != (n, RAW_H, RAW_W) or i.shape != (n,) \
+                or lo.shape != (n, E4, E4) or not np.isfinite(lo).all():
+            raise AssertionError(f"SAM-1 predict {what}: {m.shape} {i.shape} {lo.shape}")
+
+    # --- automatic mask generator at the JAX defaults ------------------------
+    gen = SAM1AutomaticMaskGenerator(sam)
+    n_batches = -(-len(gen.point_grids[0]) // gen.points_per_batch)
+    amg_k3 = SAM1_ENCODE_K3 + n_batches * sam1_decode_k3(gen.points_per_batch, 5 + 2)
+    gen.generate(frames[0])                                      # warm-up
+    timings = {}
+    recs, amg_ms = run(f"AMG, {len(gen.point_grids[0])} points, "
+                       f"{gen.points_per_batch} a batch, JAX defaults",
+                       lambda: gen.generate(frames[0], timings=timings), amg_k3)
+    for r in recs:
+        if not (0 <= r["area"] <= RAW_H * RAW_W) or not np.isfinite(r["predicted_iou"]):
+            raise AssertionError(f"SAM-1 AMG: record {r['bbox']}")
+    log(f"  SAM-1 AMG: {len(recs)} records; stage ms: " + ", ".join(
+        f"{k} {v * 1e3:.1f}" for k, v in sorted(timings.items(), key=lambda kv: -kv[1]))
+        + f" [{smi}]")
+    device_busy(lambda: gen.generate(frames[0]), "one SAM-1 AMG pass at the JAX defaults",
+                smi)
+    del gen, recs
+
+    # --- track_frames: the ITM track-token recurrence ------------------------
+    T, B = N_SAM1_TRACK_FRAMES, N_SAM1_OBJECTS
+    with torch.no_grad():
+        x = torch.stack([preprocess_image_longest(f, cfg.image_size)[0] for f in frames])
+        text = torch.randn(B, 1, cfg.prompt_embed_dim, generator=g, device="cuda")
+        sam.track_frames(x[:2], text)                            # warm-up
+        track_k3 = SAM1_ENCODE_K3 + sam1_decode_k3(B, 5 + 1) \
+            + (T - 1) * sam1_decode_k3(B, 5 + 4 + 1)
+        out, tr_ms = run(f"track_frames, {T} frames, {B} objects",
+                         lambda: sam.track_frames(x, text), track_k3)
+    if tuple(out.shape) != (B, T, E4, E4) or not torch.isfinite(out).all():
+        raise AssertionError(f"SAM-1 track_frames: {tuple(out.shape)}")
+    log(f"  SAM-1 track_frames: {tr_ms / T:.1f} ms a frame [{smi}]")
+    with torch.no_grad():
+        device_busy(lambda: sam.track_frames(x, text),
+                    f"SAM-1 track_frames ({T} frames, {B} objects)", smi)
+    del sam, pred, x, out
+    torch.cuda.empty_cache()
+    return total
+
+
+def sam1_narrow_config():
+    """SAM-1 at the real image size (1024: a 64x64 grid in windows of 14,
+    padded to 70x70, and a global block over 4,096 tokens) and the full
+    decoder width, with a narrow encoder (256 wide, 4 blocks): every norm
+    K3 takes at ViT-H's shapes but the 1280 width."""
+    from videoglamm_torch.config import SAM1Config
+    return SAM1Config(encoder_embed_dim=256, encoder_depth=4, encoder_num_heads=4,
+                      encoder_global_attn_indexes=(3,), with_itm=True)
+
+
+def phase_small_sam1_reference(smi: str):
+    """The narrow SAM-1 built through `build_sam1` in bf16 on the card
+    against the same weights in f32 on the CPU through the plain twins, on
+    each surface: the embedding, `predict` (points, box with mask input),
+    the AMG's candidates, scores and records (`check_amg_records`) and
+    `track_frames`. Logits by relative L2 (TOL_PRED_REF), binary outputs
+    outside the band, as the narrow SAM-2."""
+    import torch
+    import numpy as np
+    from videoglamm_torch.inference.pipeline import build_sam1
+    from videoglamm_torch.models.sam1_predictor import (
+        SAM1AutomaticMaskGenerator, SAM1ImagePredictor, preprocess_image_longest,
+        preprocess_shape)
+    from videoglamm_torch.ops.resize import resize_bilinear
+
+    cfg = sam1_narrow_config()
+    who = "narrow SAM-1"
+    ref = build_sam1(cfg, device="cpu", dtype=torch.float32,
+                     init=lambda m: seeded_init(m, torch.Generator().manual_seed(72)))
+    dev = build_sam1(cfg, ref.state_dict(), device="cuda", dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(73)
+    raw = torch.randint(0, 256, (3, RAW_H, RAW_W, 3), dtype=torch.uint8, generator=g)
+
+    preds = [SAM1ImagePredictor(m) for m in (ref, dev)]
+    preds[0].set_image(raw[0])
+    reset_counts()
+    preds[1].set_image(raw[0].cuda())
+    k3 = read_counts()["row_norm[ln]"]
+    if k3 != 2 * cfg.encoder_depth + 2:
+        raise AssertionError(f"{who}: K3 launched {k3} times in an encode")
+    hold_close(who, preds[1].get_image_embedding(), preds[0].get_image_embedding(),
+               "image embedding")
+    pts = np.array([[300.0, 200.0], [520.0, 260.0]])
+    outs = [p.predict(point_coords=pts, point_labels=np.array([1, 0]),
+                      return_logits=True) for p in preds]
+    for i, what in enumerate(("logits", "ious", "low-res logits")):
+        hold_close(who, outs[1][i], outs[0][i], f"predict points {what}")
+    hold_masks(who, preds[1].predict(point_coords=pts, point_labels=np.array([1, 0]))[0],
+               outs[0][0], "predict points masks")
+    low = outs[0][2][:1]
+    kw = dict(box=np.array([100.0, 80.0, 600.0, 400.0]), mask_input=low,
+              multimask_output=False)
+    outs = [p.predict(return_logits=True, **kw) for p in preds]
+    hold_close(who, outs[1][0], outs[0][0], "predict box + mask input logits")
+    hold_masks(who, preds[1].predict(**kw)[0], outs[0][0], "predict box + mask input masks")
+
+    # the AMG: one grid batch's candidates, their scores, then the records
+    gens = [SAM1AutomaticMaskGenerator(m, points_per_side=4, points_per_batch=16,
+                                       pred_iou_thresh=0.0, stability_score_thresh=0.0,
+                                       box_nms_thresh=1.0, output_mode="uncompressed_rle")
+            for m in (ref, dev)]
+    lows, scores = [], []
+    for gen, img in zip(gens, (raw[1], raw[1].cuda())):
+        gen.predictor.set_image(img)
+        pts_g = gen.point_grids[0] * np.array([RAW_W, RAW_H])[None]
+        coords = torch.from_numpy(gen._model_coords(pts_g, (RAW_H, RAW_W))
+                                  .astype(np.float32)).to(img.device)[:, None]
+        with torch.no_grad():
+            lo, io = gen._decode_fn(16, True, False)(*gen._crop_features(), coords, None)
+            lo = lo.reshape(-1, *lo.shape[2:])
+            lows.append((lo, io))
+            scores.append(gen._score_fn(lo.shape[0], (RAW_H, RAW_W))(lo))
+    hold_close(who, lows[1][0], lows[0][0], "AMG decoded low-res logits")
+    hold_close(who, lows[1][1], lows[0][1], "AMG IoU predictions")
+    nh, nw = preprocess_shape(RAW_H, RAW_W, cfg.image_size)
+    with torch.no_grad():
+        up = resize_bilinear(lows[0][0][..., None], (cfg.image_size,) * 2)[:, :nh, :nw]
+        up = resize_bilinear(up, (RAW_H, RAW_W))[..., 0]
+    hold_masks(who, scores[1][0], up, "AMG binary masks")
+    d_stab = (scores[1][1].cpu() - scores[0][1]).abs().max().item()
+    log(f"  {who}, AMG stability scores: max |d| {d_stab:.3e} (tol {TOL_STABILITY:g})")
+    if d_stab > TOL_STABILITY:
+        raise AssertionError(f"{who}: AMG stability scores disagree")
+    check_amg_records(gens, scores[0][0], up, [lw[1] for lw in lows], raw[1], who)
+
+    # track_frames: 3 frames, 2 objects, the ITM recurrence
+    x = torch.stack([preprocess_image_longest(f, cfg.image_size)[0] for f in raw])
+    text = torch.randn(2, 1, cfg.prompt_embed_dim, generator=g)
+    with torch.no_grad():
+        r = ref.track_frames(x, text)
+        d = dev.track_frames(x.cuda(), text.cuda())
+    for t in range(x.shape[0]):
+        hold_close(who, d[:, t], r[:, t], f"track_frames frame {t} logits")
+    log(f"  {who}: every surface held [{smi}]")
+
+
+PHASES = ("kernels", "experiments", "serve", "predictors", "sam1", "train")
 SOURCES = {
     "attention_fwd": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
     "gemm_epilogue": ("cuda", "videoglamm_torch/csrc/gemm_epilogue.cu"),
@@ -3195,6 +3528,8 @@ def main() -> int:
             check_teacher_forced(gi.model, frames, context, ids, lens, TOL_LLM_TF,
                                  "bf16 weights, bf16 cache")
             measure_decode(gi.model, frames, context, ids, lens, "bf16")
+            phase("[check] reference-layout round trip of the bf16 model")
+            check_reference_round_trip(gi, cfg, requests[0])
             del gi, results, requests, frames, context
             torch.cuda.empty_cache()
 
@@ -3286,6 +3621,14 @@ def main() -> int:
             phase_small_predictors_reference(smi)
             torch.cuda.empty_cache()
 
+        if "sam1" in chosen:
+            phase("[sam1] SAM-1 ViT-H with the ITM tracker at 1024: image predictor, "
+                  "automatic mask generator, track_frames")
+            sam1_counts = phase_sam1(smi)
+            phase("[check] narrow SAM-1 on the card against the CPU twins")
+            phase_small_sam1_reference(smi)
+            torch.cuda.empty_cache()
+
         if "train" in chosen:
             phase(f"[train] flagship, {TRAIN_STEPS} optimizer steps of {GRAD_ACCUM} "
                 "micro-steps, LoRA + lm_head + embed_tokens + text_hidden_fcs + "
@@ -3312,7 +3655,8 @@ def main() -> int:
     # on the main path's model; K9's four entries and the BSHD launcher
     # from the run of the two experiment harnesses; launches_predictors:
     # one image predictor `set_image` and the interactive session's two
-    # propagations (26 frames: K1 at head dim 256). A row keyed
+    # propagations (26 frames: K1 at head dim 256); launches_sam1: the SAM-1
+    # phase's three paths (K3 only). A row keyed
     # "<counter>@<shape>" is another shape of the counter's kernel. Phases
     # that did not run leave their counts null.
     if "serve" in chosen:
@@ -3331,6 +3675,8 @@ def main() -> int:
                        for k in encode_counts}
     else:
         pred_counts = {}
+    if "sam1" not in chosen:
+        sam1_counts = {}
     if "experiments" in chosen:
         for key in experiment_counts:
             if key.startswith("decode_fused") or key == "flash_bshd":
@@ -3344,7 +3690,8 @@ def main() -> int:
                             launches=counts.get(counter),
                             launches_train=train_counts.get(counter),
                             launches_track=track_counts.get(counter),
-                            launches_predictors=pred_counts.get(counter), **row))
+                            launches_predictors=pred_counts.get(counter),
+                            launches_sam1=sam1_counts.get(counter), **row))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     result = {"ok": True, "device": {

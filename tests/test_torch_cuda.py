@@ -1635,3 +1635,50 @@ def test_interactive_step_on_card_matches_cpu(dev):
     for name in ("low_res_multimasks", "ious", "object_score_logits"):
         _close_l2(getattr(heads[1], name).cpu(), getattr(heads[0], name), 2e-2, name)
     assert list(db.mem_frame) == list(rb.mem_frame)
+
+
+# ---------------------------------------------------------------------------
+# SAM-1 on the card: K3 at every norm, the plain biased attention
+# ---------------------------------------------------------------------------
+def test_sam1_on_card_matches_cpu(dev):
+    """A narrow SAM-1 built through `build_sam1` (256 wide, 3 blocks, the
+    last global, windows of 14 on a 32x32 grid padded to 42x42, the ITM
+    head): bf16 encoder on the card against the f32 CPU twin on the same
+    weights, by relative L2 (a few bf16 roundings a block), through the
+    predictor and `track_frames`; every encoder norm launches K3."""
+    from videoglamm_torch.config import SAM1Config
+    from videoglamm_torch.inference.pipeline import build_sam1
+    from videoglamm_torch.models.sam1_predictor import SAM1ImagePredictor
+    cfg = SAM1Config(image_size=512, encoder_embed_dim=256, encoder_depth=3,
+                     encoder_num_heads=4, encoder_global_attn_indexes=(2,),
+                     with_itm=True)
+    g = torch.Generator().manual_seed(0)
+
+    def init(m):
+        with torch.no_grad():
+            for p in m.parameters():
+                p.normal_(0.0, 0.02, generator=g)
+            for b in m.buffers():
+                b.normal_(0.0, 1.0, generator=g)
+
+    ref = build_sam1(cfg, device="cpu", dtype=torch.float32, init=init)
+    card = build_sam1(cfg, ref.state_dict(), device=dev, dtype=torch.bfloat16)
+    img = torch.as_tensor(np.random.default_rng(2).integers(0, 256, (120, 200, 3)),
+                          dtype=torch.uint8)
+    preds = [SAM1ImagePredictor(m) for m in (ref, card)]
+    preds[0].set_image(img)
+    norms.LAUNCHES.clear()
+    preds[1].set_image(img.to(dev))
+    assert norms.LAUNCHES["ln"] == 2 * cfg.encoder_depth + 2
+    _close_l2(preds[1].get_image_embedding().cpu(), preds[0].get_image_embedding(),
+              2e-2, "embedding")
+    outs = [p.predict(point_coords=np.array([[50.0, 60.0]]), point_labels=np.array([1]),
+                      box=np.array([10.0, 20.0, 150.0, 100.0]), return_logits=True)
+            for p in preds]
+    for a, b, what in zip(outs[1], outs[0], ("logits", "ious", "low-res")):
+        _close_l2(torch.as_tensor(a), torch.as_tensor(b), 2e-2, what)
+    x = torch.randn(2, 512, 512, 3, generator=g)
+    text = torch.randn(3, 1, 256, generator=g)
+    with torch.no_grad():
+        r, d = ref.track_frames(x, text), card.track_frames(x.to(dev), text.to(dev))
+    _close_l2(d.cpu(), r, 2e-2, "track_frames")

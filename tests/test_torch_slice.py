@@ -147,12 +147,15 @@ def test_grounded_inference_contract(slice_setup):
     assert set(timings) == {"visual", "generate", "sam_encode", "mask_decode"}
 
 
-def test_port_imports_and_runs_without_jax():
+def test_port_imports_and_runs_without_jax(tmp_path):
     """videoglamm_torch imports neither jax nor videoglamm_tpu: with both
     blocked, import the package, the pipeline, the quantisation and
     preprocessing modules and the tracker's modules, and serve a tiny model
     on the CPU: bf16-mode from streams, int8 (weights + KV cache) from raw
-    frames, and the video branch (the memory tracker) from raw frames."""
+    frames, and the video branch (the memory tracker) from raw frames; load
+    it back from reference-layout shards through `load_reference_dir`; and
+    drive a tiny SAM-1 built by `build_sam1` through its predictor, its
+    generator and `track_frames`."""
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'videoglamm_tpu'): sys.modules[name] = None\n"
@@ -184,6 +187,39 @@ def test_port_imports_and_runs_without_jax():
         "out = gi.serve_raw(raw, ids, torch.tensor([8]), use_video_branch=True)\n"
         "assert out.pred_masks.shape == (1, 4, 4, 32, 32)\n"
         "assert torch.isfinite(out.pred_masks).all()\n"
+        "import numpy as np\n"
+        "from videoglamm_torch.io import reference\n"
+        "from videoglamm_torch.models import sam1, sam1_predictor\n"
+        "from videoglamm_torch.inference.pipeline import build_sam1\n"
+        "hf, iv, clip = reference.to_reference_layout(m.state_dict(), cfg)\n"
+        f"d = {str(tmp_path)!r}\n"
+        "torch.save(hf, d + '/pytorch_model.bin')\n"
+        "torch.save({'module': iv}, d + '/iv.pt'); torch.save(clip, d + '/clip.bin')\n"
+        "gi = reference.load_reference_dir(d, cfg, d + '/iv.pt', d + '/clip.bin',\n"
+        "    quant='int8', device='cpu', dtype=torch.float32, max_new_tokens=4)\n"
+        "out = gi.serve_raw(raw, ids, torch.tensor([8]), num_sam_frames=1)\n"
+        "assert torch.isfinite(out.pred_masks).all()\n"
+        "from videoglamm_torch.config import SAM1Config\n"
+        "import dataclasses\n"
+        "s1 = build_sam1(dataclasses.replace(SAM1Config.tiny(), with_itm=True),\n"
+        "                device='cpu', dtype=torch.float32)\n"
+        "img = np.random.RandomState(0).randint(0, 256, (40, 50, 3), np.uint8)\n"
+        "p = sam1_predictor.SAM1ImagePredictor(s1)\n"
+        "p.set_image(img)\n"
+        "masks, ious, low = p.predict(point_coords=np.array([[20.0, 10.0]]),\n"
+        "                             point_labels=np.array([1]))\n"
+        "assert masks.shape == (3, 40, 50) and low.shape == (3, 32, 32)\n"
+        "recs = sam1_predictor.SAM1AutomaticMaskGenerator(s1, points_per_side=2,\n"
+        "    pred_iou_thresh=0.0, stability_score_thresh=0.0).generate(img)\n"
+        "assert len(recs) > 0\n"
+        "tr = s1.track_frames(torch.randn(3, 128, 128, 3), torch.randn(2, 1, 32))\n"
+        "assert tr.shape == (2, 3, 32, 32) and torch.isfinite(tr).all()\n"
+        "if not torch.cuda.is_available():\n"
+        "    try:\n"
+        "        build_sam1(SAM1Config.tiny())\n"
+        "        raise SystemExit('build_sam1 built on a missing card')\n"
+        "    except RuntimeError:\n"
+        "        pass\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'videoglamm_tpu')\n"
         "               and v is not None\n"
         "               for k, v in sys.modules.items())\n"

@@ -217,6 +217,31 @@ class SAM2Config:
 
 
 @dataclass(frozen=True)
+class SAM1Config:
+    """SAM-1 ViT-H, the v1 / v1_itm pixel decoder: a plain windowed ViT
+    with decomposed relative-position biases, the SAM prompt encoder, and a
+    mask decoder with the optional ITM track-token head."""
+    image_size: int = 1024
+    encoder_embed_dim: int = 1280
+    encoder_depth: int = 32
+    encoder_num_heads: int = 16
+    encoder_global_attn_indexes: Tuple[int, ...] = (7, 15, 23, 31)
+    window_size: int = 14
+    prompt_embed_dim: int = 256
+    with_itm: bool = False      # track-token temporal module
+
+    @staticmethod
+    def vit_h() -> "SAM1Config":
+        return SAM1Config()
+
+    @staticmethod
+    def tiny() -> "SAM1Config":
+        return SAM1Config(image_size=128, encoder_embed_dim=32, encoder_depth=2,
+                          encoder_num_heads=2, encoder_global_attn_indexes=(1,),
+                          window_size=4, prompt_embed_dim=32)
+
+
+@dataclass(frozen=True)
 class VideoGLaMMConfig:
     """The composite: InternVideo2 + CLIP towers, projectors, the LLM, the
     [SEG] head and SAM-2. llm_type selects the base decoder: "phi3" (the

@@ -11,16 +11,21 @@ prompted on frame 0 and propagated through the frames.
 unless the caller asks for the CPU, quantises the LLM when asked and
 chooses the KV-cache storage. `build_sam2` builds SAM-2 alone under the
 same rules, for the image predictor, the automatic mask generator and the
-interactive video predictor (`models/sam2/`)."""
+interactive video predictor (`models/sam2/`); `build_sam1` builds SAM-1
+(ViT-H, with or without the ITM tracker) for its predictor, its generator
+(`models/sam1_predictor.py`) and `SAM1.track_frames`. A reference-layout
+checkpoint directory loads through `io/reference.load_reference_dir`,
+which ends in `build_inference`."""
 from __future__ import annotations
 
 from typing import Callable, Mapping, NamedTuple, Optional
 
 import torch
 
-from ..config import SAM2Config
+from ..config import SAM1Config, SAM2Config
 from ..models.common import cast_compute
 from ..models.phi3 import quantize_llm
+from ..models.sam1 import SAM1
 from ..models.sam2.sam2_base import SAM2Base
 from ..models.videoglamm import SegExtraction, VideoGLaMM
 from ..ops.preprocess import (preprocess_clip_stream, preprocess_iv_stream,
@@ -247,4 +252,33 @@ def build_sam2(cfg: Optional[SAM2Config] = None,
         cast_compute(model.image_encoder, dtype)
         model.sam_mask_decoder.conv_s0.to(dtype)
         model.sam_mask_decoder.conv_s1.to(dtype)
+    return model.eval()
+
+
+def build_sam1(cfg: Optional[SAM1Config] = None,
+               state_dict: Optional[Mapping] = None, *, device="cuda",
+               dtype=torch.bfloat16,
+               init: Optional[Callable] = None) -> SAM1:
+    """Build SAM-1 (`SAM1Config()`, ViT-H at 1024, by default; set
+    `with_itm` for the track-token module) on `device` for
+    `models/sam1_predictor.py` and `SAM1.track_frames`.
+
+    device: the card by default; a CUDA device with no card present
+    raises. Pass "cpu" to run the plain twins.
+    state_dict: SAM-1 weights under the reference keys
+    (`io/from_jax.sam1_state_dict` makes them from a JAX tree), loaded
+    strictly. Without one, `init` (a callable that fills the f32 model in
+    place) or torch's default initialisation stands in.
+    dtype: the image encoder's compute dtype; the prompt encoder and the
+    mask decoder stay f32, as in the JAX model."""
+    dev = _device(device, "build_sam1")
+    with torch.device(dev):
+        model = SAM1(cfg if cfg is not None else SAM1Config())
+    model.to(dev)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    elif init is not None:
+        init(model)
+    if dtype != torch.float32:
+        cast_compute(model.image_encoder, dtype)
     return model.eval()

@@ -228,10 +228,11 @@ def _mlp_block(p, prefix: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def mask_decoder_state_dict(p, conv_s0=None, conv_s1=None):
-    """MaskDecoder params (+ SAM2Base conv_s0/s1) -> port MaskDecoder."""
-    sd = {"obj_score_token.weight": _t(p["obj_score_token"]),
-          "iou_token.weight": _t(p["iou_token"]),
+def _sam_decoder_common(p, mlp_names) -> Dict[str, torch.Tensor]:
+    """What the SAM-2 and SAM-1 mask decoders share: the tokens but the
+    object-score one, the two-way transformer (its blocks' MLP under
+    `mlp_names`), the upscaling, the hypernetworks and the IoU head."""
+    sd = {"iou_token.weight": _t(p["iou_token"]),
           "mask_tokens.weight": _t(p["mask_tokens"])}
     tp = p["transformer"]
     i = 0
@@ -241,8 +242,8 @@ def mask_decoder_state_dict(p, conv_s0=None, conv_s1=None):
                    "cross_attn_image_to_token"):
             for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
                 sd.update(_linear(lp[nm][proj], f"{pre}.{nm}.{proj}"))
-        sd.update(_linear(lp["mlp"]["fc1"], f"{pre}.mlp.layers.0"))
-        sd.update(_linear(lp["mlp"]["fc2"], f"{pre}.mlp.layers.1"))
+        for leaf, name in zip(("fc1", "fc2"), mlp_names):
+            sd.update(_linear(lp["mlp"][leaf], f"{pre}.mlp.{name}"))
         for nm in ("norm1", "norm2", "norm3", "norm4"):
             sd.update(_norm(lp[nm], f"{pre}.{nm}"))
         i += 1
@@ -259,6 +260,13 @@ def mask_decoder_state_dict(p, conv_s0=None, conv_s1=None):
                              f"output_hypernetworks_mlps.{j}"))
         j += 1
     sd.update(_mlp_block(p["iou_head"], "iou_prediction_head"))
+    return sd
+
+
+def mask_decoder_state_dict(p, conv_s0=None, conv_s1=None):
+    """MaskDecoder params (+ SAM2Base conv_s0/s1) -> port MaskDecoder."""
+    sd = {"obj_score_token.weight": _t(p["obj_score_token"])}
+    sd.update(_sam_decoder_common(p, ("layers.0", "layers.1")))
     sd.update(_mlp_block(p["obj_score_head"], "pred_obj_score_head"))
     if conv_s0 is not None:
         sd.update(_conv1x1(conv_s0, "conv_s0"))
@@ -365,6 +373,47 @@ def sam2_state_dict(p) -> Dict[str, torch.Tensor]:
     tpos = np.asarray(p["maskmem_tpos_enc"])             # [num_maskmem, 1, md]
     sd["maskmem_tpos_enc"] = _t(tpos[:, :, None, :])
     sd["no_obj_ptr"] = _t(np.asarray(p["no_obj_ptr"])[None])
+    return sd
+
+
+def sam1_block_state_dict(bp) -> Dict[str, torch.Tensor]:
+    """SAM1Block params -> port SAM1Block state_dict."""
+    sd = {"attn.rel_pos_h": _t(bp["attn"]["rel_pos_h"]),
+          "attn.rel_pos_w": _t(bp["attn"]["rel_pos_w"])}
+    sd.update(_norm(bp["norm1"], "norm1"))
+    sd.update(_norm(bp["norm2"], "norm2"))
+    sd.update(_linear(bp["attn"]["qkv"], "attn.qkv"))
+    sd.update(_linear(bp["attn"]["proj"], "attn.proj"))
+    sd.update(_linear(bp["mlp"]["fc1"], "mlp.lin1"))
+    sd.update(_linear(bp["mlp"]["fc2"], "mlp.lin2"))
+    return sd
+
+
+def sam1_state_dict(p) -> Dict[str, torch.Tensor]:
+    """SAM1 params (models/sam1.py) -> port SAM1 state_dict, under the keys
+    `import_sam1` reads (import_torch.py:419-497): segment_anything's
+    `mlp.lin1` / `lin2`, `neck.{0,1,2,3}`, `itm_head.mlp{1,2}.0`."""
+    e = p["image_encoder"]
+    sd = {"patch_embed.proj.weight": _conv_hwio(e["patch_embedding"]),
+          "patch_embed.proj.bias": _t(e["patch_bias"]),
+          "pos_embed": _t(np.asarray(e["pos_embed"])[None]),
+          "neck.0.weight": _t(np.asarray(e["neck_conv1"]["kernel"]).T[:, :, None, None]),
+          "neck.2.weight": _conv_hwio(e["neck_conv2"]["kernel"])}
+    sd.update(_norm(e["neck_ln1"], "neck.1"))
+    sd.update(_norm(e["neck_ln2"], "neck.3"))
+    i = 0
+    while f"blocks_{i}" in e:
+        sd.update(_prefixed(f"blocks.{i}", sam1_block_state_dict(e[f"blocks_{i}"])))
+        i += 1
+    d = p["mask_decoder"]
+    dec = _sam_decoder_common(d, ("lin1", "lin2"))
+    if "itm_fc1" in d:
+        dec.update(_linear(d["itm_fc1"], "itm_head.mlp1.0"))
+        dec.update(_linear(d["itm_fc2"], "itm_head.mlp2.0"))
+    sd = _prefixed("image_encoder", sd)
+    sd.update(_prefixed("prompt_encoder",
+                        prompt_encoder_state_dict(p["prompt_encoder"])))
+    sd.update(_prefixed("mask_decoder", dec))
     return sd
 
 

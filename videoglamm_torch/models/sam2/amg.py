@@ -145,7 +145,9 @@ def remove_small_regions(mask: np.ndarray, area_thresh: float,
     assert mode in ("holes", "islands")
     correct_holes = mode == "holes"
     working = np.asarray(mask, bool) ^ correct_holes
-    _, areas = connected_components(torch.from_numpy(working[None]))
+    # rle_decode gives Fortran-ordered masks; the labelling takes C order
+    _, areas = connected_components(torch.from_numpy(
+        np.ascontiguousarray(working)[None]))
     areas = areas[0].numpy()
     small = (areas > 0) & (areas < area_thresh)
     if not small.any():
@@ -184,6 +186,28 @@ def rles_from_device_masks(masks, offset: Tuple[int, int],
             counts = [0] + counts
         out.append({"size": [H, W], "counts": counts})
     return out
+
+
+def score_masks(up, thr: float, off: float):
+    """Mask logits at crop resolution [N, Hc, Wc] -> (binary masks, the
+    stability score [N]: IoU of the thr + off and thr - off binarisations,
+    0 on an empty union, and xyxy boxes [N, 4] int32, [0, 0, 0, 0] for an
+    empty mask), on the logits' device."""
+    inter = (up > thr + off).sum(dim=(-2, -1))
+    union = (up > thr - off).sum(dim=(-2, -1))
+    stab = inter / union.clamp_min(1)
+    binm = up > thr
+    Hc, Wc = up.shape[-2:]
+    in_h, in_w = binm.any(dim=-1), binm.any(dim=-2)
+    hc = torch.arange(Hc, dtype=torch.int32, device=up.device)
+    wc = torch.arange(Wc, dtype=torch.int32, device=up.device)
+    bottom = torch.where(in_h, hc, 0).amax(dim=-1)
+    top = torch.where(in_h, hc, Hc).amin(dim=-1)
+    right = torch.where(in_w, wc, 0).amax(dim=-1)
+    left = torch.where(in_w, wc, Wc).amin(dim=-1)
+    empty = (right < left) | (bottom < top)
+    boxes = torch.stack([left, top, right, bottom], dim=-1)
+    return binm, stab, torch.where(empty[:, None], 0, boxes)
 
 
 # ---------------------------------------------------------------------------
@@ -280,21 +304,7 @@ class SAM2AutomaticMaskGenerator:
                     mask_threshold=thr)
                 self._clock("connected_components")
             up = resize_bilinear(filled[..., None], crop_hw)[..., 0]
-            inter = (up > thr + off).sum(dim=(-2, -1))
-            union = (up > thr - off).sum(dim=(-2, -1))
-            stab = inter / union.clamp_min(1)
-            binm = up > thr
-            Hc, Wc = crop_hw
-            in_h, in_w = binm.any(dim=-1), binm.any(dim=-2)
-            hc = torch.arange(Hc, dtype=torch.int32, device=low.device)
-            wc = torch.arange(Wc, dtype=torch.int32, device=low.device)
-            bottom = torch.where(in_h, hc, 0).amax(dim=-1)
-            top = torch.where(in_h, hc, Hc).amin(dim=-1)
-            right = torch.where(in_w, wc, 0).amax(dim=-1)
-            left = torch.where(in_w, wc, Wc).amin(dim=-1)
-            empty = (right < left) | (bottom < top)
-            boxes = torch.stack([left, top, right, bottom], dim=-1)
-            return binm, stab, torch.where(empty[:, None], 0, boxes)
+            return score_masks(up, thr, off)
         return score
 
     def _crop_features(self):

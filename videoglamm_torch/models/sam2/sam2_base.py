@@ -42,8 +42,8 @@ class SamHeadsOutput(NamedTuple):
 
 
 def model_device(model) -> torch.device:
-    """The device a built SAM2Base lives on."""
-    return model.no_mem_embed.device
+    """The device a built SAM2Base or SAM1 lives on."""
+    return next(model.parameters()).device
 
 
 class SAM2Base(nn.Module):
