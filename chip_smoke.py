@@ -174,7 +174,22 @@ Phases, each fatal on failure:
 9. train check: a narrow model at the real sequence length (so K1 and K6
    are taken) in bf16 on the card against the same weights in f32 on the
    CPU through the plain twins: the loss and the gradient of every
-   trainable leaf, by relative L2.
+   trainable leaf, by relative L2;
+10. train CLI: `videoglamm_torch.cli.train.main` from dataset files written
+   from the seed at 480x854 (a GCG train.json over frame directories with
+   RLE masks, a MeViS-layout root, ReasonSeg train / val images with
+   polygons, a VQA file), a word-level stand-in tokenizer with [SEG] at the
+   config's id and the seeded weights handed over by patching the CLI's
+   `load_tokenizer` and `load_model`: 3 optimizer steps of 2 micro-steps of
+   2 one-row samples at 129 ids (the LLM sees [2,3456,3072], as in 8), the
+   epoch checkpoint and both validators (2 samples each). It fails on a
+   non-finite loss, a mask BCE of 0, launch counts a step other than 8's,
+   a missing checkpoint or validator scalar, a fixture row that does not
+   fit 129 ids with its [SEG] tokens, or a first device batch that is not
+   bit-equal, copied back, to the host batch the prefetch thread pinned
+   and copied. Prints the host seconds of a sample and of a collation,
+   every step's wall seconds beside 8's and its share spent waiting on
+   `next(batches)`, the checkpoint's and the validators' seconds.
 
 Prints one {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, without
@@ -2417,7 +2432,8 @@ def make_train_batch(cfg, seed: int, device="cuda", dtype=None, rows=2,
 
 def phase_train(cfg, seed: int):
     """Four optimizer steps at flagship width through `build_training` and
-    its train step; returns the launch counts of the four steps."""
+    its train step; returns the launch counts of the four steps and their
+    wall seconds."""
     import tempfile
     import torch
     from videoglamm_torch.config import TrainConfig
@@ -2460,7 +2476,7 @@ def phase_train(cfg, seed: int):
         f"{time.perf_counter() - t0:.1f} s")
 
     state = tr.state
-    losses = []
+    losses, walls = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2470,6 +2486,7 @@ def phase_train(cfg, seed: int):
         state, metrics = tr.train_step(state, batch, timings=timings)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        walls.append(wall)
         m = {k: float(v) for k, v in metrics.items()}
         losses.append(m["loss"])
         if not all(math.isfinite(v) for v in m.values()):
@@ -2532,7 +2549,7 @@ def phase_train(cfg, seed: int):
     if not abs(loss5 - loss5b) <= 1e-6 * abs(loss5):
         raise AssertionError("train: the restored state does not repeat the "
                              "next step's loss")
-    return counts
+    return counts, walls
 
 
 def profile_train_step(tr, state, batch) -> float:
@@ -2636,6 +2653,375 @@ def phase_small_train_reference(seed: int):
     if not (rel_all <= TOL_TRAIN_GRAD_ALL and worst[0] <= TOL_TRAIN_GRAD):
         raise AssertionError("small model (training): gradients on the card "
                              "disagree with the CPU reference")
+
+
+# ---------------------------------------------------------------------------
+# train through the CLI: dataset files -> samples -> collated micro-batches
+# -> the prefetch thread's copy onto the card -> the train step -> Trainer
+# ---------------------------------------------------------------------------
+CLI_STEPS = 3           # optimizer steps of the CLI's one epoch
+CLI_BATCH = 2           # samples (one conversation each) a micro-batch
+CLI_VAL_SAMPLES = 2
+
+
+class WordTokenizer:
+    """A word-level stand-in for the HF tokenizer: stateless (the loader
+    thread and the validators call it at once), `[SEG]` (also inside
+    "[SEG].") at the config's seg id, every other word hashed into the
+    base vocabulary."""
+    bos_token_id = 1
+
+    def __init__(self, seg_id: int, vocab: int):
+        self.seg_id, self.vocab = seg_id, vocab
+
+    def __call__(self, text):
+        import re
+        import types
+        import zlib
+        ids = [self.bos_token_id]
+        for w in re.findall(r"\[SEG\]|\S+", text):
+            ids.append(self.seg_id if w == "[SEG]"
+                       else 10 + zlib.crc32(w.encode()) % (self.vocab - 10))
+        return types.SimpleNamespace(input_ids=ids)
+
+
+def _smooth_frame(rng, h=RAW_H, w=RAW_W):
+    """A 480x854 RGB frame with the low-frequency content of a photo (a
+    bilinear blow-up of a 6x10 grid) and mild noise, so its JPEG decodes at
+    a photo's cost rather than noise's."""
+    import numpy as np
+    from PIL import Image
+    small = Image.fromarray(rng.randint(0, 256, (6, 10, 3), np.uint8))
+    img = np.asarray(small.resize((w, h), Image.BILINEAR), np.int16)
+    img = img + rng.randint(-6, 7, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _blob(rng, h=RAW_H, w=RAW_W):
+    import numpy as np
+    y0, x0 = rng.randint(0, h // 2), rng.randint(0, w // 2)
+    m = np.zeros((h, w), bool)
+    m[y0:y0 + rng.randint(h // 8, h // 2), x0:x0 + rng.randint(w // 8, w // 2)] = True
+    return m
+
+
+def write_train_fixture(root: str, seed: int) -> dict:
+    """Synthetic training data at the main path's 480x854 frames, from the
+    seed: a GCG train.json over frame directories with RLE object masks
+    (2 videos, 8 frames, 2 objects), a MeViS-layout root (2 videos, 6
+    frames, one expression each, RLE masks in mask_dict.json), ReasonSeg
+    train and val images with their polygon JSON (2 each), and a VQA file
+    over 2 images. Returns the CLI's paths."""
+    import os
+    import numpy as np
+    from PIL import Image
+    from videoglamm_torch.data.rle import rle_encode
+    rng = np.random.RandomState(seed)
+
+    def save(path, arr):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(arr).save(path, quality=90)
+
+    videos, anns = [], []
+    for v in range(2):
+        n = 8
+        names = [f"v{v}/{t:05d}.jpg" for t in range(n)]
+        for f in names:
+            save(os.path.join(root, "gcg", "frames", f), _smooth_frame(rng))
+        mask_ids = []
+        for o in range(2):
+            aid = 10 * v + o
+            segs = [rle_encode(_blob(rng)) if (t + o) % 3 else None
+                    for t in range(n)]
+            anns.append({"id": aid, "segmentations": segs})
+            mask_ids.append(aid)
+        videos.append({"file_names": names, "width": RAW_W, "height": RAW_H,
+                       "length": n, "dense_cap": {
+                           "caption": f"a striped cat {v} chases the red ball "
+                                      "across the kitchen floor",
+                           "token_pos": [2, 7], "mask_id": mask_ids,
+                           "v_id2o_id": {}}})
+    os.makedirs(os.path.join(root, "gcg"), exist_ok=True)
+    with open(os.path.join(root, "gcg", "train.json"), "w") as f:
+        json.dump({"videos": videos, "annotations": anns}, f)
+
+    meta, mask_dict = {"videos": {}}, {}
+    for v in range(2):
+        for t in range(6):
+            save(os.path.join(root, "mevis", "JPEGImages", f"vid{v}",
+                              f"{t:05d}.jpg"), _smooth_frame(rng))
+        mask_dict[str(100 + v)] = [rle_encode(_blob(rng)) if t != 2 else None
+                                   for t in range(6)]
+        meta["videos"][f"vid{v}"] = {"expressions": {"0": {
+            "exp": f"the dog {v} that jumps first", "anno_id": [100 + v]}},
+            "frames": [f"{t:05d}" for t in range(6)]}
+    with open(os.path.join(root, "mevis", "meta_expressions.json"), "w") as f:
+        json.dump(meta, f)
+    with open(os.path.join(root, "mevis", "mask_dict.json"), "w") as f:
+        json.dump(mask_dict, f)
+
+    for split in ("train", "val"):
+        for i in range(2):
+            save(os.path.join(root, "reason", split, f"x{i}.jpg"),
+                 _smooth_frame(rng))
+            x0, y0 = rng.randint(50, 300), rng.randint(50, 200)
+            anno = {"text": "the object that holds the most water" if i == 0
+                    else "cup", "is_sentence": i == 0, "shapes": [
+                        {"label": "target", "points": [
+                            [x0, y0], [x0 + 300, y0], [x0 + 280, y0 + 220],
+                            [x0 + 20, y0 + 200]]},
+                        {"label": "ignore", "points": [
+                            [10, 400], [120, 400], [120, 470], [10, 470]]}]}
+            with open(os.path.join(root, "reason", split, f"x{i}.json"), "w") as f:
+                json.dump(anno, f)
+
+    for i in range(2):
+        save(os.path.join(root, "vqa", "media", f"p{i}.jpg"), _smooth_frame(rng))
+    with open(os.path.join(root, "vqa", "ann.json"), "w") as f:
+        json.dump([{"image": f"p{i}.jpg", "conversations": [
+            {"from": "human", "value": "What is shown in the picture?"},
+            {"from": "gpt", "value": "A blurred scene with soft colours."}]}
+            for i in range(2)], f)
+    return dict(gcg_json=os.path.join(root, "gcg", "train.json"),
+                gcg_frames=os.path.join(root, "gcg", "frames"),
+                mevis=os.path.join(root, "mevis"),
+                reason=os.path.join(root, "reason"),
+                vqa_json=os.path.join(root, "vqa", "ann.json"),
+                vqa_media=os.path.join(root, "vqa", "media"))
+
+
+def time_host_loader(cfg, tok, paths, smi: str):
+    """Host seconds to build samples of each dataset and to collate one
+    micro-batch, on this thread with the card idle; fails unless every
+    row fits S_TEXT_TRAIN ids with all its [SEG] tokens."""
+    import numpy as np
+    from videoglamm_torch.data.collate import build_batch
+    from videoglamm_torch.data.datasets import (
+        GCGVideoDataset, ReasonSegDataset, ReferVOSDataset, SampleBuilder,
+        VQADataset)
+    builder = SampleBuilder(cfg, tok, max_text_len=S_TEXT_TRAIN,
+                            num_frames_for_sam=T_SAM_TRAIN)
+    sets = {"video_gcg": GCGVideoDataset(paths["gcg_json"], paths["gcg_frames"],
+                                         max_num_frames=T_SAM_TRAIN),
+            "refer_vos": ReferVOSDataset(paths["mevis"]),
+            "reason_seg": ReasonSegDataset(paths["reason"]),
+            "vqa": VQADataset(paths["vqa_json"], paths["vqa_media"])}
+    per, samples = {}, []
+    for name, ds in sets.items():
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            rec = ds[i]
+            t1 = time.perf_counter()
+            s = builder(rec)
+            per.setdefault(name, []).append((t1 - t0, time.perf_counter() - t1))
+            samples.append(s)
+            for (ids, _), m in zip(s["conversations"], s["masks"]):
+                n_seg = int((np.asarray(ids) == cfg.seg_token_idx).sum())
+                want = 0 if m is None else len(m)
+                if len(ids) >= S_TEXT_TRAIN or n_seg != want:
+                    raise AssertionError(
+                        f"train fixture: a {name} row of {len(ids)} ids holds "
+                        f"{n_seg} [SEG] for {want} masks (max {S_TEXT_TRAIN})")
+    t0 = time.perf_counter()
+    build_batch(samples[:CLI_BATCH], max_text_len=S_TEXT_TRAIN,
+                mask_hw=builder.mask_hw)
+    t_collate = time.perf_counter() - t0
+    # the three host preprocessors apart, on the first GCG record's frames
+    from videoglamm_torch.data.preprocess import (
+        preprocess_clip, preprocess_internvideo, preprocess_sam2)
+    frames = sets["video_gcg"][0]["frames"]
+    idx = [i * len(frames) // cfg.num_frames for i in range(cfg.num_frames)]
+    stages = {}
+    for name, fn, fs, size in (
+            ("internvideo", preprocess_internvideo, [frames[i] for i in idx],
+             cfg.internvideo.image_size),
+            ("clip", preprocess_clip, [frames[i] for i in idx], cfg.clip.image_size),
+            ("sam2", preprocess_sam2, frames[:T_SAM_TRAIN], cfg.sam2.image_size)):
+        t0 = time.perf_counter()
+        fn(fs, size)
+        stages[f"{name} x{len(fs)}"] = time.perf_counter() - t0
+    all_s = [a + b for v in per.values() for a, b in v]
+    log(f"  train CLI, host loader on one thread ({smi}): a sample "
+        f"{statistics.mean(all_s):.3f} s mean ({min(all_s):.3f}-"
+        f"{max(all_s):.3f}); by dataset, read + build: "
+        + "; ".join(f"{k} " + ", ".join(f"{a:.3f} + {b:.3f}" for a, b in v)
+                    for k, v in per.items())
+        + f"; collating a micro-batch of {CLI_BATCH} {t_collate:.3f} s; "
+        "a GCG sample's preprocessors: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in stages.items()))
+    return statistics.mean(all_s), t_collate
+
+
+def phase_train_cli(cfg, seed: int, train_counts: dict, train_walls, smi: str):
+    """`videoglamm_torch.cli.train.main` at flagship width from dataset
+    files written here: CLI_STEPS optimizer steps of GRAD_ACCUM micro-steps
+    of CLI_BATCH one-row samples at S_TEXT_TRAIN ids (the LLM sees
+    [2,3456,3072], as in phase_train), the epoch checkpoint, both
+    validators. The weights are seeded on the card and handed over by
+    patching `load_model`, the tokenizer by patching `load_tokenizer`.
+    Returns the launch counts of the CLI's training steps."""
+    import os
+    import tempfile
+    import torch
+    from videoglamm_torch.cli import train as cli
+    from videoglamm_torch.models.videoglamm import VideoGLaMM
+
+    tok = WordTokenizer(cfg.seg_token_idx, cfg.llm.vocab_size)
+
+    def seeded_state_dict(args, cfg_=None):
+        with torch.device("cuda"):
+            m = VideoGLaMM(cfg)
+        m.to("cuda")      # tensors made from numpy ignore the device context
+        seeded_init(m, torch.Generator(device="cuda").manual_seed(0))
+        return m.state_dict()
+
+    checked, snaps, val_s = [], [], []
+    orig_prefetch, orig_val = cli.prefetch_to_device, cli.make_val_fn
+
+    class FirstBatchChecked:
+        """The consumer side of the CLI's prefetcher: the first device
+        batch, copied back, must be bit-equal to the host batch it came
+        from (pixels compared after the same cast to bf16)."""
+
+        def __init__(self, it, host):
+            self.it, self.host = it, host
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            dev = next(self.it)
+            if not checked:
+                host = self.host[0]
+                bad = [k for k in host if not (
+                    dev[k].is_cuda and torch.equal(
+                        dev[k].cpu(), host[k].to(dev[k].dtype)))]
+                checked.append(bad)
+                if bad or dev["frames"].dtype != torch.bfloat16:
+                    raise AssertionError(f"train CLI: the device batch differs "
+                                         f"from its host batch in {bad}")
+            return dev
+
+        def close(self):
+            self.it.close()
+
+    def prefetch_checked(batches, to_device, prefetch=2):
+        host = []
+
+        def keep(gen):
+            for b in gen:
+                if not host:
+                    host.append({k: v.clone() for k, v in b.items()})
+                yield b
+        return FirstBatchChecked(orig_prefetch(keep(batches), to_device,
+                                               prefetch), host)
+
+    def make_val_fn(*a, **kw):
+        fn = orig_val(*a, **kw)
+
+        def val_fn(state, epoch, logger):
+            torch.cuda.synchronize()
+            snaps.append(read_counts())
+            t0 = time.perf_counter()
+            fn(state, epoch, logger)
+            torch.cuda.synchronize()
+            val_s.append(time.perf_counter() - t0)
+        return val_fn
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        paths = write_train_fixture(os.path.join(d, "data"), seed)
+        log(f"  train CLI: fixture written in {time.perf_counter() - t0:.1f} s "
+            f"(4 datasets, 34 JPEG frames of {RAW_H}x{RAW_W})")
+        sample_s, collate_s = time_host_loader(cfg, tok, paths, smi)
+        argv = ["--checkpoint", "seeded", "--tokenizer", "word-level",
+                "--gcg_json", paths["gcg_json"], "--gcg_frames", paths["gcg_frames"],
+                "--refer_vos_root", paths["mevis"],
+                "--reason_seg_root", paths["reason"],
+                "--vqa_json", paths["vqa_json"],
+                "--vqa_media_root", paths["vqa_media"],
+                "--sample_rates", "1,1,1,1", "--batch_size", str(CLI_BATCH),
+                "--grad_accum", str(GRAD_ACCUM), "--max_text_len",
+                str(S_TEXT_TRAIN), "--num_frames_for_sam", str(T_SAM_TRAIN),
+                "--epochs", "1", "--steps_per_epoch", str(CLI_STEPS),
+                "--val_mevis_root", paths["mevis"],
+                "--val_reason_seg_root", paths["reason"],
+                "--val_samples", str(CLI_VAL_SAMPLES),
+                "--ckpt_dir", os.path.join(d, "ckpt"),
+                "--log_dir", os.path.join(d, "log")]
+        log("  train CLI: python -m videoglamm_torch.cli.train "
+            + " ".join(a if not a.startswith(d) else a.replace(d, "$TMP")
+                       for a in argv))
+        patched = dict(load_model=seeded_state_dict,
+                       load_tokenizer=lambda path: tok,
+                       prefetch_to_device=prefetch_checked,
+                       make_val_fn=make_val_fn)
+        saved = {k: getattr(cli, k) for k in patched}
+        for k, v in patched.items():
+            setattr(cli, k, v)
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            trainer = cli.main(argv)
+        finally:
+            for k, v in saved.items():
+                setattr(cli, k, v)
+        t_main = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        ckpt = os.path.join(d, "ckpt", str(CLI_STEPS))
+        have_ckpt = os.path.exists(os.path.join(ckpt, "state.pt"))
+        with open(os.path.join(d, "log", "scalars.jsonl")) as f:
+            scalars = {r["tag"]: r["value"] for r in map(json.loads, f)
+                       if r["tag"].startswith("val/")}
+    hist = trainer.history
+    for h in hist:
+        log(f"  train CLI step {h['step']}: wall {h['step_s']:.3f} s, waiting "
+            f"on next(batches) {h['data_s']:.3f} s ({h['data_s'] / h['step_s']:.3f} "
+            f"of the step), " + ", ".join(
+                f"{k} {h[k]:.4f}" for k in ("loss", "ce_loss", "mask_bce_loss",
+                                            "mask_dice_loss")) + f" ({smi})")
+    steady = [h["step_s"] for h in hist[1:]]
+    log(f"  train CLI: steps after the first {', '.join(f'{x:.3f}' for x in steady)} "
+        f"s against phase_train's {', '.join(f'{x:.3f}' for x in train_walls[1:])} "
+        f"s; loader {sample_s:.3f} s a sample x {CLI_BATCH * GRAD_ACCUM} a step "
+        f"+ {GRAD_ACCUM} collations of {collate_s:.3f} s on one thread; "
+        f"checkpoint {', '.join(f'{x:.1f}' for x in trainer.ckpt_seconds)} s; "
+        f"validators {', '.join(f'{x:.1f}' for x in val_s)} s; main() "
+        f"{t_main:.1f} s in all ({smi})")
+    if len(hist) != CLI_STEPS or trainer.state.step != CLI_STEPS:
+        raise AssertionError(f"train CLI: {len(hist)} steps, state step "
+                             f"{trainer.state.step}")
+    for h in hist:
+        if not all(math.isfinite(h[k]) for k in ("loss", "ce_loss",
+                                                 "mask_bce_loss", "mask_dice_loss")):
+            raise AssertionError(f"train CLI step {h['step']}: non-finite loss {h}")
+        if not h["mask_bce_loss"] > 0:
+            raise AssertionError(f"train CLI step {h['step']}: mask_bce_loss 0 "
+                                 "(no [SEG] reached the mask decoder)")
+    if checked != [[]]:
+        raise AssertionError("train CLI: the first device batch was not checked")
+    if not have_ckpt or len(trainer.ckpt_seconds) != 1:
+        raise AssertionError("train CLI: no epoch checkpoint")
+    want = {f"val/{v}/{m}" for v in ("mevis", "reason_seg") for m in ("giou", "ciou")}
+    if set(scalars) != want or not all(math.isfinite(x) for x in scalars.values()):
+        raise AssertionError(f"train CLI: validator scalars {scalars}")
+    log("  train CLI: validators " + ", ".join(f"{k} {v:.4f}"
+                                              for k, v in sorted(scalars.items())))
+    if len(snaps) != 1:
+        raise AssertionError(f"train CLI: {len(snaps)} validation passes")
+    counts = snaps[0]
+    per_step = {k: v / CLI_STEPS for k, v in counts.items()}
+    differ = {k: (per_step[k], train_counts[k] / TRAIN_STEPS) for k in counts
+              if counts[k] * TRAIN_STEPS != train_counts[k] * CLI_STEPS}
+    log("  train CLI: launches a step " + json.dumps(
+        {k: v for k, v in per_step.items() if v}))
+    if differ:
+        raise AssertionError("train CLI: launches a step differ from "
+                             f"phase_train's (CLI, phase_train): {differ}")
+    log("  train CLI: launches a step equal phase_train's for every kernel; "
+        "the first device batch is bit-equal to its host batch")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3633,11 +4019,18 @@ def main() -> int:
             phase(f"[train] flagship, {TRAIN_STEPS} optimizer steps of {GRAD_ACCUM} "
                 "micro-steps, LoRA + lm_head + embed_tokens + text_hidden_fcs + "
                 "mask decoder")
-            train_counts = phase_train(cfg, args.seed)
+            train_counts, train_walls = phase_train(cfg, args.seed)
             torch.cuda.empty_cache()
             phase("[check] narrow model, one training micro-step on the card "
                 "against the CPU twins")
             phase_small_train_reference(args.seed)
+            torch.cuda.empty_cache()
+            phase(f"[train] the train CLI from dataset files: {CLI_STEPS} "
+                  f"optimizer steps of {GRAD_ACCUM} micro-steps, the epoch "
+                  "checkpoint, the MeViS and ReasonSeg validators")
+            cli_counts = phase_train_cli(cfg, args.seed, train_counts,
+                                         train_walls, smi)
+            torch.cuda.empty_cache()
     except Exception:
         traceback.print_exc()
         log("FAIL")
@@ -3656,7 +4049,8 @@ def main() -> int:
     # from the run of the two experiment harnesses; launches_predictors:
     # one image predictor `set_image` and the interactive session's two
     # propagations (26 frames: K1 at head dim 256); launches_sam1: the SAM-1
-    # phase's three paths (K3 only). A row keyed
+    # phase's three paths (K3 only); launches_train_cli: the train CLI's 3
+    # optimizer steps from dataset files (validators not counted). A row keyed
     # "<counter>@<shape>" is another shape of the counter's kernel. Phases
     # that did not run leave their counts null.
     if "serve" in chosen:
@@ -3669,7 +4063,7 @@ def main() -> int:
     if "train" in chosen:
         counts["flash_bwd"] = train_counts["flash_bwd"]
     else:
-        train_counts = {}
+        train_counts = cli_counts = {}
     if "predictors" in chosen:
         pred_counts = {k: pred_counts.get(k, 0) + encode_counts[k]
                        for k in encode_counts}
@@ -3689,6 +4083,7 @@ def main() -> int:
                             replaces=REPLACES[counter],
                             launches=counts.get(counter),
                             launches_train=train_counts.get(counter),
+                            launches_train_cli=cli_counts.get(counter),
                             launches_track=track_counts.get(counter),
                             launches_predictors=pred_counts.get(counter),
                             launches_sam1=sam1_counts.get(counter), **row))

@@ -1682,3 +1682,34 @@ def test_sam1_on_card_matches_cpu(dev):
     with torch.no_grad():
         r, d = ref.track_frames(x, text), card.track_frames(x.to(dev), text.to(dev))
     _close_l2(d.cpu(), r, 2e-2, "track_frames")
+
+
+def test_prefetch_copy_to_the_card_is_bit_equal(dev):
+    """The train CLI's copy onto the card: pinned, non_blocking, made by
+    the prefetch worker thread on the consumer's stream. Copied back, each
+    device batch equals the host batch it came from (the pixel streams
+    after the same cast to bf16; masks stay f32, ids int64)."""
+    from videoglamm_torch.data.collate import build_batch
+    from videoglamm_torch.data.prefetch import device_copier, prefetch_to_device
+    rng = np.random.RandomState(0)
+
+    def sample():
+        return dict(frames=rng.randn(4, 28, 28, 3),
+                    context_images=rng.randn(4, 56, 56, 3),
+                    frames_sam=rng.randn(2, 128, 128, 3),
+                    conversations=[(list(range(7)), list(range(7)))],
+                    masks=rng.rand(1, 2, 32, 32).round())
+
+    host = [build_batch([sample(), sample()], max_text_len=16)
+            for _ in range(5)]
+    it = prefetch_to_device(iter(host), device_copier(dev, torch.bfloat16),
+                            prefetch=2)
+    for want in host:
+        got = next(it)
+        assert got["frames"].dtype == torch.bfloat16
+        assert got["gt_masks"].dtype == torch.float32
+        assert got["input_ids"].dtype == torch.int64
+        for k, v in want.items():
+            assert got[k].is_cuda, k
+            assert torch.equal(got[k].cpu(), v.to(got[k].dtype)), k
+    it.close()

@@ -155,7 +155,9 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     frames, and the video branch (the memory tracker) from raw frames; load
     it back from reference-layout shards through `load_reference_dir`; and
     drive a tiny SAM-1 built by `build_sam1` through its predictor, its
-    generator and `track_frames`."""
+    generator and `track_frames`; import the training data layer and the
+    train CLI, build one collated batch from a GCG fixture in tmp_path and
+    take the training forward on it (nor is `transformers` imported)."""
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'videoglamm_tpu'): sys.modules[name] = None\n"
@@ -214,6 +216,35 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "assert len(recs) > 0\n"
         "tr = s1.track_frames(torch.randn(3, 128, 128, 3), torch.randn(2, 1, 32))\n"
         "assert tr.shape == (2, 3, 32, 32) and torch.isfinite(tr).all()\n"
+        "import json, os, types\n"
+        "from PIL import Image\n"
+        "from videoglamm_torch.cli import common as cli_common, train as cli_train\n"
+        "from videoglamm_torch.data import (conversation, preprocess, collate,\n"
+        "    augment, prefetch, video_reader)\n"
+        "from videoglamm_torch.data.datasets import (base, templates, video_gcg,\n"
+        "    refer_vos, reason_seg, vqa, refer_eval)\n"
+        "g = d + '/gcg'\n"
+        "os.makedirs(g + '/f/v0')\n"
+        "for t in range(3):\n"
+        "    Image.fromarray(np.random.RandomState(t).randint(\n"
+        "        0, 255, (24, 32, 3), np.uint8)).save(f'{g}/f/v0/{t}.jpg')\n"
+        "m0 = np.zeros((24, 32), bool); m0[2:10, 3:12] = True\n"
+        "json.dump({'videos': [{'file_names': [f'v0/{t}.jpg' for t in range(3)],\n"
+        "    'width': 32, 'height': 24, 'length': 3, 'dense_cap': {\n"
+        "    'caption': 'a dog runs', 'token_pos': [1], 'mask_id': [7],\n"
+        "    'v_id2o_id': {}}}], 'annotations': [{'id': 7, 'segmentations':\n"
+        "    [rle.rle_encode(m0), None, rle.rle_encode(m0)]}]},\n"
+        "    open(g + '/train.json', 'w'))\n"
+        "tok = lambda text: types.SimpleNamespace(input_ids=[1] + [\n"
+        "    cfg.seg_token_idx if w == '[SEG]' else 10 + len(w) for w in text.split()])\n"
+        "b = base.SampleBuilder(cfg, tok, max_text_len=64, num_frames_for_sam=2)\n"
+        "ds = video_gcg.GCGVideoDataset(g + '/train.json', g + '/f', max_num_frames=2)\n"
+        "batch = collate.build_batch([b(ds[0])], max_text_len=64, mask_hw=b.mask_hw)\n"
+        "assert batch['input_ids'].dtype == torch.int64\n"
+        "assert int((batch['input_ids'] == cfg.seg_token_idx).sum()) == 1\n"
+        "out = m(**prefetch.to_device(batch, 'cpu'))\n"
+        "assert torch.isfinite(out.loss) and float(out.mask_bce_loss) > 0\n"
+        "assert 'transformers' not in sys.modules\n"
         "if not torch.cuda.is_available():\n"
         "    try:\n"
         "        build_sam1(SAM1Config.tiny())\n"

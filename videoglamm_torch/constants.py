@@ -1,9 +1,26 @@
-"""Token and preprocessing constants (the values of
+"""Token, data and preprocessing constants (the values of
 videoglamm_tpu/constants.py that the port reads)."""
+import os
 
+# --- video chunking (InternVideo2 consumes 4-frame tubes) ---
+CHUNK_SIZE = 4
+NUM_FRAMES = int(os.environ.get("NUM_FRAMES", 16))
+NUM_CONTEXT_IMAGES = int(os.environ.get("NUM_CONTEXT_IMAGES", 16))
+
+# --- token-level constants ---
 IGNORE_INDEX = -100          # label positions excluded from the CE loss
 IMAGE_TOKEN_INDEX = -200     # placeholder id marking where visual tokens splice in
+DEFAULT_IMAGE_TOKEN = "<image>"
+DEFAULT_VIDEO_TOKEN = "<video>"
+DEFAULT_IM_START_TOKEN = "<im_start>"
+DEFAULT_IM_END_TOKEN = "<im_end>"
+DEFAULT_VID_START_TOKEN = "<vid_start>"
+DEFAULT_VID_END_TOKEN = "<vid_end>"
+SEG_TOKEN = "[SEG]"
+
+# --- mask padding ---
 MASK_IGNORE_INDEX = -1       # padded mask pixels excluded from the dice/BCE loss
+MAX_NUM_SEG_TOKENS_PER_SAMPLE = 4
 
 # --- canonical image sizes ---
 INTERNVIDEO_IMAGE_SIZE = 224

@@ -128,22 +128,19 @@ def _load(path: str):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_reference_dir(path: str, cfg, internvideo_ckpt: Optional[str] = None,
-                       clip_ckpt: Optional[str] = None, quant: str = "none",
-                       **build_kw):
-    """A reference HF-export directory (`pytorch_model*.bin` shards, read
-    in sorted order) and, optionally, the InternVideo2 checkpoint (its
-    `model` or `module` entry, or the file's dict itself) and the CLIP
-    vision checkpoint -> a `GroundedInference` built by `build_inference`,
-    which quantises the LLM when `quant` asks ("int8", "int4"). Files are
-    read with `torch.load(weights_only=True)`: tensors and plain
-    containers, never arbitrary objects. build_kw: the further arguments
-    of `build_inference` (device, dtype, kv_cache, ...)."""
-    from ..inference.pipeline import build_inference
+def read_reference_dir(path: str, internvideo_ckpt: Optional[str] = None,
+                       clip_ckpt: Optional[str] = None):
+    """The three reference sources as they lie on disk -> (hf, iv, clip)
+    state dicts: the `pytorch_model*.bin` shards of the HF-export
+    directory `path` (read in sorted order) and, optionally, the
+    InternVideo2 checkpoint (its `model` or `module` entry, or the file's
+    dict itself) and the CLIP vision checkpoint (None where not given).
+    Files are read with `torch.load(weights_only=True)`: tensors and plain
+    containers, never arbitrary objects."""
     shards = sorted(f for f in os.listdir(path)
                     if f.startswith("pytorch_model") and f.endswith(".bin"))
     if not shards:
-        raise FileNotFoundError(f"load_reference_dir: no pytorch_model*.bin in {path}")
+        raise FileNotFoundError(f"no pytorch_model*.bin in {path}")
     hf = {}
     for f in shards:
         hf.update(_load(os.path.join(path, f)))
@@ -152,6 +149,19 @@ def load_reference_dir(path: str, cfg, internvideo_ckpt: Optional[str] = None,
         raw = _load(internvideo_ckpt)
         iv = raw.get("model", raw.get("module", raw))
     clip = _load(clip_ckpt) if clip_ckpt else None
+    return hf, iv, clip
+
+
+def load_reference_dir(path: str, cfg, internvideo_ckpt: Optional[str] = None,
+                       clip_ckpt: Optional[str] = None, quant: str = "none",
+                       **build_kw):
+    """A reference HF-export directory and, optionally, the tower
+    checkpoints (`read_reference_dir`) -> a `GroundedInference` built by
+    `build_inference`, which quantises the LLM when `quant` asks ("int8",
+    "int4"). build_kw: the further arguments of `build_inference`
+    (device, dtype, kv_cache, ...)."""
+    from ..inference.pipeline import build_inference
+    hf, iv, clip = read_reference_dir(path, internvideo_ckpt, clip_ckpt)
     return build_inference(cfg, from_reference_layout(hf, cfg, iv, clip),
                            quant=quant, **build_kw)
 

@@ -7,6 +7,11 @@ components to TensorBoard (when installed) and a JSONL mirror, one
 checkpoint per epoch with `resume` recovering the epoch from the step
 counter, and the ReasonSeg / MeViS gIoU and cIoU validation loops with the
 no-object gIoU = 1 convention.
+
+The loop also records every step in `history`, with the seconds it waited
+on `next(batches)`, and every checkpoint's seconds in `ckpt_seconds`, so a
+caller can see whether the loader sets the pace. The logged scalars are
+the JAX trainer's.
 """
 from __future__ import annotations
 
@@ -62,6 +67,10 @@ class Trainer:
         self.to_device = to_device or (lambda b: b)
         self.val_fn = val_fn
         self.start_epoch = 0
+        # per step: {"step", "data_s" (wait on the loader), "step_s" (wall
+        # since the previous step ended), and the metrics}
+        self.history = []
+        self.ckpt_seconds = []
 
     def resume(self):
         step = self.ckpt.latest_step()
@@ -78,17 +87,22 @@ class Trainer:
             meters = {k: AverageMeter(k) for k in
                       ("loss", "ce_loss", "mask_bce_loss", "mask_dice_loss",
                        "mask_loss", "step_time")}
-            end = time.time()
+            end = time.perf_counter()
             for it in range(self.steps_per_epoch):
                 batch = self.to_device(next(self.batches))
+                data_s = time.perf_counter() - end
                 self.state, metrics = self.train_step(self.state, batch)
-                dt = time.time() - end
-                end = time.time()
+                values = {k: float(metrics[k]) for k in
+                          ("loss", "ce_loss", "mask_bce_loss",
+                           "mask_dice_loss", "mask_loss")}
+                dt = time.perf_counter() - end
+                end = time.perf_counter()
                 meters["step_time"].update(dt)
-                for k in ("loss", "ce_loss", "mask_bce_loss",
-                          "mask_dice_loss", "mask_loss"):
-                    meters[k].update(float(metrics[k]))
+                for k, v in values.items():
+                    meters[k].update(v)
                 global_step += 1
+                self.history.append(dict(step=global_step, data_s=data_s,
+                                         step_s=dt, **values))
                 if (it + 1) % self.log_every == 0:
                     for k, m in meters.items():
                         self.logger.log(f"train/{k}", m.avg, global_step)
@@ -96,8 +110,10 @@ class Trainer:
                           f"{self.steps_per_epoch} "
                           f"loss {meters['loss'].avg:.4f} "
                           f"({meters['step_time'].avg:.2f}s/it)")
+            t0 = time.perf_counter()
             self.ckpt.save(global_step, self.state,
                            metadata={"epoch": epoch})
+            self.ckpt_seconds.append(time.perf_counter() - t0)
             if self.val_fn is not None:
                 self.val_fn(self.state, epoch, self.logger)
         return self.state
