@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the videoglamm_torch port once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,sam1,train]
+    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,sam1,train,cli]
 
 Run from the root of a checkout. `--phases` (default all, as the contract
 runs it) picks phases 3 (kernels), the experiment harnesses, 4-5 (serve and
-check), 6 (predictors), 7 (sam1) and 8-9 (train) to run; the build always
-runs.
+check), 6 (predictors), 7 (sam1), 8-10 (train) and 11 (cli) to run; the
+build always runs.
 Phases, each fatal on failure:
 
 1. device: needs CUDA; prints the card's name and power limit
@@ -189,7 +189,31 @@ Phases, each fatal on failure:
    bit-equal, copied back, to the host batch the prefetch thread pinned
    and copied. Prints the host seconds of a sample and of a collation,
    every step's wall seconds beside 8's and its share spent waiting on
-   `next(batches)`, the checkpoint's and the validators' seconds.
+   `next(batches)`, the checkpoint's and the validators' seconds;
+11. cli: the serving CLIs' `main` at flagship width from fixture files
+   written from the seed at 480x854 (an image; a GCG root of 2 videos x 16
+   frames with gt.json and gt_masks; a MeViS-layout root of one 64-frame
+   video with 2 expressions and its DAVIS-layout ground truth; 2 sentence
+   records, A2D where h5py is installed, else JHMDB; a grounding question
+   and an ActivityNet-Entities phrase over frame directories), with only
+   `load_model` (the seeded bf16 state dict, made once on the card) and
+   `load_tokenizer` (the word-level stand-in, with a decode) patched, all
+   with --max_new_tokens 64: chat with --quant int8 --kv_cache int8
+   --use_sam2_video_branch on the image, eval_gcg_infer with --quant int8
+   --kv_cache int8 then eval_gcg_metrics over its output, eval_refer_infer
+   on the MeViS root at its defaults (bf16, 64 SAM frames, framewise) then
+   eval_referdavis_metrics, eval_refer_infer on the sentence records,
+   eval_grounding and eval_anet_entities_infer. Each serving CLI runs with
+   the counters set to 0 just before and read just after, and fails on a
+   skipped sample, a missing output file, a summary that is not finite, or
+   launches other than the serve phase's per-request formula (the video
+   branch's at 16 frames for chat) times its requests. Then the 64-frame
+   SAM-2 encode alone (ms, peak memory, its Hiera launches), the masks of
+   4 forced [SEG] prompts over those frames resized to 480x854 on the card
+   against the CPU f32 twin (equal but within 1e-4 of the threshold), and
+   convert_checkpoint over the seeded weights written in the reference
+   layout, read back bit-equal through `load_model`. Prints each CLI's
+   wall seconds and seconds a sample.
 
 Prints one {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, without
@@ -3800,7 +3824,422 @@ def phase_small_sam1_reference(smi: str):
     log(f"  {who}: every surface held [{smi}]")
 
 
-PHASES = ("kernels", "experiments", "serve", "predictors", "sam1", "train")
+# ---------------------------------------------------------------------------
+# 11. the serving CLIs from files: chat, the five eval-inference CLIs, the
+# two metric CLIs and convert_checkpoint, at flagship width
+# ---------------------------------------------------------------------------
+CLI_MAX_NEW = MAX_NEW       # --max_new_tokens of every serving CLI run
+CLI_SAM_FRAMES = 64         # eval_refer_infer's default --max_sam_frames
+CLI_GCG_FRAMES = 16
+TOL_MASK_THRESHOLD = 1e-4   # |resized logit| below which the card's mask and
+                            # its CPU f32 twin may differ (summation order)
+
+
+class CLITokenizer(WordTokenizer):
+    """The word-level stand-in with a `decode`: the seg id as "[SEG]",
+    every other id as "w<id>"."""
+
+    def decode(self, ids, skip_special_tokens=False):
+        return " ".join("[SEG]" if i == self.seg_id else f"w{i}" for i in ids)
+
+
+class StampedLines:
+    """A stdout for a CLI run: keeps every line with the perf_counter time
+    at which it was written."""
+
+    def __init__(self):
+        self.lines, self._part = [], ""
+
+    def write(self, s):
+        self._part += s
+        *done, self._part = self._part.split("\n")
+        now = time.perf_counter()
+        self.lines.extend((now, ln) for ln in done)
+        return len(s)
+
+    def flush(self):
+        pass
+
+
+def write_cli_fixture(root: str, seed: int) -> dict:
+    """Serving fixtures at 480x854 from the seed: an image; a GCG root of 2
+    videos x 16 frames with gt.json and 2 objects' gt_masks; a MeViS-layout
+    root of one 64-frame video with 2 expressions and its DAVIS-layout
+    ground truth; 2 sentence records (A2D-Sentences where h5py is
+    installed, JHMDB-Sentences otherwise: the card's machine has no h5py);
+    one grounding question and one ActivityNet-Entities phrase over frame
+    directories."""
+    import importlib.util
+    import os
+    import numpy as np
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+
+    def save(path, arr):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(arr).save(path, **({"quality": 90}
+                                           if path.endswith(".jpg") else {}))
+
+    out = dict(root=root, image=os.path.join(root, "image.jpg"))
+    save(out["image"], _smooth_frame(rng))
+    for v in range(2):
+        vdir = os.path.join(root, "gcg", f"vid{v}")
+        for t in range(CLI_GCG_FRAMES):
+            save(os.path.join(vdir, "frames", f"{t:05d}.jpg"), _smooth_frame(rng))
+            for o in range(2):
+                save(os.path.join(vdir, "gt_masks", str(o), f"{t:05d}.png"),
+                     (_blob(rng) * 255).astype(np.uint8))
+        with open(os.path.join(vdir, "gt.json"), "w") as f:
+            json.dump({"caption": f"a striped cat {v} chases the red ball "
+                       "across the kitchen floor",
+                       "phrases": ["a striped cat", "the red ball"]}, f)
+    names = [f"{t:05d}" for t in range(CLI_SAM_FRAMES)]
+    for t, name in enumerate(names):
+        save(os.path.join(root, "mevis", "JPEGImages", "vid0", f"{name}.jpg"),
+             _smooth_frame(rng))
+        for e in range(2):
+            save(os.path.join(root, "davis_gt", "vid0", str(e), f"{name}.png"),
+                 (_blob(rng) * 255).astype(np.uint8))
+    with open(os.path.join(root, "mevis", "meta_expressions.json"), "w") as f:
+        json.dump({"videos": {"vid0": {"frames": names, "expressions": {
+            "0": {"exp": "the dog that jumps first"},
+            "1": {"exp": "the red ball on the floor"}}}}}, f)
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+        out["sentences"] = "a2d"
+        sdir = os.path.join(root, "a2d")
+        for t in range(8):
+            save(os.path.join(sdir, "Release", "clips320H", "vidA",
+                              f"{t:05d}.jpg"), _smooth_frame(rng))
+        hdir = os.path.join(sdir, "text_annotations",
+                            "a2d_annotation_with_instances", "vidA")
+        os.makedirs(hdir)
+        with h5py.File(os.path.join(hdir, "00004.h5"), "w") as f:
+            f["instance"] = np.asarray([3, 5])
+            f["reMask"] = np.stack([_blob(rng).T, _blob(rng).T]).astype(np.uint8)
+        rows = [["a dog jumping over the fence", "vidA", 4, 3],
+                ["the red ball rolling", "vidA", 4, 5]]
+    else:
+        import scipy.io
+        out["sentences"] = "jhmdb"
+        sdir = os.path.join(root, "jhmdb")
+        rel = "Rename_Images/brush_hair/clipZ"
+        for t in range(1, 9):
+            save(os.path.join(sdir, rel, f"{t:05d}.png"), _smooth_frame(rng))
+        mat = "puppet_mask/brush_hair/clipZ/puppet_mask.mat"
+        os.makedirs(os.path.dirname(os.path.join(sdir, mat)))
+        part = np.stack([_blob(rng) for _ in range(8)], -1).astype(np.uint8)
+        scipy.io.savemat(os.path.join(sdir, mat), {"part_mask": part})
+        rows = [["clipZ", f"./{rel}/00003.png", mat, 8, "a person brushing hair"],
+                ["clipZ", f"./{rel}/00006.png", mat, 8, "the hand holding a brush"]]
+    out["sentences_root"] = sdir
+    out["sentences_ann"] = os.path.join(sdir, "ann.json")
+    with open(out["sentences_ann"], "w") as f:
+        json.dump(rows, f)
+    gcg0 = os.path.join(root, "gcg", "vid0", "frames")
+    out["ground"] = os.path.join(root, "ground.json")
+    with open(out["ground"], "w") as f:
+        json.dump([{"vid": "vid0", "qtype": "declarative",
+                    "question": "who chases the ball", "frames_dir": gcg0,
+                    "gt_sted": [2, 9], "gt_boxes": {
+                        str(t): [100 + 5 * t, 80, 420, 300] for t in range(2, 9)}}],
+                  f)
+    out["anet"] = os.path.join(root, "anet.json")
+    with open(out["anet"], "w") as f:
+        json.dump([{"vid": "vid1", "phrase": "a striped cat", "segment": [0.1, 0.9],
+                    "frames_dir": os.path.join(root, "gcg", "vid1", "frames")}], f)
+    return out
+
+
+def phase_cli(cfg, seed: int, smi: str) -> dict:
+    """The port's serving CLIs' `main` at flagship width on seeded weights,
+    from the fixture files of `write_cli_fixture`, with only `load_model`
+    and `load_tokenizer` patched: the seeded state dict is made ONCE on the
+    card (bf16) and every CLI builds its model from it through
+    `build_inference` (about a second; a CLI builds in its `main`, so a
+    serving mode cannot be built once for two CLIs without patching more);
+    the tokenizer is the word-level stand-in. Each serving CLI runs with
+    the counters set to 0 just before and read just after; its launches
+    must be the serve phase's per-request formula times its requests, it
+    must skip nothing and write what it writes. Then the SAM-2 encode of
+    the refer CLI's 64 frames timed alone with its peak memory, its masks
+    at 480x854 on the card against their CPU f32 twin, and
+    convert_checkpoint on a reference-layout directory of the seeded
+    weights, read back equal through `load_model`. Returns the launches
+    summed over the serving CLIs' runs."""
+    import os
+    import tempfile
+    import types
+    import numpy as np
+    import torch
+    from videoglamm_torch.cli import (chat, common, convert_checkpoint,
+                                      eval_anet_entities_infer, eval_gcg_infer,
+                                      eval_gcg_metrics, eval_grounding,
+                                      eval_refer_infer, eval_referdavis_metrics)
+    from videoglamm_torch.data.conversation import (ConvGenerator,
+                                                    tokenizer_image_token)
+    from videoglamm_torch.data.video_reader import load_frame_dir
+    from videoglamm_torch.io.reference import to_reference_layout
+    from videoglamm_torch.models.videoglamm import SegExtraction
+    from videoglamm_torch.ops.resize import resize_bilinear
+
+    tok = CLITokenizer(cfg.seg_token_idx, cfg.llm.vocab_size)
+    gi = build(cfg, "none", "bf16", "the CLIs' seeded weights")
+    sd = gi.model.state_dict()        # the CLIs' weights, on the card
+    del gi
+    ids = tokenizer_image_token(ConvGenerator(cfg.llm_type).apply_for_chat(
+        eval_gcg_infer.GCG_PROMPT, media="video"), tok)
+    log(f"  the GCG prompt is {len(ids)} ids through the stand-in tokenizer; "
+        f"--max_new_tokens {CLI_MAX_NEW} cuts it to {min(len(ids), CLI_MAX_NEW)} "
+        "(every CLI passes --max_new_tokens as the prompt's max_len, as the "
+        "JAX CLIs do)")
+    total = {}
+    stamps = {}
+
+    def load_model(args, cfg_=None):
+        stamps["loaded"] = time.perf_counter()
+        return sd
+
+    def run(name, mod, argv, mode=None, requests=0):
+        saved = {k: getattr(mod, k) for k in ("load_model", "load_tokenizer")
+                 if hasattr(mod, k)}
+        if saved:
+            mod.load_model, mod.load_tokenizer = load_model, lambda path: tok
+        out = StampedLines()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        stamps.clear()
+        real = sys.stdout
+        try:
+            sys.stdout = out
+            ret = mod.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            sys.stdout = real
+            for k, v in saved.items():
+                setattr(mod, k, v)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        lines = [ln for _, ln in out.lines]
+        skips = [ln for ln in lines if ln.startswith("[skip]")]
+        if skips:
+            raise AssertionError(f"{name} skipped samples: {skips}")
+        oks = [t for t, ln in out.lines if ln.startswith("[ok]")]
+        msg = f"  {name}: wall {wall:.2f} s"
+        if mode is not None:
+            per = [b - a for a, b in zip(oks, oks[1:])]
+            after_load = time.perf_counter() - stamps["loaded"]
+            msg += (f" ({after_load:.2f} s from load_model's return: the "
+                    f"model's build and {requests} samples), s per sample "
+                    f"{', '.join(f'{x:.2f}' for x in per) or 'n/a'} (between "
+                    f"consecutive [ok] lines), peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            want = EXPECTED_PER_REQUEST[mode]
+            for k, n in counts.items():
+                per_req = want.get(k)
+                if per_req is None:
+                    if n == 0:
+                        raise AssertionError(f"{name}: {k} was never launched")
+                elif n != per_req * requests:
+                    raise AssertionError(
+                        f"{name}: {k} launched {n} times, expected {per_req} "
+                        f"per request ({mode}) x {requests}")
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            msg += f"; launches = the {mode} formula x {requests}"
+        elif any(counts.values()):
+            raise AssertionError(f"{name} launched kernels: {counts}")
+        log(msg + f"; last line: {lines[-1][:160] if lines else ''}")
+        return ret, lines
+
+    def finite(x):
+        return all(math.isfinite(v) for v in x) if isinstance(x, list) \
+            else math.isfinite(x)
+
+    model = ["--checkpoint", "seeded", "--tokenizer", "word-level",
+             "--max_new_tokens", str(CLI_MAX_NEW)]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        fx = write_cli_fixture(os.path.join(d, "data"), seed)
+        log(f"  serving CLIs: fixtures written in {time.perf_counter() - t0:.1f} s "
+            f"(an image, 2 x {CLI_GCG_FRAMES} GCG frames, {CLI_SAM_FRAMES} MeViS "
+            f"frames, 2 {fx['sentences']} records, a grounding question, an "
+            f"ANet phrase; {RAW_H}x{RAW_W})")
+
+        o = os.path.join(d, "chat")
+        turns, _ = run("chat (int8 + int8 KV, video branch, image)", chat, model + [
+            "--media", fx["image"], "--prompt", "Segment the striped cat.",
+            "--out_dir", o, "--quant", "int8", "--kv_cache", "int8",
+            "--use_sam2_video_branch"], "track", 1)
+        if sorted(os.listdir(o)) != [f"turn0_frame{t:03d}.png" for t in range(16)]:
+            raise AssertionError(f"chat wrote {sorted(os.listdir(o))}")
+
+        o = os.path.join(d, "gcg_out")
+        ret, lines = run("eval_gcg_infer (int8 + int8 KV)", eval_gcg_infer, model + [
+            "--data_root", os.path.join(fx["root"], "gcg"), "--save_dir", o,
+            "--quant", "int8", "--kv_cache", "int8"], "int8", 2)
+        if ret != {"videos": 2, "resumed": 0, "skipped": 0}:
+            raise AssertionError(f"eval_gcg_infer: {ret}")
+        for v in range(2):
+            if not os.path.exists(os.path.join(o, f"vid{v}", "res.json")):
+                raise AssertionError(f"eval_gcg_infer: no res.json for vid{v}")
+        n_seg = sum(int(ln.split()[-2]) for ln in lines if ln.startswith("[ok]"))
+        ret, _ = run("eval_gcg_metrics", eval_gcg_metrics, [
+            "--pred_root", o, "--gt_root", os.path.join(fx["root"], "gcg")])
+        keys = ("miou", "recall", "meteor", "cider")
+        if ret["n_videos"] != 2 or not all(finite(ret[k]) for k in keys):
+            raise AssertionError(f"eval_gcg_metrics: {ret}")
+        log(f"    GCG: {n_seg} [SEG] objects over 2 videos (random weights); "
+            + ", ".join(f"{k} {ret[k]:.4f}" for k in keys))
+
+        o = os.path.join(d, "refer_out")
+        ret, _ = run(f"eval_refer_infer (MeViS, bf16, {CLI_SAM_FRAMES} SAM frames, "
+                     "framewise)", eval_refer_infer, model + [
+                         "--data_root", os.path.join(fx["root"], "mevis"),
+                         "--save_dir", o], "bf16", 2)
+        if ret != {"expressions": 2, "resumed": 0, "skipped": 0}:
+            raise AssertionError(f"eval_refer_infer: {ret}")
+        for e in range(2):
+            got = sorted(os.listdir(os.path.join(o, "vid0", str(e))))
+            if got != [f"{t:05d}.png" for t in range(CLI_SAM_FRAMES)]:
+                raise AssertionError(f"eval_refer_infer wrote {len(got)} PNGs")
+        ret, _ = run("eval_referdavis_metrics", eval_referdavis_metrics, [
+            "--pred_root", o, "--gt_root", os.path.join(fx["root"], "davis_gt"),
+            "--out", os.path.join(d, "jf.json")])
+        if ret["n_sequences"] != 2 or not finite([ret["J&F"], ret["J-mean"],
+                                                  ret["F-mean"]]):
+            raise AssertionError(f"eval_referdavis_metrics: {ret}")
+        log(f"    Ref-DAVIS J&F {ret['J&F']:.4f} (J {ret['J-mean']:.4f}, F "
+            f"{ret['F-mean']:.4f}) over 2 sequences x {CLI_SAM_FRAMES} frames")
+
+        o = os.path.join(d, "sentences_out")
+        ret, _ = run(f"eval_refer_infer --dataset {fx['sentences']} (bf16)",
+                     eval_refer_infer, model + [
+                         "--dataset", fx["sentences"], "--data_root",
+                         fx["sentences_root"], "--ann_file", fx["sentences_ann"],
+                         "--save_dir", o], "bf16", 2)
+        if ret["n"] != 2 or ret["skipped"] or not os.path.exists(
+                os.path.join(o, "results.json")) or not finite(
+                [v for v in ret.values() if isinstance(v, float)]):
+            raise AssertionError(f"eval_refer_infer --dataset: {ret}")
+
+        ret, _ = run("eval_grounding (bf16)", eval_grounding, model + [
+            "--annotations", fx["ground"], "--out", os.path.join(d, "ground.json")],
+            "bf16", 1)
+        if ret.pop("skipped") or list(ret) != ["declarative"] or not finite(
+                list(ret["declarative"].values())) or not os.path.exists(
+                os.path.join(d, "ground.json")):
+            raise AssertionError(f"eval_grounding: {ret}")
+
+        o = os.path.join(d, "anet_out")
+        ret, _ = run("eval_anet_entities_infer (bf16)", eval_anet_entities_infer,
+                     model + ["--annotations", fx["anet"], "--save_dir", o],
+                     "bf16", 1)
+        idx = eval_anet_entities_infer.window_indices(CLI_GCG_FRAMES, [0.1, 0.9],
+                                                      CLI_GCG_FRAMES)
+        if ret != {"phrases": 1, "skipped": 0} or sorted(
+                os.listdir(os.path.join(o, "000000"))) != sorted(
+                {f"{int(i):05d}.png" for i in idx}) or not \
+                os.path.exists(os.path.join(o, "results.json")):
+            raise AssertionError(f"eval_anet_entities_infer: {ret}")
+
+        # the refer CLI's SAM-2 encode of 64 frames alone, and its masks at
+        # the frames' size on the card against the CPU f32 twin
+        from videoglamm_torch.inference.pipeline import build_inference
+        gi = build_inference(cfg, sd, device="cuda", dtype=torch.bfloat16,
+                             max_new_tokens=CLI_MAX_NEW)
+        m = gi.model
+        frames = load_frame_dir(os.path.join(fx["root"], "mevis", "JPEGImages",
+                                             "vid0"))
+        with torch.no_grad():
+            _, _, s, hw = common.prepare_vision_inputs(
+                frames[:16], cfg, sam_frames=frames, to="cuda",
+                dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            feats, _ = m.encode_sam_features(s)
+            torch.cuda.synchronize()
+            enc_ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            enc_counts = read_counts()
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            ms = cfg.max_seg_tokens
+            seg = SegExtraction(
+                embeds=torch.randn(1, ms, cfg.out_dim, generator=g, device="cuda"),
+                valid=torch.ones(1, ms, dtype=torch.bool, device="cuda"),
+                positions=torch.arange(ms, device="cuda")[None])
+            logits = m.decode_masks(feats, seg, torch.zeros(1, dtype=torch.long,
+                                                            device="cuda"))[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            on_card = common.masks_to_original_size(logits, hw)
+            m2o_ms = (time.perf_counter() - t0) * 1e3
+            cpu = logits.float().cpu()
+            twin = common.masks_to_original_size(cpu, hw)
+            ref = resize_bilinear(cpu.reshape((-1,) + cpu.shape[-2:] + (1,)), hw)
+            ref = ref[..., 0].reshape(cpu.shape[:-2] + hw).numpy()
+        for k, n in (("attention_fwd[flash]", 3), ("attention_fwd[window]", 42),
+                     ("fused_window_block", 42), ("gemm_epilogue", 168)):
+            if enc_counts[k] != n:
+                raise AssertionError(f"64-frame SAM encode: {k} {enc_counts[k]} != {n}")
+        log(f"  SAM-2 encode of the refer CLI's {CLI_SAM_FRAMES} frames as one "
+            f"batch ({tuple(s.shape)} bf16): {enc_ms:.1f} ms, peak device memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the "
+            f"{base / 2**30:.2f} GiB held before it); launches K1 flash 3, "
+            f"window 42, K2 168, fused blocks 42 ({smi})")
+        differ = on_card != twin
+        far = differ & (np.abs(ref) >= TOL_MASK_THRESHOLD)
+        log(f"  masks_to_original_size of {tuple(logits.shape)} logits (4 forced "
+            f"[SEG] prompts over the {CLI_SAM_FRAMES} frames) to {hw}: "
+            f"{m2o_ms:.1f} ms on the card; {int(differ.sum())} of {differ.size} "
+            f"pixels differ from the CPU f32 twin, {int(far.sum())} of them with "
+            f"|logit| >= {TOL_MASK_THRESHOLD}; {int(twin.sum())} foreground")
+        if far.any() or on_card.shape != tuple(logits.shape[:-2]) + hw:
+            raise AssertionError("masks_to_original_size: the card differs from "
+                                 "its CPU twin away from the threshold")
+        del gi, m, feats, logits, s
+        torch.cuda.empty_cache()
+
+        # convert_checkpoint over the seeded weights in the reference layout
+        t0 = time.perf_counter()
+        hf, iv, clip = to_reference_layout(sd, cfg)
+        ref_dir = os.path.join(d, "hf_export")
+        os.makedirs(ref_dir)
+        keys = sorted(hf)
+        for i, part in enumerate((keys[::2], keys[1::2])):
+            torch.save({k: hf[k].cpu() for k in part},
+                       os.path.join(ref_dir, f"pytorch_model-0000{i + 1}-of-00002.bin"))
+        torch.save({"module": {k: v.cpu() for k, v in iv.items()}},
+                   os.path.join(d, "iv.pt"))
+        torch.save({k: v.cpu() for k, v in clip.items()}, os.path.join(d, "clip.bin"))
+        write_s = time.perf_counter() - t0
+        out_dir = os.path.join(d, "converted")
+        run("convert_checkpoint", convert_checkpoint, [
+            "--hf_export", ref_dir, "--internvideo_ckpt", os.path.join(d, "iv.pt"),
+            "--clip_ckpt", os.path.join(d, "clip.bin"), "--out", out_dir])
+        t0 = time.perf_counter()
+        back = common.load_model(types.SimpleNamespace(checkpoint=out_dir), cfg)
+        bad = [k for k in sd if k not in back or not torch.equal(
+            back[k], sd[k].cpu())]
+        if bad or set(back) != set(sd):
+            raise AssertionError(f"convert_checkpoint: {len(bad)} tensors differ, "
+                                 f"e.g. {bad[:3]}")
+        size = os.path.getsize(os.path.join(out_dir, "params.pt"))
+        log(f"  convert_checkpoint: reference layout written in {write_s:.1f} s; "
+            f"{len(sd)} tensors ({size / 2**30:.2f} GiB) read back through "
+            f"load_model and compared equal in {time.perf_counter() - t0:.1f} s")
+    del sd
+    torch.cuda.empty_cache()
+    return total
+
+
+PHASES = ("kernels", "experiments", "serve", "predictors", "sam1", "train",
+          "cli")
 SOURCES = {
     "attention_fwd": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
     "gemm_epilogue": ("cuda", "videoglamm_torch/csrc/gemm_epilogue.cu"),
@@ -4031,6 +4470,14 @@ def main() -> int:
             cli_counts = phase_train_cli(cfg, args.seed, train_counts,
                                          train_walls, smi)
             torch.cuda.empty_cache()
+
+        if "cli" in chosen:
+            phase("[cli] the serving CLIs from files: chat, eval_gcg_infer, "
+                  "eval_gcg_metrics, eval_refer_infer (MeViS at 64 SAM frames, "
+                  "sentences), eval_referdavis_metrics, eval_grounding, "
+                  "eval_anet_entities_infer, convert_checkpoint")
+            serve_cli_counts = phase_cli(cfg, args.seed, smi)
+            torch.cuda.empty_cache()
     except Exception:
         traceback.print_exc()
         log("FAIL")
@@ -4050,7 +4497,10 @@ def main() -> int:
     # one image predictor `set_image` and the interactive session's two
     # propagations (26 frames: K1 at head dim 256); launches_sam1: the SAM-1
     # phase's three paths (K3 only); launches_train_cli: the train CLI's 3
-    # optimizer steps from dataset files (validators not counted). A row keyed
+    # optimizer steps from dataset files (validators not counted);
+    # launches_cli: the serving CLIs' runs together (chat 1 request with the
+    # video branch, eval_gcg_infer 2, eval_refer_infer 2 at 64 SAM frames and
+    # 2 sentence records, eval_grounding 1, eval_anet_entities_infer 1). A row keyed
     # "<counter>@<shape>" is another shape of the counter's kernel. Phases
     # that did not run leave their counts null.
     if "serve" in chosen:
@@ -4071,6 +4521,8 @@ def main() -> int:
         pred_counts = {}
     if "sam1" not in chosen:
         sam1_counts = {}
+    if "cli" not in chosen:
+        serve_cli_counts = {}
     if "experiments" in chosen:
         for key in experiment_counts:
             if key.startswith("decode_fused") or key == "flash_bshd":
@@ -4086,7 +4538,8 @@ def main() -> int:
                             launches_train_cli=cli_counts.get(counter),
                             launches_track=track_counts.get(counter),
                             launches_predictors=pred_counts.get(counter),
-                            launches_sam1=sam1_counts.get(counter), **row))
+                            launches_sam1=sam1_counts.get(counter),
+                            launches_cli=serve_cli_counts.get(counter), **row))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     result = {"ok": True, "device": {

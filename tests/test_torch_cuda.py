@@ -1713,3 +1713,22 @@ def test_prefetch_copy_to_the_card_is_bit_equal(dev):
             assert got[k].is_cuda, k
             assert torch.equal(got[k].cpu(), v.to(got[k].dtype)), k
     it.close()
+
+
+@pytest.mark.parametrize("shape,hw", [((4, 2, 256, 256), (480, 854)),
+                                      ((1, 3, 32, 32), (48, 85))])
+def test_masks_to_original_size_on_the_card_matches_the_cpu(dev, shape, hw):
+    """The serving CLIs' mask postprocess: the resize runs on the card,
+    only the boolean masks come back. Against the same function on the
+    CPU in f32: equal but at pixels whose CPU logit lies within 1e-4 of
+    the threshold (another summation order)."""
+    from videoglamm_torch.evals.postprocess import masks_to_original_size
+    from videoglamm_torch.ops.resize import resize_bilinear
+    rng = np.random.RandomState(sum(shape))
+    logits = torch.from_numpy((rng.randn(*shape) * 4).astype(np.float32))
+    got = masks_to_original_size(logits.to(dev), hw)
+    want = masks_to_original_size(logits, hw)
+    assert got.shape == want.shape == shape[:-2] + hw
+    ref = resize_bilinear(logits.reshape((-1,) + shape[-2:] + (1,)), hw)
+    ref = ref[..., 0].reshape(shape[:-2] + hw).numpy()
+    assert (np.abs(ref[got != want]) < 1e-4).all()

@@ -157,7 +157,9 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     drive a tiny SAM-1 built by `build_sam1` through its predictor, its
     generator and `track_frames`; import the training data layer and the
     train CLI, build one collated batch from a GCG fixture in tmp_path and
-    take the training forward on it (nor is `transformers` imported)."""
+    take the training forward on it; import the evaluation layer and the
+    serving CLIs, tokenize a prompt, make the vision inputs and resize
+    masks through their helpers (nor is `transformers` imported)."""
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'videoglamm_tpu'): sys.modules[name] = None\n"
@@ -244,6 +246,18 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "assert int((batch['input_ids'] == cfg.seg_token_idx).sum()) == 1\n"
         "out = m(**prefetch.to_device(batch, 'cpu'))\n"
         "assert torch.isfinite(out.loss) and float(out.mask_bce_loss) > 0\n"
+        "from videoglamm_torch.evals import (metrics, postprocess,\n"
+        "    caption_metrics, clair)\n"
+        "from videoglamm_torch.data import anet_entities\n"
+        "from videoglamm_torch.cli import (chat, eval_gcg_infer,\n"
+        "    eval_gcg_metrics, eval_refer_infer, eval_referdavis_metrics,\n"
+        "    eval_grounding, eval_anet_entities_infer, convert_checkpoint)\n"
+        "ids, lens = cli_common.tokenize_prompt('a <image> b', tok, 8)\n"
+        "assert ids.shape == (1, 8) and int(lens[0]) == 5\n"
+        "inp = cli_common.prepare_vision_inputs(\n"
+        "    [np.zeros((24, 32, 3), np.uint8)] * 4, cfg, num_sam_frames=1)\n"
+        "assert inp[2].shape == (1, 1, 128, 128, 3) and inp[3] == (24, 32)\n"
+        "assert postprocess.masks_to_original_size(torch.zeros(2, 8, 8), (5, 7)).shape == (2, 5, 7)\n"
         "assert 'transformers' not in sys.modules\n"
         "if not torch.cuda.is_available():\n"
         "    try:\n"

@@ -141,8 +141,6 @@ def main(argv=None):
     p.add_argument("--val_reason_seg_root", default=None)
     p.add_argument("--val_samples", type=int, default=32,
                    help="videos/images per mid-training validation pass")
-    p.add_argument("--device", default="cuda",
-                   help="the card by default; 'cpu' runs the plain twins")
     args = p.parse_args(argv)
 
     device = torch.device(args.device)
