@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the videoglamm_torch port once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,sam1,train,cli]
+    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,sam1,train,cli,parity]
 
 Run from the root of a checkout. `--phases` (default all, as the contract
 runs it) picks phases 3 (kernels), the experiment harnesses, 4-5 (serve and
-check), 6 (predictors), 7 (sam1), 8-10 (train) and 11 (cli) to run; the
-build always runs.
+check), 6 (predictors), 7 (sam1), 8-10 (train), 11 (cli) and 12 (parity)
+to run; the build always runs.
 Phases, each fatal on failure:
 
 1. device: needs CUDA; prints the card's name and power limit
@@ -213,7 +213,24 @@ Phases, each fatal on failure:
    against the CPU f32 twin (equal but within 1e-4 of the threshold), and
    convert_checkpoint over the seeded weights written in the reference
    layout, read back bit-equal through `load_model`. Prints each CLI's
-   wall seconds and seconds a sample.
+   wall seconds and seconds a sample. Then eval_gcg_infer once more on a
+   narrow model (`small_config()`), its generation stubbed to a token
+   stream holding two [SEG] (teacher-forced through the model's own
+   prefill and cached decode, so the [SEG] hidden states are real), on the
+   card in bf16 and on the CPU in f32: equal results JSON, the same PNGs
+   but at pixels within the largest logit difference of the threshold;
+12. parity: `verify_parity.main` on the card at flagship width, the
+   import and quant stages with --int4 --tokens_advisory, on the cli
+   phase's reference-layout checkpoint (or one written here from the
+   seeded weights), inside `utils.profiling.profile_trace`: exit code 0,
+   nothing unmatched or filled, each of the three `clip_run`s (float,
+   int8 with the int8 cache, int4) launching what `parity_expected` says,
+   the trace holding the runs' annotations and K1-K5. Prints token
+   agreement, mask IoU, each run's valid [SEG], seconds and peak memory.
+   Then `Sam2BoxSegmenter` on Hiera-L at 1024 (ms a frame, launches) and
+   `extract_anet_gcg_masks` over 2 seeded videos; a narrow segmenter and a
+   narrow `clip_run` on the card against their CPU f32 twins; the
+   StepTimer summary and `device_memory_report()`.
 
 Prints one {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, without
@@ -3951,7 +3968,7 @@ def write_cli_fixture(root: str, seed: int) -> dict:
     return out
 
 
-def phase_cli(cfg, seed: int, smi: str) -> dict:
+def phase_cli(cfg, seed: int, smi: str, share=None) -> dict:
     """The port's serving CLIs' `main` at flagship width on seeded weights,
     from the fixture files of `write_cli_fixture`, with only `load_model`
     and `load_tokenizer` patched: the seeded state dict is made ONCE on the
@@ -3966,7 +3983,9 @@ def phase_cli(cfg, seed: int, smi: str) -> dict:
     at 480x854 on the card against their CPU f32 twin, and
     convert_checkpoint on a reference-layout directory of the seeded
     weights, read back equal through `load_model`. Returns the launches
-    summed over the serving CLIs' runs."""
+    summed over the serving CLIs' runs. share: a directory that outlives
+    the phase, where the reference-layout files go (`hf_export/`, `iv.pt`,
+    `clip.bin`) for the parity phase to read."""
     import os
     import tempfile
     import types
@@ -4208,20 +4227,23 @@ def phase_cli(cfg, seed: int, smi: str) -> dict:
         # convert_checkpoint over the seeded weights in the reference layout
         t0 = time.perf_counter()
         hf, iv, clip = to_reference_layout(sd, cfg)
-        ref_dir = os.path.join(d, "hf_export")
+        ref_root = share if share is not None else d
+        ref_dir = os.path.join(ref_root, "hf_export")
         os.makedirs(ref_dir)
         keys = sorted(hf)
         for i, part in enumerate((keys[::2], keys[1::2])):
             torch.save({k: hf[k].cpu() for k in part},
                        os.path.join(ref_dir, f"pytorch_model-0000{i + 1}-of-00002.bin"))
         torch.save({"module": {k: v.cpu() for k, v in iv.items()}},
-                   os.path.join(d, "iv.pt"))
-        torch.save({k: v.cpu() for k, v in clip.items()}, os.path.join(d, "clip.bin"))
+                   os.path.join(ref_root, "iv.pt"))
+        torch.save({k: v.cpu() for k, v in clip.items()},
+                   os.path.join(ref_root, "clip.bin"))
         write_s = time.perf_counter() - t0
         out_dir = os.path.join(d, "converted")
         run("convert_checkpoint", convert_checkpoint, [
-            "--hf_export", ref_dir, "--internvideo_ckpt", os.path.join(d, "iv.pt"),
-            "--clip_ckpt", os.path.join(d, "clip.bin"), "--out", out_dir])
+            "--hf_export", ref_dir, "--internvideo_ckpt",
+            os.path.join(ref_root, "iv.pt"), "--clip_ckpt",
+            os.path.join(ref_root, "clip.bin"), "--out", out_dir])
         t0 = time.perf_counter()
         back = common.load_model(types.SimpleNamespace(checkpoint=out_dir), cfg)
         bad = [k for k in sd if k not in back or not torch.equal(
@@ -4238,8 +4260,520 @@ def phase_cli(cfg, seed: int, smi: str) -> dict:
     return total
 
 
+# ------------------------------------------------------------------ parity
+PARITY_SEGMENTER_FRAMES = 6   # timed segmenter calls (after one warm call)
+PARITY_BOXES = 3
+TOL_PARITY_REF = TOL_SMALL_REF   # relative L2, the narrow clip_run's masks
+                                 # (bf16 kernels on the card vs f32 twins)
+
+
+def parity_expected(mode: str) -> dict:
+    """Launches of one quant-stage `clip_run` of verify_parity at flagship
+    width (16 frames, 2 SAM frames, 24 prompt ids, 12 new tokens, no stop
+    token), by run: the towers, prefill and SAM encode of EXPECTED_TOWERS
+    (whatever the SAM batch); K3's RMSNorm on the prefill's 2 x 32 + 1
+    norms and InternVideo2's 4 a block over 39 blocks (a decode step's
+    [1, 3072] rows stay under K3's 64K-element gate), its LayerNorm on
+    CLIP's pre-norm and 2 a layer over 23, the SAM encode's 2 x 42 + 1 and
+    the mask decoder's norm4 of its two two-way blocks on the keys (the 8
+    prompts' queries stay under the gate). int8: the int8 cache, K4 once a
+    layer and decode step, K5 four times a layer and once for the lm_head a
+    step plus the lm_head after the prefill; int4: K5 the same, bf16 cache
+    (the JAX harness quantises the KV cache with int8 only)."""
+    from videoglamm_torch.cli import verify_parity as vp
+    n = vp.N_NEW
+    gemv = n * (4 * 32 + 1) + 1
+    want = dict(EXPECTED_TOWERS, **{
+        "row_norm[rms]": 2 * 32 + 1 + 4 * 39,
+        "row_norm[ln]": 1 + 2 * 23 + 2 * 42 + 1 + 2,
+        "decode_attention_q8": n * 32 if mode == "int8" else 0,
+        "dequant_gemv[int8]": gemv if mode == "int8" else 0,
+        "dequant_gemv[int4]": gemv if mode == "int4" else 0})
+    return want
+
+
+def segmenter_expected(calls: int) -> dict:
+    """Launches of `calls` Sam2BoxSegmenter calls on Hiera-L at 1024: one
+    image encode each (ENCODE) and the mask decoder's norm4 of its two
+    two-way blocks on the keys [boxes, 4096, 256] (the queries, 8 tokens a
+    box, stay under K3's gate); no LLM kernel."""
+    want = {k: v * calls for k, v in ENCODE.items()}
+    want["row_norm[ln]"] += 2 * calls
+    want.update({"row_norm[rms]": 0, "attention_fwd[causal]": 0,
+                 "decode_attention_q8": 0, "dequant_gemv[int8]": 0,
+                 "dequant_gemv[int4]": 0})
+    return want
+
+
+def write_reference_checkpoint(cfg, root: str) -> dict:
+    """The flagship seeded weights (bf16, as `build` makes them) in the
+    reference layout under root: the HF export as pytorch_model.bin and the
+    two tower files that `to_reference_layout` returns."""
+    import os
+    import torch
+    from videoglamm_torch.io.reference import to_reference_layout
+    t0 = time.perf_counter()
+    gi = build(cfg, "none", "bf16", "the parity checkpoint's seeded weights")
+    sd = {k: v.cpu() for k, v in gi.model.state_dict().items()}
+    del gi
+    torch.cuda.empty_cache()
+    hf, iv, clip = to_reference_layout(sd, cfg)
+    paths = {"dir": os.path.join(root, "hf_export"),
+             "iv": os.path.join(root, "iv.pt"),
+             "clip": os.path.join(root, "clip.bin")}
+    os.makedirs(paths["dir"])
+    torch.save(hf, os.path.join(paths["dir"], "pytorch_model.bin"))
+    torch.save({"module": iv}, paths["iv"])
+    torch.save(clip, paths["clip"])
+    log(f"  parity checkpoint written in the reference layout in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def trace_kernel_names(path: str) -> tuple:
+    """(device kernel names with their event counts, annotation names) of a
+    Chrome trace."""
+    events = json.load(open(path))["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e.get("name")] = kernels.get(e.get("name"), 0) + 1
+    notes = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    return kernels, notes
+
+
+def phase_parity(cfg, seed: int, smi: str, ckpt=None):
+    """verify_parity's second command of the JAX docstring on the card:
+    the import and quant stages at flagship width on a reference-layout
+    checkpoint of seeded weights (the cli phase's when it ran, else one
+    written here), `--int4 --tokens_advisory`, through `main` inside
+    `profile_trace`. The counters are set to 0 just before each of the
+    three `clip_run`s and read just after (the module attribute is wrapped
+    for that): each must equal `parity_expected`. The trace must hold the
+    three runs' annotations and the kernels K1 to K5. Then the datagen
+    segmenter on Hiera-L at 1024, a narrow segmenter and a narrow clip_run
+    against their CPU f32 twins, and the memory report."""
+    import os
+    import tempfile
+    import torch
+    from videoglamm_torch.cli import verify_parity as vp
+    from videoglamm_torch.utils import device_memory_report, profile_trace
+    from videoglamm_torch.utils.profiling import TRACE_FILE
+
+    with tempfile.TemporaryDirectory() as d:
+        if ckpt is None:
+            ckpt = write_reference_checkpoint(cfg, d)
+        else:
+            log("  parity: the cli phase's reference-layout checkpoint "
+                "(convert_checkpoint's input)")
+        runs = []
+        real = vp.clip_run
+
+        def counted(model, batch):
+            torch.cuda.synchronize()
+            reset_counts()
+            out = real(model, batch)
+            torch.cuda.synchronize()
+            runs.append(read_counts())
+            return out
+
+        argv = ["--scale", "flagship", "--checkpoint", ckpt["dir"],
+                "--internvideo_ckpt", ckpt["iv"], "--clip_ckpt", ckpt["clip"],
+                "--stages", "import,quant", "--int4", "--tokens_advisory",
+                "--seed", str(seed), "--out_dir", os.path.join(d, "report"),
+                "--report_name", "parity_quant_cuda.json"]
+        log(f"  verify_parity.main({argv})")
+        t0 = time.perf_counter()
+        vp.clip_run = counted
+        try:
+            with profile_trace(os.path.join(d, "trace")):
+                rc = vp.main(argv)
+                t_main = time.perf_counter() - t0
+        finally:
+            vp.clip_run = real
+        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        rep = json.load(open(os.path.join(d, "report", "parity_quant_cuda.json")))
+        trace = os.path.join(d, "trace", TRACE_FILE)
+        trace_mb = os.path.getsize(trace) / 2**20
+        kernels, notes = trace_kernel_names(trace)
+        t_read = time.perf_counter() - t1
+    log("  parity report: " + json.dumps(rep))
+    imp = rep["stages"]["import"]
+    if rc != 0 or not rep["ok"] or imp["unmatched"] or imp["random_init_modules"]:
+        raise AssertionError(f"verify_parity: rc {rc}, report {rep}")
+    if len(runs) != 3:
+        raise AssertionError(f"verify_parity ran clip_run {len(runs)} times")
+    for name, counts in zip(("float", "int8", "int4"), runs):
+        check_launches(counts, parity_expected(name), f"parity {name} run")
+    for name in ("float", "int8", "int4"):
+        if f"verify_parity/{name}" not in notes:
+            raise AssertionError(f"the trace lacks the annotation of the {name} run")
+    sources = {"K1": source_kernels("attention_fwd"),
+               "K2": source_kernels("gemm_epilogue"),
+               "K4": source_kernels("decode_attention_q8"),
+               "K5": source_kernels("dequant_gemv")}
+    # CUDA kernels by their __global__ name inside the demangled signature.
+    # K3, the Triton kernel `kernel` of ops/norms.py, is exported to the
+    # Chrome trace as "Kernel" (key_averages() lists it as "kernel"; summing
+    # a trace this large there takes over a minute): at least one such event
+    # for each K3 launch the three runs counted
+    missing = [k for k, names in sources.items()
+               if not any(n in key for n in names for key in kernels)]
+    k3 = sum(c["row_norm[rms]"] + c["row_norm[ln]"] for c in runs)
+    if kernels.get("Kernel", 0) < k3:
+        missing.append(f"K3 ({kernels.get('Kernel', 0)} events for {k3} launches)")
+    if missing:
+        raise AssertionError(f"the trace lacks kernels of {missing}; its device "
+                             f"kernels: {sorted(kernels)[:80]}")
+    q = rep["stages"]["quant"]
+    r = rep["runs"]
+    log(f"  parity (flagship, {smi}): main() {t_main:.1f} s under the "
+        f"profiler, the trace's export {wall - t_main:.1f} s ({trace_mb:.1f} "
+        f"MB), reading it back {t_read:.1f} s; exit code {rc}, ok {rep['ok']}")
+    for name in ("float", "int8", "int4"):
+        log(f"    {name} run: clip_run {r[name]['run_s']:.3f} s, build "
+            f"{r[name]['build_s']:.1f} s, peak device memory "
+            f"{r[name]['peak_bytes'] / 2**30:.2f} GiB, valid [SEG] "
+            f"{r[name]['seg_valid']}; launches = parity_expected('{name}')")
+    for mode in ("int8", "int4"):
+        log(f"    {mode}: token agreement {q[mode]['token_agreement']:.4f}, "
+            f"mask IoU {q[mode]['mask_iou']:.4f}, valid [SEG] float "
+            f"{q[mode]['float_seg_valid']} / {mode} {q[mode]['seg_valid']}, "
+            f"ok {q[mode]['ok']}{' (advisory)' if mode == 'int4' else ''}")
+    vacuous = all(r[n]["seg_valid"] == 0 for n in r)
+    log(f"    the mask IoU gate {'is vacuous here' if vacuous else 'compared served masks'}: "
+        f"{'no run emitted a [SEG], so every prompt embedding was zero' if vacuous else 'some run emitted [SEG]'}")
+    log(f"    trace: annotations {sorted(n for n in notes if n.startswith('verify_parity'))}; "
+        f"K1-K5 device kernels present")
+
+    timer = phase_parity_segmenter(cfg, seed, smi)
+    phase_parity_narrow(seed)
+    log(f"  StepTimer over the segmenter's frames: {json.dumps(timer.summary())}")
+    log(f"  device_memory_report(): {json.dumps(device_memory_report())}")
+    return runs[1]
+
+
+def write_anet_fixture(root: str, seed: int) -> int:
+    """2 ANet-Entities GCG videos of 3 frames at 480x854 from the seed, 2
+    [SEG:n] boxes each; returns the number of boxes."""
+    import os
+    import numpy as np
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    n = 0
+    for v in range(2):
+        vid, seg = f"v_card{v}", str(v)
+        fdir = os.path.join(root, "video_frames", vid, seg)
+        os.makedirs(fdir)
+        for t in range(3):
+            Image.fromarray(_smooth_frame(rng)).save(os.path.join(fdir, f"{t:02d}.jpg"))
+        boxes = {}
+        for s in range(2):
+            x0, y0 = rng.randint(0, RAW_W // 2), rng.randint(0, RAW_H // 2)
+            boxes[f"[SEG:{s}]"] = {"frame_id": int(rng.randint(0, 3)), "bbox": [
+                int(x0), int(y0), int(x0 + rng.randint(40, RAW_W // 2)),
+                int(y0 + rng.randint(40, RAW_H // 2))]}
+            n += 1
+        os.makedirs(os.path.join(root, "anns"), exist_ok=True)
+        json.dump({"refined_caption": "A man [SEG:0] hands a dog [SEG:1] a ball.",
+                   "seg_token_to_obj": boxes},
+                  open(os.path.join(root, "anns", f"{vid}____{seg}.json"), "w"))
+    return n
+
+
+def phase_parity_segmenter(cfg, seed: int, smi: str):
+    """Sam2BoxSegmenter on `build_sam2()` (Hiera-L at 1024, seeded, bf16
+    encoder) over a seeded 480x854 frame with 3 boxes, timed with
+    StepTimer; then extract_anet_gcg_masks over a 2-video fixture. Launches
+    against `segmenter_expected`."""
+    import tempfile
+    import numpy as np
+    import torch
+    from videoglamm_torch.data.datasets import ANetEntitiesGCGDataset
+    from videoglamm_torch.datagen.mask_extract import (Sam2BoxSegmenter,
+                                                       extract_anet_gcg_masks)
+    from videoglamm_torch.inference.pipeline import build_sam2
+    from videoglamm_torch.utils import StepTimer
+
+    sam = build_sam2(cfg.sam2, init=lambda m: seeded_init(
+        m, torch.Generator(device="cuda").manual_seed(seed + 7)))
+    seg = Sam2BoxSegmenter(sam)
+    rng = np.random.RandomState(seed)
+    frame = _smooth_frame(rng)
+    boxes = [[100, 80, 420, 400], [300, 50, 800, 300], [0, 0, 853, 479]]
+    masks = seg(frame, boxes)                      # warm
+    timer = StepTimer()
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(PARITY_SEGMENTER_FRAMES):
+        timer.start()
+        masks = seg(frame, boxes)                  # ends in a host copy
+        timer.stop()
+    counts = read_counts()
+    # where a frame's time goes: the host preprocessing, the card's
+    # encode and decode, the resize back and its copy to the host
+    from videoglamm_torch.data.preprocess import preprocess_sam2
+    from videoglamm_torch.evals.postprocess import masks_to_original_size
+    img, pre_ms = _wall(lambda: torch.from_numpy(
+        preprocess_sam2([frame], seg.size)).cuda())
+    sb = torch.tensor(boxes, dtype=torch.float32, device="cuda") * torch.tensor(
+        [seg.size / RAW_W, seg.size / RAW_H] * 2, device="cuda")
+    low, dev_ms = _wall(lambda: seg.segment(img, sb))
+    _, post_ms = _wall(lambda: masks_to_original_size(low, (RAW_H, RAW_W)))
+    check_launches(counts, segmenter_expected(PARITY_SEGMENTER_FRAMES),
+                   "segmenter")
+    if masks.shape != (PARITY_BOXES, RAW_H, RAW_W) or masks.dtype != bool:
+        raise AssertionError(f"segmenter masks {masks.shape} {masks.dtype}")
+    s = timer.summary()
+    log(f"  Sam2BoxSegmenter, Hiera-L at 1024, {PARITY_BOXES} boxes on a "
+        f"{RAW_H}x{RAW_W} frame: {s['mean_s'] * 1e3:.1f} ms a frame (mean of "
+        f"{s['n']}, p50 {s['p50_s'] * 1e3:.1f}; apart: host preprocess_sam2 "
+        f"and upload {pre_ms:.1f}, encode and decode {dev_ms:.1f}, resize and "
+        f"copy back {post_ms:.1f}), foreground "
+        f"{[int(m.sum()) for m in masks]} px; launches = segmenter_expected "
+        f"x {PARITY_SEGMENTER_FRAMES} ({smi})")
+    with tempfile.TemporaryDirectory() as d:
+        n_boxes = write_anet_fixture(d, seed)
+        reset_counts()
+        t0 = time.perf_counter()
+        n = extract_anet_gcg_masks(seg, d)
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        check_launches(counts, segmenter_expected(n_boxes), "extract_anet_gcg_masks")
+        rec = ANetEntitiesGCGDataset(d)[0]
+        if n != n_boxes or rec["masks"][0].shape[0] != 2:
+            raise AssertionError(f"extract_anet_gcg_masks wrote {n} of {n_boxes}")
+    log(f"  extract_anet_gcg_masks over 2 videos: {n} masks in {dt:.2f} s; "
+        f"launches = segmenter_expected x {n_boxes}; the dataset loads them")
+    del sam, seg
+    torch.cuda.empty_cache()
+    return timer
+
+
+def phase_parity_narrow(seed: int):
+    """A narrow segmenter (`track_config(1024)`) and a narrow clip_run
+    (`small_config()`) in bf16 on the card against the same weights in f32
+    on the CPU through the plain twins."""
+    import numpy as np
+    import torch
+    from videoglamm_torch.cli import verify_parity as vp
+    from videoglamm_torch.data.preprocess import preprocess_sam2
+    from videoglamm_torch.datagen.mask_extract import Sam2BoxSegmenter
+    from videoglamm_torch.inference.pipeline import build_inference, build_sam2
+    from videoglamm_torch.ops.resize import resize_bilinear
+
+    scfg = track_config(1024)
+    ref = build_sam2(scfg, device="cpu", dtype=torch.float32, init=lambda m: fan_in_init(
+        m, torch.Generator().manual_seed(seed + 71)))
+    dev = build_sam2(scfg, ref.state_dict(), device="cuda", dtype=torch.bfloat16)
+    frame = _smooth_frame(np.random.RandomState(seed + 1))
+    boxes = np.asarray([[100, 80, 420, 400], [300, 50, 800, 300]], np.float32)
+    size = scfg.image_size
+    img = torch.from_numpy(preprocess_sam2([frame], size))
+    sb = torch.from_numpy(boxes * np.asarray([size / RAW_W, size / RAW_H] * 2,
+                                             np.float32))
+    with torch.no_grad():
+        want = Sam2BoxSegmenter(ref).segment(img, sb)
+        got = Sam2BoxSegmenter(dev).segment(img.cuda(), sb.cuda())
+    hold_close("narrow segmenter", got, want, "low-res mask logits")
+    up = resize_bilinear(want[..., None], (RAW_H, RAW_W))[..., 0]
+    hold_masks("narrow segmenter", Sam2BoxSegmenter(dev)(frame, boxes), up,
+               "masks at 480x854")
+    del ref, dev
+
+    cfg = small_config()
+    ref = build_inference(cfg, device="cpu", dtype=torch.float32, init=lambda m: fan_in_init(
+        m, torch.Generator().manual_seed(seed + 72))).model
+    dev = build_inference(cfg, ref.state_dict(), device="cuda",
+                          dtype=torch.bfloat16).model
+    batch, _ = vp.make_batch(cfg, seed, torch.float32, "cpu")
+    tok_c, masks_c, seg_c = vp.clip_run(ref, batch)
+    dbatch = {k: v.cuda().to(torch.bfloat16) if v.is_floating_point() else v.cuda()
+              for k, v in batch.items()}
+    tok_d, masks_d, seg_d = vp.clip_run(dev, dbatch)
+    agree = float((tok_c == tok_d).mean())
+    log(f"  narrow clip_run: tokens agree {agree:.3f} (free-running greedy, "
+        f"not held), valid [SEG] card {seg_d} / CPU {seg_c}")
+    if seg_c != seg_d:
+        raise AssertionError("narrow clip_run: the [SEG] counts differ")
+    hold_close("narrow clip_run", masks_d, masks_c, "mask logits",
+               tol=TOL_PARITY_REF)
+    del ref, dev
+    torch.cuda.empty_cache()
+
+
+def fan_in_init(model, g):
+    """Random weights from a seed whose activations keep their scale
+    through depth, so that mask logits lie away from 0 by more than bf16
+    rounding: matrices and convs N(0, 1 / fan_in), norm scales 1, norm
+    biases 0, other vectors and embeddings N(0, 0.02), the random-Fourier
+    PE matrix standard normal."""
+    import torch
+    seeded_init(model, g)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() >= 2 and "embed" not in name and "token" not in name:
+                fan = p[0].numel()
+                p.normal_(0.0, fan ** -0.5, generator=g)
+    return model
+
+
+def forced_generation(stream):
+    """A stand-in for `generate_with_prefix` that feeds `stream` (token ids
+    holding [SEG]) through the model's prefill and cached decode steps,
+    teacher-forced, and records each fed token's hidden state as the
+    generation does: the [SEG] hidden states are the model's own."""
+    import torch
+    from videoglamm_torch.inference.generate import (GenerateResult,
+                                                     decode_step, prefill)
+
+    def generate(model, visual, input_ids, text_lens, *, max_new_tokens,
+                 **_):
+        n = len(stream)
+        hidden_pre, cache, sp, _ = prefill(
+            model.llm, visual, input_ids, text_lens, n,
+            quant_kv=model.quant_kv_int8)
+        B = input_ids.shape[0]
+        tok = torch.tensor(stream, device=input_ids.device)[None].expand(B, n)
+        hs = [decode_step(model.llm, cache, tok[:, j], sp.attn_lens + j)[1]
+              for j in range(n)]
+        return GenerateResult(tokens=tok, hidden=torch.stack(hs, 1),
+                              lengths=torch.full((B,), n, device=tok.device),
+                              prefill_hidden=hidden_pre,
+                              prefill_len=sp.attn_lens)
+    return generate
+
+
+def phase_cli_forced_seg(seed: int, smi: str):
+    """eval_gcg_infer on the narrow model (`small_config()`: flagship image
+    sizes and frame counts, narrow towers) over the cli fixture's GCG root,
+    once on the card in bf16 and once on the CPU in f32, with the
+    generation stubbed to a token stream holding two [SEG]: the served
+    masks of real [SEG] hidden states. The results JSON must be equal, the
+    PNG files the same set, and a pixel may differ only where the CPU's
+    resized logit lies within the largest card-vs-CPU logit difference of
+    0; the logits are held by relative L2 (TOL_SMALL_REF, as the narrow
+    model's other outputs). --min_blob 0 on both: the blob
+    filter is host code and would turn a pixel at the threshold into a
+    blob."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from PIL import Image
+    from videoglamm_torch.cli import eval_gcg_infer
+    from videoglamm_torch.config import VideoGLaMMConfig
+    from videoglamm_torch.inference import pipeline
+    from videoglamm_torch.inference.pipeline import build_inference
+    from videoglamm_torch.ops.resize import resize_bilinear
+
+    cfg = small_config()
+    sd = build_inference(cfg, device="cpu", dtype=torch.float32, init=lambda m: fan_in_init(
+        m, torch.Generator().manual_seed(seed + 73))).model.state_dict()
+    narrow = staticmethod(lambda: cfg)
+    tok = CLITokenizer(cfg.seg_token_idx, cfg.llm.vocab_size)
+    stream = [101, 202, cfg.seg_token_idx, 303, 404, cfg.seg_token_idx, 505]
+    captured = {}
+
+    def run(where, argv):
+        real = (eval_gcg_infer.load_model, eval_gcg_infer.load_tokenizer,
+                eval_gcg_infer.masks_of, pipeline.generate_with_prefix,
+                VideoGLaMMConfig.flagship)
+        logits = captured.setdefault(where, [])
+
+        def masks_of(res, orig_hw):
+            valid = res.seg_valid[0]
+            logits.append((res.pred_masks[0][valid].float().cpu(), orig_hw))
+            return real[2](res, orig_hw)
+        eval_gcg_infer.load_model = lambda args, cfg_=None: sd
+        eval_gcg_infer.load_tokenizer = lambda path: tok
+        eval_gcg_infer.masks_of = masks_of
+        pipeline.generate_with_prefix = forced_generation(stream)
+        VideoGLaMMConfig.flagship = narrow
+        out = StampedLines()
+        stdout = sys.stdout
+        try:
+            sys.stdout = out
+            reset_counts()
+            t0 = time.perf_counter()
+            ret = eval_gcg_infer.main(argv)
+            if where == "card":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            sys.stdout = stdout
+            (eval_gcg_infer.load_model, eval_gcg_infer.load_tokenizer,
+             eval_gcg_infer.masks_of, pipeline.generate_with_prefix) = real[:4]
+            VideoGLaMMConfig.flagship = real[4]
+        return ret, wall, read_counts(), [ln for _, ln in out.lines]
+
+    def files(root):
+        out = {}
+        for dirpath, _, names in os.walk(root):
+            for f in names:
+                p = os.path.join(dirpath, f)
+                k = os.path.relpath(p, root)
+                out[k] = (np.asarray(Image.open(p)) if f.endswith(".png")
+                          else json.load(open(p)))
+        return out
+
+    with tempfile.TemporaryDirectory() as d:
+        fx = write_cli_fixture(os.path.join(d, "data"), seed)
+        model = ["--checkpoint", "seeded", "--tokenizer", "word-level",
+                 "--max_new_tokens", str(CLI_MAX_NEW), "--min_blob", "0",
+                 "--data_root", os.path.join(fx["root"], "gcg")]
+        ret_c, wall_c, counts, lines = run("card", model + [
+            "--save_dir", os.path.join(d, "card")])
+        ret_h, wall_h, _, _ = run("cpu", model + [
+            "--save_dir", os.path.join(d, "cpu"), "--device", "cpu",
+            "--precision", "f32"])
+        card, cpu = files(os.path.join(d, "card")), files(os.path.join(d, "cpu"))
+    if ret_c != ret_h or ret_c != {"videos": 2, "resumed": 0, "skipped": 0}:
+        raise AssertionError(f"forced [SEG] eval_gcg_infer: {ret_c} vs {ret_h}")
+    for k in ("attention_fwd[causal]", "attention_fwd[bshd]", "attention_fwd[flash]",
+              "fused_window_block", "gemm_epilogue", "row_norm[ln]"):
+        if counts[k] == 0:
+            raise AssertionError(f"forced [SEG] eval_gcg_infer: {k} never launched")
+    if sorted(card) != sorted(cpu):
+        raise AssertionError("forced [SEG] eval_gcg_infer: the card wrote other files")
+    pngs = [k for k in card if k.endswith(".png")]
+    for k in card:
+        if not k.endswith(".png") and card[k] != cpu[k]:
+            raise AssertionError(f"forced [SEG] eval_gcg_infer: {k} differs")
+    n_obj = sum(int(ln.split()[-2]) for ln in lines if ln.startswith("[ok]"))
+    if n_obj != 4 or len(pngs) != 4 * CLI_GCG_FRAMES:
+        raise AssertionError(f"forced [SEG]: {n_obj} objects, {len(pngs)} PNGs")
+    def up(logits, hw):       # [n, T, h, w] -> [n, T, H, W] f32 on the CPU
+        x = resize_bilinear(logits.reshape((-1,) + logits.shape[-2:] + (1,)), hw)
+        return x[..., 0].reshape(logits.shape[:2] + tuple(hw))
+
+    vids = sorted({k.split(os.sep)[0] for k in pngs})
+    worst, ref = 0.0, {}
+    for v, (lc, hw), (lh, _) in zip(vids, captured["card"], captured["cpu"]):
+        hold_close("forced [SEG] eval_gcg_infer", lc, lh,
+                   f"{v}'s served mask logits", tol=TOL_SMALL_REF)
+        ref[v] = up(lh, hw)
+        worst = max(worst, (up(lc, hw) - ref[v]).abs().max().item())
+    band = max(worst, TOL_MASK_THRESHOLD)
+    differ = far = 0
+    for k in pngs:
+        v, _, obj, name = k.split(os.sep)
+        moved = torch.from_numpy(card[k] != cpu[k])
+        differ += int(moved.sum())
+        far += int((moved & (ref[v][int(obj), int(name[:-4])].abs() > band)).sum())
+    log(f"  forced [SEG] eval_gcg_infer (narrow model, 2 videos x "
+        f"{CLI_GCG_FRAMES} frames, stream {stream}): card {wall_c:.2f} s, CPU "
+        f"f32 {wall_h:.2f} s; {n_obj} objects, {len(pngs)} PNGs, results JSON "
+        f"equal; {differ} PNG pixels differ, {far} of them farther than "
+        f"{band:.3g} (the largest resized-logit difference) from 0 ({smi})")
+    if far:
+        raise AssertionError("forced [SEG] eval_gcg_infer: masks differ away "
+                             "from the threshold")
+
+
 PHASES = ("kernels", "experiments", "serve", "predictors", "sam1", "train",
-          "cli")
+          "cli", "parity")
 SOURCES = {
     "attention_fwd": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
     "gemm_epilogue": ("cuda", "videoglamm_torch/csrc/gemm_epilogue.cu"),
@@ -4326,6 +4860,12 @@ def main() -> int:
 
     K = Kernels()
     cfg = VideoGLaMMConfig.flagship()
+    # the cli phase's reference-layout checkpoint, read again by the parity
+    # phase; removed when the script ends
+    import os
+    import tempfile
+    shared = tempfile.TemporaryDirectory()
+    ckpt = None
     try:
         phase("[build]")
         phase_build()
@@ -4476,12 +5016,29 @@ def main() -> int:
                   "eval_gcg_metrics, eval_refer_infer (MeViS at 64 SAM frames, "
                   "sentences), eval_referdavis_metrics, eval_grounding, "
                   "eval_anet_entities_infer, convert_checkpoint")
-            serve_cli_counts = phase_cli(cfg, args.seed, smi)
+            serve_cli_counts = phase_cli(cfg, args.seed, smi,
+                                         share=shared.name)
+            ckpt = {"dir": os.path.join(shared.name, "hf_export"),
+                    "iv": os.path.join(shared.name, "iv.pt"),
+                    "clip": os.path.join(shared.name, "clip.bin")}
+            torch.cuda.empty_cache()
+            phase("[cli] eval_gcg_infer with the generation stubbed to a "
+                  "stream holding [SEG], narrow model, card against CPU")
+            phase_cli_forced_seg(args.seed, smi)
+            torch.cuda.empty_cache()
+
+        if "parity" in chosen:
+            phase("[parity] verify_parity --scale flagship --stages import,quant "
+                  "--int4 --tokens_advisory under profile_trace; the datagen "
+                  "segmenter on Hiera-L; narrow references; memory report")
+            parity_counts = phase_parity(cfg, args.seed, smi, ckpt)
             torch.cuda.empty_cache()
     except Exception:
         traceback.print_exc()
         log("FAIL")
         return 1
+    finally:
+        shared.cleanup()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # launches: the serving main path's run (int8 + int8 KV from raw frames,
@@ -4500,7 +5057,9 @@ def main() -> int:
     # optimizer steps from dataset files (validators not counted);
     # launches_cli: the serving CLIs' runs together (chat 1 request with the
     # video branch, eval_gcg_infer 2, eval_refer_infer 2 at 64 SAM frames and
-    # 2 sentence records, eval_grounding 1, eval_anet_entities_infer 1). A row keyed
+    # 2 sentence records, eval_grounding 1, eval_anet_entities_infer 1);
+    # launches_parity: verify_parity's int8 run at flagship width (one
+    # clip_run: 12 new tokens, int8 weights and cache). A row keyed
     # "<counter>@<shape>" is another shape of the counter's kernel. Phases
     # that did not run leave their counts null.
     if "serve" in chosen:
@@ -4523,6 +5082,8 @@ def main() -> int:
         sam1_counts = {}
     if "cli" not in chosen:
         serve_cli_counts = {}
+    if "parity" not in chosen:
+        parity_counts = {}
     if "experiments" in chosen:
         for key in experiment_counts:
             if key.startswith("decode_fused") or key == "flash_bshd":
@@ -4539,7 +5100,8 @@ def main() -> int:
                             launches_track=track_counts.get(counter),
                             launches_predictors=pred_counts.get(counter),
                             launches_sam1=sam1_counts.get(counter),
-                            launches_cli=serve_cli_counts.get(counter), **row))
+                            launches_cli=serve_cli_counts.get(counter),
+                            launches_parity=parity_counts.get(counter), **row))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     result = {"ok": True, "device": {

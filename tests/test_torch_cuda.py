@@ -1732,3 +1732,46 @@ def test_masks_to_original_size_on_the_card_matches_the_cpu(dev, shape, hw):
     ref = resize_bilinear(logits.reshape((-1,) + shape[-2:] + (1,)), hw)
     ref = ref[..., 0].reshape(shape[:-2] + hw).numpy()
     assert (np.abs(ref[got != want]) < 1e-4).all()
+
+
+def test_profile_trace_on_the_card_records_k3_and_the_annotation(dev, tmp_path):
+    """utils.profiling on the card: the Chrome trace holds the annotation
+    and K3's Triton kernel as a device event (the function is `kernel` in
+    ops/norms.py, which key_averages() lists, and the trace export names
+    "Kernel"), and the counter moved by one launch."""
+    import json
+    import os
+    from videoglamm_torch.utils import annotate, profile_trace
+    from videoglamm_torch.utils.profiling import TRACE_FILE
+    x = torch.randn(512, 1024, device=dev, dtype=torch.bfloat16)
+    w = torch.ones(1024, device=dev, dtype=torch.bfloat16)
+    before = norms.LAUNCHES["rms"]
+    with profile_trace(str(tmp_path)) as prof:
+        with annotate("vp/k3_under_test"):
+            norms.row_norm(x, w, None, 1e-6, rms=True)
+            torch.cuda.synchronize()
+    assert norms.LAUNCHES["rms"] == before + 1
+    events = json.load(open(os.path.join(str(tmp_path), TRACE_FILE)))["traceEvents"]
+    assert any(e.get("name") == "vp/k3_under_test" for e in events)
+    kernels = sorted({e.get("name") for e in events if e.get("cat") == "kernel"})
+    assert kernels == ["Kernel"], kernels
+    assert ("kernel", torch.autograd.DeviceType.CUDA) in {
+        (e.key, e.device_type) for e in prof.key_averages()}
+
+
+def test_step_timer_waits_for_a_cuda_tensor(dev):
+    """StepTimer.stop(t) synchronises t's device: the timed span covers
+    the queued work, so it is no shorter than the work's device time."""
+    from videoglamm_torch.utils import StepTimer
+    a = torch.randn(4096, 4096, device=dev)
+    torch.cuda.synchronize()
+    t = StepTimer()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t.start()
+    start.record()
+    for _ in range(20):
+        a = a @ a / 64.0
+    end.record()
+    dt = t.stop(a)
+    assert end.query()           # the work had finished when stop returned
+    assert dt * 1e3 >= start.elapsed_time(end) * 0.99

@@ -159,11 +159,17 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     train CLI, build one collated batch from a GCG fixture in tmp_path and
     take the training forward on it; import the evaluation layer and the
     serving CLIs, tokenize a prompt, make the vision inputs and resize
-    masks through their helpers (nor is `transformers` imported)."""
+    masks through their helpers; run `verify_parity` (import and quant
+    stages, int8 and int4) on the reference-layout files, and see
+    `--synthetic` refuse with an ImportError naming `transformers`; trace a
+    region with `utils.profiling`; segment boxes with the datagen
+    segmenter on a tiny SAM-2; import the last data modules. `transformers`
+    is blocked too."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'videoglamm_tpu'): sys.modules[name] = None\n"
-        "import torch, videoglamm_torch\n"
+        "for name in ('jax', 'flax', 'videoglamm_tpu', 'transformers'):\n"
+        "    sys.modules[name] = None\n"
+        "import json, torch, videoglamm_torch\n"
         "from videoglamm_torch.inference.pipeline import GroundedInference\n"
         "from videoglamm_torch.models.videoglamm import VideoGLaMM\n"
         "from videoglamm_torch.io import from_jax\n"
@@ -203,6 +209,37 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "    quant='int8', device='cpu', dtype=torch.float32, max_new_tokens=4)\n"
         "out = gi.serve_raw(raw, ids, torch.tensor([8]), num_sam_frames=1)\n"
         "assert torch.isfinite(out.pred_masks).all()\n"
+        "from videoglamm_torch.cli import verify_parity\n"
+        "rc = verify_parity.main(['--checkpoint', d, '--internvideo_ckpt',\n"
+        "    d + '/iv.pt', '--clip_ckpt', d + '/clip.bin', '--device', 'cpu',\n"
+        "    '--stages', 'import,quant', '--int4', '--out_dir', d + '/vp'])\n"
+        "rep = json.load(open(d + '/vp/parity_report.json'))\n"
+        "assert rc == 0 and not rep['stages']['import']['random_init_modules'], rep\n"
+        "try:\n"
+        "    verify_parity.main(['--synthetic', '--device', 'cpu', '--out_dir', d + '/vs'])\n"
+        "    raise SystemExit('--synthetic ran without transformers')\n"
+        "except ImportError as e:\n"
+        "    assert 'transformers' in str(e)\n"
+        "from videoglamm_torch.utils import (profiling, profile_trace, annotate,\n"
+        "    StepTimer, device_memory_report)\n"
+        "with profile_trace(d + '/trace'):\n"
+        "    with annotate('no-jax'):\n"
+        "        torch.ones(8).sum()\n"
+        "assert 'no-jax' in open(d + '/trace/' + profiling.TRACE_FILE).read()\n"
+        "assert set(device_memory_report()[0]) == {'device', 'bytes_in_use',\n"
+        "    'peak_bytes_in_use', 'bytes_limit'}\n"
+        "from videoglamm_torch.datagen import (GCGAnnotationPipeline, StubLLM,\n"
+        "    parse_dense_caption, mask_extract, gcg_pipeline)\n"
+        "from videoglamm_torch.config import SAM2Config\n"
+        "seg = mask_extract.Sam2BoxSegmenter(build_sam2(SAM2Config.tiny(),\n"
+        "    device='cpu', dtype=torch.float32))\n"
+        "frame = np.random.RandomState(1).randint(0, 256, (40, 48, 3), np.uint8)\n"
+        "assert seg(frame, [[5, 5, 30, 25], [1, 2, 40, 38]]).shape == (2, 40, 48)\n"
+        "from videoglamm_torch.data import refer_api\n"
+        "from videoglamm_torch.data.datasets import (refer_seg, sem_seg,\n"
+        "    grounding_extra, grounded_video_qa, video_gcg_extra,\n"
+        "    ReferSegDataset, CocoPartSegDataset, ANetEntitiesGCGDataset,\n"
+        "    build_val_gcg)\n"
         "from videoglamm_torch.config import SAM1Config\n"
         "import dataclasses\n"
         "s1 = build_sam1(dataclasses.replace(SAM1Config.tiny(), with_itm=True),\n"
@@ -258,7 +295,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "    [np.zeros((24, 32, 3), np.uint8)] * 4, cfg, num_sam_frames=1)\n"
         "assert inp[2].shape == (1, 1, 128, 128, 3) and inp[3] == (24, 32)\n"
         "assert postprocess.masks_to_original_size(torch.zeros(2, 8, 8), (5, 7)).shape == (2, 5, 7)\n"
-        "assert 'transformers' not in sys.modules\n"
+        "assert sys.modules.get('transformers') is None\n"
         "if not torch.cuda.is_available():\n"
         "    try:\n"
         "        build_sam1(SAM1Config.tiny())\n"

@@ -88,6 +88,7 @@ class Phi3Config:
     num_kv_heads: int = 32
     head_dim: int = 96
     rope_theta: float = 10000.0
+    max_position_embeddings: int = 4096   # read by verify_parity's HF oracle
     rms_norm_eps: float = 1e-5
 
     @staticmethod
@@ -97,7 +98,8 @@ class Phi3Config:
     @staticmethod
     def tiny() -> "Phi3Config":
         return Phi3Config(vocab_size=512, hidden_size=64, intermediate_size=128,
-                          num_layers=2, num_heads=4, num_kv_heads=4, head_dim=16)
+                          num_layers=2, num_heads=4, num_kv_heads=4, head_dim=16,
+                          max_position_embeddings=512)
 
 
 @dataclass(frozen=True)
