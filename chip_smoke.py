@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Drive the videoglamm_torch port once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,sam1,train,cli,parity]
+    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,sam1,train,cli,parity,f32,towers]
 
 Run from the root of a checkout. `--phases` (default all, as the contract
 runs it) picks phases 3 (kernels), the experiment harnesses, 4-5 (serve and
-check), 6 (predictors), 7 (sam1), 8-10 (train), 11 (cli) and 12 (parity)
-to run; the build always runs.
+check), 6 (predictors), 7 (sam1), 8-10 (train), 11 (cli), 12 (parity), 13
+(f32) and 14 (towers) to run; the build always runs.
 Phases, each fatal on failure:
 
 1. device: needs CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off for matmuls and cuDNN;
-2. build: compiles the eight CUDA sources of videoglamm_torch/csrc (K1
+2. build: compiles the ten CUDA sources of videoglamm_torch/csrc (K1
    attention_fwd with its f32 staging pass, K2 gemm_epilogue, K4
    decode_attention_q8, K5 dequant_gemv, K6 flash_bwd, K7
-   window_attention, K8 smallwin_attention, K9 decode_fused; K1, K2, K6
+   window_attention, K8 smallwin_attention, K9 decode_fused, and the
+   full-precision f32 routes: attention_f32 for K1 and K6, gemm_f32 for
+   K2; K1, K2, K6
    and K7 over csrc/sm90_common.cuh, the Hopper helpers, K1 and K7 also
    over csrc/attn_sm90.cuh) from the checkout with one nvcc process each,
    all started together, and JIT-compiles K3 (the Triton row norm),
@@ -230,7 +232,35 @@ Phases, each fatal on failure:
    Then `Sam2BoxSegmenter` on Hiera-L at 1024 (ms a frame, launches) and
    `extract_anet_gcg_masks` over 2 seeded videos; a narrow segmenter and a
    narrow `clip_run` on the card against their CPU f32 twins; the
-   StepTimer summary and `device_memory_report()`.
+   StepTimer summary and `device_memory_report()`;
+13. f32: each full-precision f32 route against its f32 twin (TF32 off),
+   relative L2 and max-norm ratio within 1e-5, timed beside its bound, the
+   twin and SDPA / F.linear in f32: K1 "simt_f32" at the Phi-3 prefill
+   [1,32,3391,96], the training forward with LSE [2,32,3456,96] (LSE held
+   too), the Hiera globals [8,8,4096,72], the memory self-attention
+   [4,1,4096,256], CLIP [16,577,16,64] and InternVideo2 [4,1025,16,88] in
+   BSHD mode and the window mode at Hiera-L's four stages over 8 frames;
+   K2's f32 route at the 16 products of those stages; K6's f32 route at
+   [2,32,3456,96] causal and [8,8,4096,72]. Then the flagship in f32
+   through `build_inference(dtype=torch.float32)`: 2 framewise requests
+   and 1 on the video branch from raw frames, run under torch's default
+   TF32 flags: every convolution must see TF32 off and the defaults must
+   come back; launches by the bf16 formulas on the f32 routes, no staging
+   launch; finite masks. Then 3 optimizer steps of 2 micro-steps of the
+   f32 flagship through `build_training(dtype=torch.float32)` (finite,
+   falling loss; frozen leaves bit-equal; K6 f32 32 times a micro-step;
+   peak memory), and a narrow f32 model on the card against its CPU f32
+   twin within relative L2 1e-4: teacher-forced logits, mask logits, one
+   training micro-step's loss and every trainable gradient;
+14. towers: `freeze_towers=False` on a narrow model with Hiera-L's widths
+   (head dim 72) whose projectors, an InternVideo2 block, a CLIP layer, a
+   Hiera global block and a Hiera window block train: their gradients on
+   the card in bf16 and in f32 against the CPU f32 twin (K1 BSHD with its
+   recompute, the fused block's recompute, K6 at head dim 72, K3's
+   recompute); then one forward and backward through the towers of the
+   bf16 flagship (1 video, 1 row; InternVideo2 block 0, CLIP layer 0,
+   Hiera blocks 0 and 23 and the projectors train), its seconds and peak
+   memory.
 
 Prints one {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, without
@@ -472,7 +502,8 @@ class Kernels:
 
 CUDA_SOURCES = ("attention_fwd", "gemm_epilogue", "decode_attention_q8",
                 "dequant_gemv", "flash_bwd", "window_attention",
-                "smallwin_attention", "decode_fused")
+                "smallwin_attention", "decode_fused", "attention_f32",
+                "gemm_f32")
 
 
 def phase_build():
@@ -1540,6 +1571,12 @@ def read_counts() -> dict:
         "k1_route[wgmma_f32]": attention["route:wgmma_f32"],
         # the staging pass of f32 operands (K1's f32 route and K7)
         "stage_bf16": attention["stage_bf16"],
+        # the full-precision f32 routes of an f32 model: K1's "simt_f32"
+        # (every mode above), K2's and K6's f32 routes (counted again
+        # under "gemm_epilogue" and "flash_bwd")
+        "attention_fwd_f32": attention["route:simt_f32"],
+        "gemm_epilogue_f32": fused_block["gemm:simt_f32"],
+        "flash_bwd_f32": attention["flash_bwd:simt_f32"],
     }
 
 
@@ -1551,7 +1588,8 @@ K1_WGMMA = 32 + 3 + 62 + 42
 EXPECTED_TOWERS = {"attention_fwd[causal]": 32, "attention_fwd[flash]": 3,
                    "attention_fwd[bshd]": 62, "attention_fwd[window]": 42,
                    "k1_route[wgmma]": K1_WGMMA, "k1_route[wgmma_f32]": 0,
-                   "stage_bf16": 0,
+                   "stage_bf16": 0, "attention_fwd_f32": 0,
+                   "gemm_epilogue_f32": 0, "flash_bwd_f32": 0,
                    "fused_window_block": 42, "gemm_epilogue": 168,
                    "flash_bwd": 0, "attention_fwd[flash_d256]": 0,
                    "window_attention": 0, "smallwin_attention": 0,
@@ -1624,6 +1662,28 @@ EXPECTED_PER_REQUEST["llama"] = dict(
     EXPECTED_PER_REQUEST["bf16"], **{"decode_attention_q8": DECODE_Q8})
 
 
+def f32_formula(bf16: dict) -> dict:
+    """An f32 model's launches from the bf16 model's: every K1 launch on
+    the "simt_f32" route (attention_fwd_f32), none on a wgmma route and
+    nothing staged; K2 and K6 as often, each on its f32 route."""
+    out = dict(bf16)
+    out["attention_fwd_f32"] = bf16["k1_route[wgmma]"] + bf16["k1_route[wgmma_f32]"]
+    out.update({"k1_route[wgmma]": 0, "k1_route[wgmma_f32]": 0,
+                "stage_bf16": 0, "gemm_epilogue_f32": bf16["gemm_epilogue"],
+                "flash_bwd_f32": bf16["flash_bwd"]})
+    return out
+
+
+# the f32 flagship: framewise requests, and the video branch (its memory
+# self-attention on K1 "simt_f32" too, and so no staging launch at all)
+EXPECTED_PER_REQUEST["f32"] = f32_formula(EXPECTED_PER_REQUEST["bf16"])
+EXPECTED_PER_REQUEST["f32_track"] = f32_formula(dict(
+    EXPECTED_PER_REQUEST["bf16"],
+    **{"attention_fwd[flash_d256]": TRACK_SELF_ATTN,
+       "k1_route[wgmma_f32]": TRACK_SELF_ATTN, "stage_bf16": TRACK_SELF_ATTN}))
+EXPECTED_PER_MICRO_STEP_F32 = f32_formula(EXPECTED_PER_MICRO_STEP)
+
+
 def phase_serve(gi, cfg, mode: str, requests, raw: bool, track: bool = False,
                 serve_kw=None, timings_out=None):
     """Serve `requests` through the entry point with the counters set to 0
@@ -1664,7 +1724,8 @@ def phase_serve(gi, cfg, mode: str, requests, raw: bool, track: bool = False,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"  {mode}: launches over {len(requests)} requests: " + json.dumps(counts))
     log(f"  {mode}: K1 by route: wgmma {counts['k1_route[wgmma]']}, wgmma_f32 "
-        f"{counts['k1_route[wgmma_f32]']}; staging launches {counts['stage_bf16']}")
+        f"{counts['k1_route[wgmma_f32]']}, simt_f32 {counts['attention_fwd_f32']}; "
+        f"staging launches {counts['stage_bf16']}")
     expected = EXPECTED_PER_REQUEST[mode]
     for name, n in counts.items():
         per = expected.get(name)
@@ -2432,9 +2493,10 @@ def phase_small_track_reference(image_size: int):
 
 
 def make_train_batch(cfg, seed: int, device="cuda", dtype=None, rows=2,
-                     videos=2, text_lens=(S_TEXT_TRAIN, 73)):
+                     videos=2, text_lens=(S_TEXT_TRAIN, 73),
+                     t_sam=T_SAM_TRAIN):
     """One synthetic micro-batch in the shapes the data layer's collate
-    gives: `videos` clips of 16 frames (4 of them for SAM), `rows`
+    gives: `videos` clips of 16 frames (`t_sam` of them for SAM), `rows`
     conversations of S_TEXT_TRAIN ids with one image placeholder and one or
     two [SEG] tokens, labels that ignore the prompt, and binary masks at
     GT_HW with all-ignore padding for the unused [SEG] slots."""
@@ -2449,16 +2511,16 @@ def make_train_batch(cfg, seed: int, device="cuda", dtype=None, rows=2,
                         cfg.sam2.image_size)
     frames = torch.randn(videos, T, ims, ims, 3, generator=g)
     context = torch.randn(videos, T, cls_, cls_, 3, generator=g)
-    frames_sam = torch.randn(videos, T_SAM_TRAIN, sam_s, sam_s, 3, generator=g)
+    frames_sam = torch.randn(videos, t_sam, sam_s, sam_s, 3, generator=g)
     ids = torch.randint(1, 32000, (rows, S), generator=g)
     ids[:, 2] = IMAGE_TOKEN_INDEX
-    gt = torch.full((rows, cfg.max_seg_tokens, T_SAM_TRAIN, GT_HW, GT_HW),
+    gt = torch.full((rows, cfg.max_seg_tokens, t_sam, GT_HW, GT_HW),
                     float(MASK_IGNORE_INDEX))
     for r in range(rows):
         n_seg = 1 + r % 2
         for j in range(n_seg):
             ids[r, 20 + 9 * j] = cfg.seg_token_idx
-        gt[r, :n_seg] = (torch.rand(n_seg, T_SAM_TRAIN, GT_HW, GT_HW,
+        gt[r, :n_seg] = (torch.rand(n_seg, t_sam, GT_HW, GT_HW,
                                     generator=g) > 0.5).float()
     labels = ids.clone()
     labels[labels < 0] = IGNORE_INDEX
@@ -4772,8 +4834,640 @@ def phase_cli_forced_seg(seed: int, smi: str):
                              "from the threshold")
 
 
+# ---------------------------------------------------------------------------
+# f32 on the card: the full-precision f32 routes of K1, K2 and K6, the f32
+# flagship serving and training, a narrow f32 model against its CPU twin;
+# then training through the towers (freeze_towers=False)
+# ---------------------------------------------------------------------------
+TOL_F32_ROUTE = 1e-5    # relative L2, and max|d| / max(1, max|ref|), of an
+                        # f32 route against its f32 twin with TF32 off: the
+                        # same f32 products and sums, in another order; an
+                        # operand rounded to bf16 or TF32 would move it to
+                        # 1e-3
+TOL_F32_LSE = 2e-5      # K1 "simt_f32"'s LSE, max|d|: exp2 / log2 against
+                        # the twin's logsumexp of O(10) values
+TOL_F32_MODEL = 1e-4    # relative L2, a narrow f32 model on the card against
+                        # its CPU f32 twin through a few layers: logits,
+                        # masks, loss and every gradient held
+TOL_F32_POOLED = 2e-3   # the same for a Hiera block's gradients when the
+                        # loss reaches them through a 2x2 max-pooling block:
+                        # a near-tie routes the gradient to another token
+                        # when the forward moves by an ulp. On the CPU alone
+                        # a 1e-7 relative change of the SAM frames moves the
+                        # narrow towers' stage-3 block gradients by 4.4e-4;
+                        # the trunk check below holds the same
+                        # blocks at TOL_F32_MODEL with the gradient injected
+                        # above the pooling
+N_F32_REQUESTS = 2      # framewise f32 requests (then one on the video branch)
+F32_TRAIN_STEPS = 3
+F32_TRAIN_ROWS = 2      # rows (and videos) of an f32 training micro-step
+# the leaves that train in the towers phase: both projectors, one
+# InternVideo2 block, one CLIP layer, a Hiera window block and a Hiera
+# global block (narrow: `towers_config`, whose trunk is blocks 0-6 with the
+# global block 4 and the fused window block 5; flagship: Hiera-L's first
+# window block and its first global block, so the backward crosses every
+# block of each tower)
+TOWER_LEAVES_NARROW = (r"^(image_)?mm_projector\.", r"^vision_tower\.blocks\.1\.",
+                       r"^image_vision_tower\.encoder\.layers\.1\.",
+                       r"trunk\.blocks\.4\.", r"trunk\.blocks\.5\.")
+TOWER_LEAVES_FLAGSHIP = (r"^(image_)?mm_projector\.", r"^vision_tower\.blocks\.0\.",
+                         r"^image_vision_tower\.encoder\.layers\.0\.",
+                         r"trunk\.blocks\.0\.", r"trunk\.blocks\.23\.")
+
+
+def hiera_window_shapes(cfg, frames: int):
+    """(stage, [B,H,S,D] of K1's window mode, win, rows M, width C) of the
+    fused block at each Hiera stage over `frames` SAM frames, as
+    `fused_window_block` packs the windows (`window_fold`)."""
+    from videoglamm_torch.ops.fused_block import window_fold
+    h = cfg.sam2.hiera
+    side = cfg.sam2.image_size // h.patch_stride
+    out = []
+    for s in range(len(h.stages)):
+        C, H = int(h.embed_dim * h.dim_mul ** s), int(h.num_heads * h.head_mul ** s)
+        ws = h.window_spec[s]
+        NW = frames * (side // ws) ** 2
+        f = window_fold(NW, ws * ws)
+        out.append((s + 1, (NW // f, H, ws * ws * f, C // H),
+                    ws * ws if f > 1 else 0, NW * ws * ws, C))
+        side //= 2
+    return out
+
+
+def phase_f32_kernels(K: Kernels, cfg):
+    """Each full-precision f32 route against its f32 twin (TF32 off) at the
+    f32 model's path shapes: K1 "simt_f32" in every mode, K2's f32 route at
+    the 16 products of Hiera-L's four stages over 8 SAM frames, K6's f32
+    route at the training shape and at the Hiera global blocks."""
+    import torch
+    import torch.nn.functional as F
+    from videoglamm_torch.ops import attention as A
+    from videoglamm_torch.ops import fused_block as FB
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    randn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def k1(name, B, H, Sq, Sk, D, mode, causal=False, kv=None, win=0,
+           with_lse=False):
+        q, k, v = randn(B, H, Sq, D), randn(B, H, Sk, D), randn(B, H, Sk, D)
+        kvl = torch.tensor(kv or [Sk] * B, **i32)
+        qs = (kvl - Sq) if causal else torch.zeros(B, **i32)
+        out = torch.empty_like(q)
+        lse = torch.empty(B, H, Sq, device="cuda") if with_lse else None
+        scale = D ** -0.5
+
+        def kern():
+            return A.attention_fwd_kernel(
+                q, k, v, out, causal=causal, sm_scale=scale, mode=mode,
+                kv_lens=kvl, q_start=qs, win=win, lse=lse, exact=True)
+
+        if win:
+            def plain():
+                return A._attention_plain_bshd(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    scale, win).transpose(1, 2)
+            blk = torch.arange(Sq, device="cuda") // win
+            mask = blk[:, None] == blk[None, :]
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            pairs = B * Sq * win
+        else:
+            def plain():
+                return A._flash_fwd_plain(q, k, v, kvl, qs, causal, scale)[0]
+            lib = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=causal)
+            pairs = attended_pairs(Sq, Sk, kvl.tolist(), qs.tolist(), causal)
+        nbytes = 4 * B * H * D * (2 * Sq + 2 * Sk) + (4 * B * H * Sq if with_lse else 0)
+        K.compare(f"attention_fwd_f32@{name}",
+                  f"K1 simt_f32 {name} [{B},{H},{Sq},{D}] over Sk={Sk}"
+                  f"{' causal' if causal else ''}{f' win={win}' if win else ''}",
+                  kern, plain, TOL_F32_ROUTE, nbytes=nbytes,
+                  ops=4 * D * H * pairs, rate="f32", library_fn=lib,
+                  tol_l2=TOL_F32_ROUTE)
+        if with_lse:
+            kern()
+            _, ref = A._flash_fwd_plain(q, k, v, kvl, qs, causal, scale)
+            torch.cuda.synchronize()
+            err = (lse - ref).abs().max().item()
+            log(f"  K1 simt_f32 {name}: LSE max|d| {err:.3e} (tol {TOL_F32_LSE:g})")
+            if not err <= TOL_F32_LSE:
+                raise AssertionError(f"K1 simt_f32 {name}: LSE disagrees")
+
+    T = T_SAM
+    k1("causal Phi-3 prefill", 1, 32, 3391, 3391, 96, "causal", causal=True)
+    k1("causal train LSE", 2, 32, 3456, 3456, 96, "causal", causal=True,
+       kv=[3456, 3300], with_lse=True)
+    k1("flash Hiera global", T, 8, 4096, 4096, 72, "flash")
+    k1("flash_d256 memory self-attention", 4, 1, 4096, 4096, 256, "flash_d256")
+    k1("bshd CLIP", 16, 16, 577, 577, 64, "bshd")
+    k1("bshd InternVideo2", 4, 16, 1025, 1025, 88, "bshd")
+    for stage, (B, H, S, D), win, _, _ in hiera_window_shapes(cfg, T):
+        k1(f"window Hiera stage {stage}", B, H, S, S, D, "window", win=win)
+    torch.cuda.empty_cache()
+
+    # K2's f32 route at the four products of each Hiera-L stage
+    for stage, _, _, M, C in hiera_window_shapes(cfg, T):
+        a = randn(M, C)
+        for prod, (N, Kd, gelu, res) in (("qkv", (3 * C, C, False, False)),
+                                         ("proj", (C, C, False, True)),
+                                         ("fc1", (4 * C, C, True, False)),
+                                         ("fc2", (C, 4 * C, False, True))):
+            x = a if Kd == C else randn(M, Kd)
+            w, b = randn(N, Kd) * Kd ** -0.5, 0.1 * randn(N)
+            r = randn(M, N) if res else None
+            K.compare(f"gemm_epilogue_f32@stage {stage} {prod}",
+                      f"K2 f32 Hiera stage {stage} {prod} [{M},{Kd}] x [{N},{Kd}]"
+                      f"{' + GELU' if gelu else ''}{' + residual' if res else ''}",
+                      lambda: FB.gemm_epilogue(x, w, b, gelu=gelu, residual=r),
+                      lambda: FB._gemm_plain(x, w, b, gelu=gelu, residual=r),
+                      TOL_F32_ROUTE,
+                      nbytes=4 * (M * Kd + N * Kd + N + M * N * (2 if res else 1)),
+                      ops=2 * M * N * Kd, rate="f32",
+                      library_fn=lambda: F.linear(x, w, b), tol_l2=TOL_F32_ROUTE)
+            del x, w, b, r
+        del a
+        torch.cuda.empty_cache()
+
+    # K6's f32 route
+    for name, (B, H, S, D), causal, kv in (
+            ("train causal", (2, 32, 3456, 96), True, [3456, 3300]),
+            ("Hiera global", (2 * T_SAM_TRAIN, 8, 4096, 72), False, None)):
+        q, k, v, do = (randn(B, H, S, D) for _ in range(4))
+        kvl = torch.tensor(kv or [S] * B, **i32)
+        qs = (kvl - S) if causal else torch.zeros(B, **i32)
+        scale = D ** -0.5
+        out, lse = A._flash_fwd_plain(q, k, v, kvl, qs, causal, scale)
+        bwd = lambda: A.flash_bwd_kernel(q, k, v, out, lse, do, causal=causal,
+                                         sm_scale=scale, kv_lens=kvl, q_start=qs)
+        plain = lambda: A._flash_bwd_plain(q, k, v, out, lse, do, kvl, qs,
+                                           causal, scale)
+        got, want = bwd(), plain()
+        torch.cuda.synchronize()
+        rels = [rel_l2(a, b) for a, b in zip(got, want)]
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        del got, want
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+        def lib_fb():
+            o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+            return torch.autograd.grad(o, (ql, kl, vl), do)
+
+        def lib_f():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+
+        ms, plain_ms = time_ms(bwd), time_ms(plain, reps=3, warmup=1)
+        library_ms = time_ms(lib_fb) - time_ms(lib_f)
+        pairs = attended_pairs(S, S, kvl.tolist(), qs.tolist(), causal)
+        ops = 5 * 2 * D * pairs * H
+        nbytes = 4 * B * H * D * 8 * S + 2 * 4 * B * H * S
+        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / PEAK_OPS["f32"] * 1e3
+        ok = max(rels) <= TOL_F32_ROUTE and max(e[1] for e in errs) <= TOL_F32_ROUTE
+        log(f"  K6 f32 {name} [{B},{H},{S},{D}]{' causal' if causal else ''}: "
+            f"rel L2 dq={rels[0]:.3e} dk={rels[1]:.3e} dv={rels[2]:.3e} (tol "
+            f"{TOL_F32_ROUTE:g}) max_abs_err={max(e[0] for e in errs):.3e} "
+            f"kernel={ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s) plain="
+            f"{plain_ms:.4f} ms library={library_ms:.4f} ms (SDPA f32 forward"
+            f"+backward less forward) bound={max(t_bytes, t_ops):.4f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
+            f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            raise AssertionError(f"K6 f32 {name}: disagrees with its plain twin")
+        K.rows[f"flash_bwd_f32@{name}"] = dict(
+            max_abs_err=max(e[0] for e in errs), ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=library_ms)
+        del q, k, v, do, out, lse, ql, kl, vl
+        torch.cuda.empty_cache()
+
+
+def _tf32_spy():
+    """Record cuDNN's and cuBLAS's TF32 flags at every convolution call
+    (F.conv2d, F.conv3d, F.conv_transpose2d, which the modules call);
+    returns (the records, a function that removes the spy)."""
+    import torch.nn.functional as F
+    import torch
+    seen, saved = [], {}
+    for name in ("conv2d", "conv3d", "conv_transpose2d"):
+        fn = saved[name] = getattr(F, name)
+
+        def spy(*a, _fn=fn, **kw):
+            seen.append((torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32))
+            return _fn(*a, **kw)
+        setattr(F, name, spy)
+
+    def remove():
+        for name, fn in saved.items():
+            setattr(F, name, fn)
+    return seen, remove
+
+
+def phase_f32_serve(cfg):
+    """The flagship in f32 through `build_inference(dtype=torch.float32)`:
+    N_F32_REQUESTS framewise requests and one on the video branch, from
+    raw frames, under torch's default TF32 flags (cuDNN on, cuBLAS off):
+    every convolution must run with both off (the model's
+    `full_precision`), and the defaults come back after. Returns the
+    launch counts of the framewise and the video-branch runs."""
+    import torch
+    from videoglamm_torch.inference.pipeline import build_inference
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gi = build_inference(
+        cfg, device="cuda", dtype=torch.float32, max_new_tokens=MAX_NEW,
+        init=lambda m: seeded_init(
+            m, torch.Generator(device="cuda").manual_seed(0)))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in gi.model.parameters())
+    log(f"  flagship VideoGLaMM in f32: {n / 1e9:.3f} B parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
+        f"exact_f32={gi.model.exact_f32}")
+    if not gi.model.exact_f32:
+        raise AssertionError("f32: build_inference did not mark the model f32")
+    raw = [make_raw_request(cfg, 300 + i) for i in range(N_F32_REQUESTS)]
+    script_flags = (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True       # torch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seen, remove = _tf32_spy()
+    try:
+        results, counts = phase_serve(gi, cfg, "f32", raw, raw=True)
+        check_outputs(cfg, results, "f32")
+        del results
+        results, track_counts = phase_serve(gi, cfg, "f32_track", raw[:1],
+                                            raw=True, track=True)
+        check_outputs(cfg, results, "f32 video branch", t_sam=cfg.num_frames)
+        after = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        remove()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+            script_flags
+    tf32 = sum(1 for c, m in seen if c or m)
+    log(f"  f32: {len(seen)} convolution calls while serving, {tf32} of them "
+        f"with TF32 allowed; flags after the requests: cuDNN {after[0]}, "
+        f"cuBLAS {after[1]} (torch's defaults: True, False)")
+    if not seen or tf32 or after != (True, False):
+        raise AssertionError("f32: the model did not keep its convolutions "
+                             "and products out of TF32, or left the flags changed")
+    for what, c in (("framewise", counts), ("video branch", track_counts)):
+        if c["stage_bf16"] or c["k1_route[wgmma]"] or c["k1_route[wgmma_f32]"]:
+            raise AssertionError(f"f32 {what}: a launch left the f32 routes {c}")
+    del gi, results
+    torch.cuda.empty_cache()
+    return counts, track_counts
+
+
+def phase_f32_train(cfg, seed: int):
+    """F32_TRAIN_STEPS optimizer steps of GRAD_ACCUM micro-steps of the f32
+    flagship through `build_training(dtype=torch.float32)`: finite, falling
+    loss, frozen leaves bit-equal, launches by the bf16 formula on the f32
+    routes, peak memory. Returns the launch counts."""
+    import torch
+    from videoglamm_torch.config import TrainConfig
+    from videoglamm_torch.training import build_training
+
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                       grad_accum_steps=GRAD_ACCUM)
+    t0 = time.perf_counter()
+    tr = build_training(
+        cfg, tcfg, device="cuda", dtype=torch.float32,
+        init=lambda m: seeded_init(
+            m, torch.Generator(device="cuda").manual_seed(0)))
+    torch.cuda.synchronize()
+    params = tr.state.params
+    trainable = set(tr.tx.trainable)
+    log(f"  flagship VideoGLaMM for training in f32: built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    micro = [make_train_batch(cfg, seed + i, dtype=torch.float32,
+                              rows=F32_TRAIN_ROWS, videos=F32_TRAIN_ROWS)
+             for i in range(GRAD_ACCUM)]
+    batch = {k: torch.stack([m[k] for m in micro]) for k in micro[0]}
+    del micro
+    t0 = time.perf_counter()
+    frozen0 = {n: p.detach().cpu() for n, p in params.items()
+               if n not in trainable}
+    log(f"  copy of the {len(frozen0)} frozen leaves on the host: "
+        f"{time.perf_counter() - t0:.1f} s")
+    state = tr.state
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for i in range(F32_TRAIN_STEPS):
+        timings = {}
+        t0 = time.perf_counter()
+        state, metrics = tr.train_step(state, batch, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m["loss"])
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"f32 train step {i}: non-finite loss {m}")
+        log(f"  f32 train step {i}: wall {wall:.3f} s, "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+            + ", " + ", ".join(f"{k} {v:.5f}" for k, v in m.items()))
+    counts = read_counts()
+    log(f"  f32 train: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB at micro-batch "
+        f"{F32_TRAIN_ROWS} videos x {F32_TRAIN_ROWS} rows")
+    log(f"  f32 train: launches over {F32_TRAIN_STEPS} optimizer steps: "
+        + json.dumps(counts))
+    n_micro = F32_TRAIN_STEPS * GRAD_ACCUM
+    for name, n in counts.items():
+        per = EXPECTED_PER_MICRO_STEP_F32.get(name)
+        if per is None:
+            if n == 0:
+                raise AssertionError(f"{name} was never launched on the f32 "
+                                     "training path")
+        elif n != per * n_micro:
+            raise AssertionError(f"{name}: {n} launches on the f32 training "
+                                 f"path, expected {per} per micro-step x {n_micro}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"f32 train: the loss did not fall: {losses}")
+    changed = [n for n, ref in frozen0.items()
+               if not torch.equal(params[n].detach().cpu(), ref)]
+    if changed:
+        raise AssertionError(f"f32 train: frozen parameters changed: {changed[:4]}")
+    log(f"  f32 train: losses {', '.join(f'{x:.5f}' for x in losses)}: last "
+        "below first; all frozen leaves bit-equal to their start")
+    del tr, state, params, frozen0, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def hold_grads(what, got, want, names, tol_leaf, tol_all):
+    """The gradients `got` (card) against `want` (CPU) of the named leaves:
+    all together and leaf by leaf by relative L2 (a leaf whose gradient is
+    below 1e-4 of the total, a softmax's key bias, holds rounding on both
+    sides and counts in the total only)."""
+    d2s = w2s = 0.0
+    leaves = []
+    for n in names:
+        w = want[n]
+        a = got[n]
+        if w is None:
+            if a is not None and bool(a.abs().max() > 0):
+                raise AssertionError(f"{what}: {n} has a gradient on the card only")
+            continue
+        a = (a.float().cpu() if a is not None else w * 0)
+        d2, w2 = float((a - w).norm()) ** 2, float(w.norm()) ** 2
+        d2s, w2s = d2s + d2, w2s + w2
+        leaves.append((d2, w2, n))
+    rel_all = (d2s / w2s) ** 0.5
+    scored = sorted((((d2 / w2) ** 0.5, n) for d2, w2, n in leaves
+                     if w2 ** 0.5 > 1e-4 * w2s ** 0.5), reverse=True)
+    log(f"  {what}: {len(leaves)} leaves, all together rel L2 {rel_all:.3e} "
+        f"(tol {tol_all:g}); the worst leaves (tol {tol_leaf:g}): "
+        + ", ".join(f"{n} {r:.3e}" for r, n in scored[:3]))
+    if not (rel_all <= tol_all and scored and scored[0][0] <= tol_leaf):
+        raise AssertionError(f"{what}: gradients on the card disagree with "
+                             "the CPU reference")
+
+
+def phase_f32_small(seed: int):
+    """A narrow f32 model (`small_config`) on the card against the same
+    weights in f32 on the CPU: teacher-forced logits and mask logits, then
+    one training micro-step's loss and every trainable leaf's gradient."""
+    import torch
+    from videoglamm_torch.config import LoRAConfig, TrainConfig
+    from videoglamm_torch.constants import IMAGE_TOKEN_INDEX
+    from videoglamm_torch.inference.pipeline import build_inference
+    from videoglamm_torch.models.multimodal import splice_visual_prefix
+    from videoglamm_torch.models.videoglamm import SegExtraction
+    from videoglamm_torch.training import build_training
+
+    cfg = small_config()
+    f32 = torch.float32
+    ref = build_inference(cfg, device="cpu", dtype=f32, init=lambda m: seeded_init(
+        m, torch.Generator().manual_seed(3))).model
+    dev = build_inference(cfg, ref.state_dict(), device="cuda", dtype=f32).model
+    g = torch.Generator().manual_seed(seed + 11)
+    T = cfg.num_frames
+    frames = torch.randn(1, T, 224, 224, 3, generator=g)
+    context = torch.randn(1, T, 336, 336, 3, generator=g)
+    sam = torch.randn(1, 1, 1024, 1024, 3, generator=g)
+    n_forced = 16
+    ids = torch.randint(1, 32000, (1, S_TEXT + n_forced), generator=g)
+    ids[:, 2] = IMAGE_TOKEN_INDEX
+    lens = torch.tensor([S_TEXT + n_forced])
+    seg = SegExtraction(torch.randn(1, cfg.max_seg_tokens, cfg.out_dim, generator=g),
+                        torch.ones(1, cfg.max_seg_tokens, dtype=torch.bool),
+                        torch.arange(cfg.max_seg_tokens)[None])
+
+    def run(model, device):
+        on = lambda t: t.to(device)
+        visual = model.encode_visual_prefix(on(frames), on(context))
+        sp = splice_visual_prefix(model.llm.embed(on(ids)), on(ids), visual,
+                                  on(lens))
+        logits, _, _ = model.llm(sp.embeds, sp.positions, sp.attn_lens)
+        feats, _ = model.encode_sam_features(on(sam))
+        masks = model.decode_masks(feats, SegExtraction(*map(on, seg)),
+                                   torch.arange(1, device=device))
+        return dict(teacher_forced_logits=logits, masks=masks)
+
+    with torch.no_grad():
+        want = run(ref, "cpu")
+        reset_counts()
+        got = run(dev, "cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+    for k, w in want.items():
+        rel = rel_l2(got[k].cpu(), w)
+        log(f"  narrow f32 model, {k} {tuple(w.shape)}: card f32 vs CPU f32 "
+            f"rel L2 {rel:.3e} (tol {TOL_F32_MODEL:g})")
+        if not rel <= TOL_F32_MODEL:
+            raise AssertionError(f"narrow f32 model {k}: the card disagrees")
+    if not (counts["attention_fwd_f32"] and counts["gemm_epilogue_f32"]) \
+            or counts["stage_bf16"] or counts["k1_route[wgmma]"]:
+        raise AssertionError(f"narrow f32 model: launches {counts}")
+    del ref, dev, got, want
+
+    tcfg = TrainConfig(warmup_steps=0, grad_accum_steps=1, lora=LoRAConfig(r=4))
+    ref = build_training(cfg, tcfg, device="cpu", dtype=f32,
+                         init=lambda m: seeded_init(
+                             m, torch.Generator().manual_seed(5)))
+    dev = build_training(cfg, tcfg, ref.model.state_dict(), device="cuda",
+                         dtype=f32)
+    batch = make_train_batch(cfg, seed, device="cpu", dtype=f32, rows=1,
+                             videos=1, t_sam=1)
+    out_ref = ref.model(**batch)
+    out_ref.loss.backward()
+    reset_counts()
+    out = dev.model(**{k: v.cuda() for k, v in batch.items()})
+    out.loss.backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    L = cfg.llm.num_layers
+    if counts["flash_bwd_f32"] != L or counts["attention_fwd[causal]"] != 2 * L \
+            or counts["stage_bf16"]:
+        raise AssertionError(f"narrow f32 model (training): launches {counts}")
+    a, w = float(out.loss.detach()), float(out_ref.loss.detach())
+    rel = abs(a - w) / abs(w)
+    log(f"  narrow f32 model (training): loss card {a:.7f} vs CPU {w:.7f} rel "
+        f"{rel:.3e} (tol {TOL_F32_MODEL:g})")
+    if not rel <= TOL_F32_MODEL:
+        raise AssertionError("narrow f32 model (training): the loss disagrees")
+    hold_grads("narrow f32 model (training), trainable gradients",
+               {n: p.grad for n, p in dev.model.named_parameters()},
+               {n: p.grad for n, p in ref.model.named_parameters()},
+               ref.tx.trainable, TOL_F32_MODEL, TOL_F32_MODEL)
+
+
+def towers_config():
+    """small_config()'s narrow LLM, CLIP and InternVideo2 (head dims 64 and
+    88) with a shallow Hiera at Hiera-L's widths (144 to 1152, head dim 72):
+    blocks 0-1 windowed (64 tokens, fused), 2 and 3 pooling, 4 global
+    (4096 tokens at 1024: K1 flash and K6), 5 windowed (256 tokens, fused),
+    6 pooling."""
+    from videoglamm_torch.config import HieraConfig
+    cfg = small_config()
+    return dataclasses.replace(cfg, sam2=dataclasses.replace(
+        cfg.sam2, hiera=HieraConfig(embed_dim=144, num_heads=2,
+                                    stages=(2, 1, 3, 1),
+                                    global_att_blocks=(4,))))
+
+
+def trunk_grads(model, x, dy) -> dict:
+    """Gradients of Hiera blocks 4 and 5 (`towers_config`) for the trunk
+    alone on frame x, with `dy` injected at the stage-3 output."""
+    import torch
+    trunk = model.visual_model.image_encoder.trunk
+    named = {n: p for n, p in trunk.named_parameters()
+             if n.startswith(("blocks.4.", "blocks.5."))}
+    for p in named.values():
+        p.requires_grad_(True)
+    out = trunk(x)[2]
+    return dict(zip(named, torch.autograd.grad(out, list(named.values()), dy)))
+
+
+def _tower_step(tr, batch, patterns):
+    """One forward with freeze_towers=False and one backward with the
+    leaves matching `patterns` (and the trainable set) asking for a
+    gradient; returns the tower leaves' names and the model's gradients."""
+    import re
+    rx = re.compile("|".join(patterns))
+    names = [n for n, p in tr.model.named_parameters() if rx.search(n)]
+    for n, p in tr.model.named_parameters():
+        p.requires_grad_(n in names or n in tr.tx.trainable)
+        p.grad = None
+    out = tr.model(**batch, freeze_towers=False)
+    out.loss.backward()
+    return names, {n: p.grad for n, p in tr.model.named_parameters()}, out
+
+
+def phase_towers(cfg, seed: int):
+    """freeze_towers=False. A narrow model (`towers_config`) whose
+    projectors, an InternVideo2 block, a CLIP layer, a Hiera global block
+    and a Hiera window block train: their gradients on the card in bf16
+    and in f32 against the CPU f32 twin. Then one backward through the
+    towers of the bf16 flagship, timed, with its peak memory. Returns the
+    flagship backward's launch counts."""
+    import re
+    import torch
+    from videoglamm_torch.config import LoRAConfig, TrainConfig
+    from videoglamm_torch.training import build_training
+
+    ncfg = towers_config()
+    tcfg = TrainConfig(warmup_steps=0, grad_accum_steps=1, lora=LoRAConfig(r=4))
+    ref = build_training(ncfg, tcfg, device="cpu", dtype=torch.float32,
+                         init=lambda m: seeded_init(
+                             m, torch.Generator().manual_seed(6)))
+    batch = make_train_batch(ncfg, seed, device="cpu", dtype=torch.float32,
+                             rows=1, videos=1, t_sam=1)
+    t0 = time.perf_counter()
+    names, want, _ = _tower_step(ref, batch, TOWER_LEAVES_NARROW)
+    g = torch.Generator().manual_seed(seed + 7)
+    S = ncfg.sam2.image_size
+    trunk_x = torch.randn(1, S, S, 3, generator=g)
+    trunk_dy = torch.randn(1, S // 16, S // 16, 4 * ncfg.sam2.hiera.embed_dim,
+                           generator=g)
+    want_t = trunk_grads(ref.model, trunk_x, trunk_dy)
+    log(f"  narrow towers: {len(names)} tower leaves train; CPU f32 forward "
+        f"and backward {time.perf_counter() - t0:.1f} s")
+    L = ncfg.llm.num_layers
+    for dtype, tol_leaf, tol_all in ((torch.bfloat16, TOL_TRAIN_GRAD,
+                                      TOL_TRAIN_GRAD_ALL),
+                                     (torch.float32, TOL_F32_MODEL, TOL_F32_MODEL)):
+        dev = build_training(ncfg, tcfg, ref.model.state_dict(), device="cuda",
+                             dtype=dtype)
+        db = {k: (v.to(dtype) if v.is_floating_point() and k != "gt_masks"
+                  else v).cuda() for k, v in batch.items()}
+        reset_counts()
+        _, got, _ = _tower_step(dev, db, TOWER_LEAVES_NARROW)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        f32 = dtype == torch.float32
+        # the LLM's causal layers and the Hiera global block take K6, the
+        # fused window blocks run forward on the kernels (their backward is
+        # the recompute through the twin)
+        if counts["flash_bwd"] != L + 1 or counts["fused_window_block"] != 3 \
+                or counts["attention_fwd[bshd]"] == 0 \
+                or bool(counts["flash_bwd_f32"]) != f32 \
+                or bool(counts["attention_fwd_f32"]) != f32 or counts["stage_bf16"]:
+            raise AssertionError(f"narrow towers ({dtype}): launches {counts}")
+        for pat in TOWER_LEAVES_NARROW:
+            pooled = f32 and "trunk" in pat
+            hold_grads(f"narrow towers, card {'f32' if f32 else 'bf16'} vs CPU "
+                       f"f32, gradients of {pat}", got, want,
+                       [n for n in names if re.search(pat, n)],
+                       TOL_F32_POOLED if pooled else tol_leaf,
+                       TOL_F32_POOLED if pooled else tol_all)
+        # the trunk alone: the same frame, one fixed gradient injected at
+        # the stage-3 output, which no pooling follows: the global block
+        # (K1 flash and K6 at head dim 72) and the fused window block (its
+        # recompute) against the CPU twin
+        reset_counts()
+        got_t = trunk_grads(dev.model, trunk_x.cuda().to(dtype),
+                            trunk_dy.cuda().to(dtype))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts["flash_bwd"] != 1 or counts["fused_window_block"] != 3:
+            raise AssertionError(f"trunk ({dtype}): launches {counts}")
+        hold_grads(f"Hiera trunk alone, card {'f32' if f32 else 'bf16'} vs CPU "
+                   "f32, blocks 4 and 5 from the stage-3 output", got_t,
+                   want_t, list(want_t), tol_leaf, tol_all)
+        del dev, got, got_t
+        torch.cuda.empty_cache()
+    del ref, want, want_t
+
+    # the flagship, bf16: one backward through the towers
+    tr = build_training(cfg, tcfg, device="cuda", dtype=torch.bfloat16,
+                        init=lambda m: seeded_init(
+                            m, torch.Generator(device="cuda").manual_seed(0)))
+    fb = make_train_batch(cfg, seed, rows=1, videos=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    names, grads, out = _tower_step(tr, fb, TOWER_LEAVES_FLAGSHIP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    missing = [n for n in names if grads[n] is None
+               or not bool(torch.isfinite(grads[n]).all())]
+    log(f"  flagship bf16, freeze_towers=False, {len(names)} tower leaves "
+        f"training (InternVideo2 block 0, CLIP layer 0, Hiera blocks 0 and 23, "
+        f"both projectors), 1 video x 1 row: forward and backward {wall:.2f} s, "
+        f"peak device memory {peak:.2f} GiB, loss {float(out.loss.detach()):.4f}; "
+        f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    Lf = cfg.llm.num_layers
+    if missing or counts["flash_bwd"] != Lf + 3 or counts["fused_window_block"] != 42:
+        raise AssertionError(f"flagship towers backward: leaves without a finite "
+                             f"gradient {missing[:4]}, launches {counts}")
+    del tr, grads, out, fb
+    torch.cuda.empty_cache()
+    return counts
+
+
 PHASES = ("kernels", "experiments", "serve", "predictors", "sam1", "train",
-          "cli", "parity")
+          "cli", "parity", "f32", "towers")
 SOURCES = {
     "attention_fwd": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
     "gemm_epilogue": ("cuda", "videoglamm_torch/csrc/gemm_epilogue.cu"),
@@ -4789,6 +5483,10 @@ SOURCES = {
     "flash_bshd": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
     # the staging pass of the f32 routes, in K1's source
     "stage_bf16": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
+    # the full-precision f32 routes of an f32 model
+    "attention_fwd_f32": ("cuda", "videoglamm_torch/csrc/attention_f32.cu"),
+    "gemm_epilogue_f32": ("cuda", "videoglamm_torch/csrc/gemm_f32.cu"),
+    "flash_bwd_f32": ("cuda", "videoglamm_torch/csrc/attention_f32.cu"),
 }
 REPLACES = {
     "attention_fwd[causal]": "videoglamm_tpu/ops/attention.py:93",
@@ -4813,6 +5511,12 @@ REPLACES = {
     "flash_bshd": "scripts/bench_flash_bshd.py:61",
     # part of K1's f32 route: the TPU kernel reads f32 operands itself
     "stage_bf16": "videoglamm_tpu/ops/attention.py:93",
+    # the TPU kernels read f32 operands themselves: K1's, K2's and K6's f32
+    # routes take their place in an f32 model (K1's also that of
+    # `_bshd_kernel`, attention.py:738)
+    "attention_fwd_f32": "videoglamm_tpu/ops/attention.py:93",
+    "gemm_epilogue_f32": "videoglamm_tpu/ops/fused_block.py:108",
+    "flash_bwd_f32": "videoglamm_tpu/ops/attention.py:302",
 }
 
 
@@ -5033,6 +5737,30 @@ def main() -> int:
                   "segmenter on Hiera-L; narrow references; memory report")
             parity_counts = phase_parity(cfg, args.seed, smi, ckpt)
             torch.cuda.empty_cache()
+
+        if "f32" in chosen:
+            phase("[f32] the full-precision f32 routes (K1 simt_f32, K2 f32, K6 "
+                  "f32) against their f32 twins at the f32 model's path shapes")
+            phase_f32_kernels(K, cfg)
+            torch.cuda.empty_cache()
+            phase(f"[f32] the flagship in f32: {N_F32_REQUESTS} framewise requests "
+                  "and 1 on the video branch from raw frames, under torch's "
+                  "default TF32 flags")
+            f32_counts, f32_track_counts = phase_f32_serve(cfg)
+            phase(f"[f32] the flagship training in f32: {F32_TRAIN_STEPS} "
+                  f"optimizer steps of {GRAD_ACCUM} micro-steps")
+            f32_train_counts = phase_f32_train(cfg, args.seed)
+            phase("[check] narrow f32 model on the card against its CPU f32 "
+                  "twin: teacher-forced logits, masks, one training micro-step")
+            phase_f32_small(args.seed)
+            torch.cuda.empty_cache()
+
+        if "towers" in chosen:
+            phase("[towers] freeze_towers=False: narrow tower gradients in bf16 "
+                  "and f32 against the CPU f32 twin, then one backward through "
+                  "the bf16 flagship's towers")
+            towers_counts = phase_towers(cfg, args.seed)
+            torch.cuda.empty_cache()
     except Exception:
         traceback.print_exc()
         log("FAIL")
@@ -5084,6 +5812,19 @@ def main() -> int:
         serve_cli_counts = {}
     if "parity" not in chosen:
         parity_counts = {}
+    # the f32 routes' launches: K1's and K2's from the f32 flagship's
+    # framewise run (2 requests), K6's from its training run (3 optimizer
+    # steps of 2 micro-steps); launches_f32 / launches_f32_track /
+    # launches_f32_train stand beside every kernel, and launches_towers: the
+    # bf16 flagship's one forward and backward through the towers
+    if "f32" in chosen:
+        counts["attention_fwd_f32"] = f32_counts["attention_fwd_f32"]
+        counts["gemm_epilogue_f32"] = f32_counts["gemm_epilogue_f32"]
+        counts["flash_bwd_f32"] = f32_train_counts["flash_bwd_f32"]
+    else:
+        f32_counts = f32_track_counts = f32_train_counts = {}
+    if "towers" not in chosen:
+        towers_counts = {}
     if "experiments" in chosen:
         for key in experiment_counts:
             if key.startswith("decode_fused") or key == "flash_bshd":
@@ -5101,7 +5842,11 @@ def main() -> int:
                             launches_predictors=pred_counts.get(counter),
                             launches_sam1=sam1_counts.get(counter),
                             launches_cli=serve_cli_counts.get(counter),
-                            launches_parity=parity_counts.get(counter), **row))
+                            launches_parity=parity_counts.get(counter),
+                            launches_f32=f32_counts.get(counter),
+                            launches_f32_track=f32_track_counts.get(counter),
+                            launches_f32_train=f32_train_counts.get(counter),
+                            launches_towers=towers_counts.get(counter), **row))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     result = {"ok": True, "device": {

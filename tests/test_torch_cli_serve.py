@@ -518,12 +518,19 @@ def test_a_model_fault_propagates(data, tmp_path, monkeypatch, case):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_f32_on_the_card_raises_at_start_up(data, tmp_path, monkeypatch, case):
+    """f32 serves on the card, but not with quantised weights (K5) or the
+    int8 cache (K4): those raise before the tokenizer or the weights
+    load."""
     mod, argv = CASES[case]
     called = []
     monkeypatch.setattr(mod, "load_tokenizer", lambda p: called.append(p))
-    with pytest.raises(NotImplementedError, match="K2"):
-        mod.main(["--checkpoint", "x", "--precision", "f32", "--device",
-                  "cuda"] + argv(data["root"], str(tmp_path / "out")))
+    for flags, kernel in ((["--quant", "int8"], "K5"),
+                          (["--quant", "int4"], "K5"),
+                          (["--kv_cache", "int8"], "K4")):
+        with pytest.raises(NotImplementedError, match=kernel):
+            mod.main(["--checkpoint", "x", "--precision", "f32", "--device",
+                      "cuda", *flags]
+                     + argv(data["root"], str(tmp_path / "out")))
     assert not called
 
 

@@ -1775,3 +1775,136 @@ def test_step_timer_waits_for_a_cuda_tensor(dev):
     dt = t.stop(a)
     assert end.query()           # the work had finished when stop returned
     assert dt * 1e3 >= start.elapsed_time(end) * 0.99
+
+
+# ---------------------------------------------------------------------------
+# the full-precision f32 routes (K1 "simt_f32", K2 and K6 in f32) against
+# their f32 twins with TF32 off: the same f32 products summed in another
+# order, so relative L2 within 1e-5 (1e-7 to 2e-6 measured at the path
+# shapes; a bf16 or TF32 rounding of an operand gives 1e-3)
+# ---------------------------------------------------------------------------
+TOL_F32 = 1e-5
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,kv,win", [
+    (2, 3, 300, 300, 96, True, (300, 250), 0),     # causal, kv_lens, LSE
+    (1, 2, 100, 260, 72, True, (200,), 0),         # a longer cache
+    (2, 2, 400, 400, 72, False, None, 0),          # flash (Hiera globals)
+    (2, 1, 300, 300, 256, False, None, 0),         # flash_d256
+    (3, 4, 256, 256, 64, False, None, 16),         # a window of 16 tokens
+    (2, 2, 192, 192, 88, False, None, 64)])        # a window of 64 tokens
+def test_k1_f32_route_matches_plain(dev, B, H, Sq, Sk, D, causal, kv, win):
+    rng = np.random.default_rng(41)
+    q, k, v = (_randn(rng, (B, H, S, D), dev, dtype=torch.float32)
+               for S in (Sq, Sk, Sk))
+    kvl = torch.tensor(kv or (Sk,) * B, dtype=torch.int32, device=dev)
+    qs = (kvl - Sq) if causal else torch.zeros(B, dtype=torch.int32, device=dev)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, device=dev)
+    before = attn.LAUNCHES["route:simt_f32"], attn.LAUNCHES["stage_bf16"]
+    attn.attention_fwd_kernel(q, k, v, out, causal=causal, sm_scale=D ** -0.5,
+                              mode="test", kv_lens=kvl, q_start=qs, win=win,
+                              lse=lse, exact=True)
+    assert (attn.LAUNCHES["route:simt_f32"], attn.LAUNCHES["stage_bf16"]) == \
+        (before[0] + 1, before[1])
+    if win:
+        ref = attn._attention_plain_bshd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), D ** -0.5,
+            win).transpose(1, 2)
+    else:
+        ref, ref_lse = attn._flash_fwd_plain(q, k, v, kvl, qs, causal, D ** -0.5)
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=2e-5)
+    _close_l2(out, ref, TOL_F32, f"K1 simt_f32 {(B, H, Sq, Sk, D, win)}")
+
+
+@pytest.mark.parametrize("M,K,N,gelu,res", [(300, 144, 432, False, False),
+                                            (260, 144, 576, True, False),
+                                            (130, 576, 144, False, True),
+                                            (64, 1152, 4608, True, True)])
+def test_k2_f32_route_matches_plain(dev, M, K, N, gelu, res):
+    rng = np.random.default_rng(42)
+    a = _randn(rng, (M, K), dev, dtype=torch.float32)
+    w = _randn(rng, (N, K), dev, K ** -0.5, torch.float32)
+    b = _randn(rng, (N,), dev, 0.1, torch.float32)
+    r = _randn(rng, (M, N), dev, dtype=torch.float32) if res else None
+    before = fb.LAUNCHES["gemm:simt_f32"]
+    got = fb.gemm_epilogue(a, w, b, gelu=gelu, residual=r)
+    assert fb.LAUNCHES["gemm:simt_f32"] == before + 1
+    _close_l2(got, fb._gemm_plain(a, w, b, gelu=gelu, residual=r), TOL_F32,
+              f"K2 f32 {(M, K, N)}")
+
+
+@pytest.mark.parametrize("B,H,S,D,causal,kv", [(2, 3, 300, 96, True, (300, 250)),
+                                               (2, 2, 333, 72, False, None),
+                                               (1, 2, 130, 40, True, (120,))])
+def test_k6_f32_route_matches_plain(dev, B, H, S, D, causal, kv):
+    rng = np.random.default_rng(43)
+    q, k, v, g = (_randn(rng, (B, H, S, D), dev, dtype=torch.float32)
+                  for _ in range(4))
+    kvl = torch.tensor(kv or (S,) * B, dtype=torch.int32, device=dev)
+    qs = (kvl - S) if causal else torch.zeros(B, dtype=torch.int32, device=dev)
+    out, lse = attn._flash_fwd_plain(q, k, v, kvl, qs, causal, D ** -0.5)
+    before = attn.LAUNCHES["flash_bwd:simt_f32"]
+    got = attn.flash_bwd_kernel(q, k, v, out, lse, g, causal=causal,
+                                sm_scale=D ** -0.5, kv_lens=kvl, q_start=qs)
+    assert attn.LAUNCHES["flash_bwd:simt_f32"] == before + 1
+    want = attn._flash_bwd_plain(q, k, v, out, lse, g, kvl, qs, causal,
+                                 D ** -0.5)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        _close_l2(a, w, TOL_F32, f"K6 f32 {name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_block_gradient_through_its_function(dev, dtype):
+    """Under a gradient the block's kernel chain runs inside `_FusedBlock`:
+    the output has a grad_fn, and the gradients of x and of the 12
+    parameters (the recompute through the twin) equal autograd through
+    `_fused_block_ref`."""
+    rng = np.random.default_rng(44)
+    NW, S, H, hd = 8, 64, 2, 72
+    C = H * hd
+    x = _randn(rng, (NW, S, C), dev, 0.5, dtype).requires_grad_(True)
+    shapes = dict(ln1_weight=(C,), ln1_bias=(C,), qkv_weight=(3 * C, C),
+                  qkv_bias=(3 * C,), proj_weight=(C, C), proj_bias=(C,),
+                  ln2_weight=(C,), ln2_bias=(C,), fc1_weight=(4 * C, C),
+                  fc1_bias=(4 * C,), fc2_weight=(C, 4 * C), fc2_bias=(C,))
+    p = {}
+    for name, shp in shapes.items():
+        if name.startswith("ln"):
+            t = _randn(rng, shp, dev, 0.1, torch.float32) + (
+                1.0 if name.endswith("weight") else 0.0)
+        else:
+            t = _randn(rng, shp, dev, (shp[-1] if len(shp) == 2 else 50) ** -0.5,
+                       dtype)
+        p[name] = t.requires_grad_(True)
+    before = fb.LAUNCHES["block"]
+    y = fb.fused_window_block(x, p, H, exact=dtype == torch.float32)
+    assert fb.LAUNCHES["block"] == before + 1
+    assert "FusedBlock" in type(y.grad_fn).__name__
+    dy = _randn(rng, (NW, S, C), dev, 1.0, dtype)
+    leaves = [x] + [p[k] for k in fb.PKEYS]
+    got = torch.autograd.grad(y, leaves, dy)
+    want = torch.autograd.grad(fb._fused_block_ref(x, p, H), leaves, dy)
+    for name, a, w in zip(["x", *fb.PKEYS], got, want):
+        assert torch.equal(a, w), name
+
+
+def test_f32_model_stages_nothing_and_bf16_model_keeps_staging(dev):
+    """The SAM-2 memory self-attention [1,1,4096,256] in f32: marked f32
+    (an f32 model) it takes K1 "simt_f32" and no staging launch; unmarked
+    (a bf16 model's f32 memory attention) the staged "wgmma_f32" route."""
+    from videoglamm_torch.models.common import set_exact_f32
+    from videoglamm_torch.models.sam2.transformer import RoPEAttention
+    torch.manual_seed(45)
+    mod = RoPEAttention(256, 1, (64, 64)).to(dev)
+    x = torch.randn(1, 4096, 256, device=dev)
+    for exact, route, staged in ((True, "route:simt_f32", 0),
+                                 (False, "route:wgmma_f32", 1)):
+        set_exact_f32(mod, exact)
+        before = dict(attn.LAUNCHES)
+        with torch.no_grad():
+            y = mod(x, x, x)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all()
+        assert attn.LAUNCHES[route] == before.get(route, 0) + 1
+        assert attn.LAUNCHES["stage_bf16"] == before.get("stage_bf16", 0) + staged

@@ -163,8 +163,10 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     stages, int8 and int4) on the reference-layout files, and see
     `--synthetic` refuse with an ImportError naming `transformers`; trace a
     region with `utils.profiling`; segment boxes with the datagen
-    segmenter on a tiny SAM-2; import the last data modules. `transformers`
-    is blocked too."""
+    segmenter on a tiny SAM-2; import the last data modules; build an f32
+    model for training and take a forward and backward through its towers
+    (`freeze_towers=False`) inside `full_precision`. `transformers` is
+    blocked too."""
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'videoglamm_tpu', 'transformers'):\n"
@@ -302,6 +304,21 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "        raise SystemExit('build_sam1 built on a missing card')\n"
         "    except RuntimeError:\n"
         "        pass\n"
+        "from videoglamm_torch.models.common import set_exact_f32, full_precision\n"
+        "from videoglamm_torch.ops import attention, fused_block, norms\n"
+        "from videoglamm_torch.models import phi3, llama, internvideo2, clip_vit\n"
+        "from videoglamm_torch.training import train_step, build_training\n"
+        "assert attention.k1_route(torch.float32, 72, True) == 'simt_f32'\n"
+        "assert attention.k1_route(torch.float32, 72) == 'wgmma_f32'\n"
+        "from videoglamm_torch.config import TrainConfig\n"
+        "trn = build_training(cfg, TrainConfig(), device='cpu', dtype=torch.float32)\n"
+        "assert trn.model.exact_f32\n"
+        "trn.model.requires_grad_(True)\n"
+        "with full_precision(True):\n"
+        "    out = trn.model(**prefetch.to_device(batch, 'cpu'), freeze_towers=False)\n"
+        "out.loss.backward()\n"
+        "g = trn.model.visual_model.image_encoder.trunk.blocks[0].attn.qkv.weight.grad\n"
+        "assert g is not None and torch.isfinite(g).all()\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'videoglamm_tpu')\n"
         "               and v is not None\n"
         "               for k, v in sys.modules.items())\n"

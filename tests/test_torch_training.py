@@ -294,8 +294,19 @@ def test_build_training_defaults_and_refusals(setup):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_training(port_config(CFG), TCFG)
     tr = _training(setup)
-    with pytest.raises(NotImplementedError, match="freeze_towers"):
-        tr.model(**_torch_batch(setup["batch"]), freeze_towers=False)
+    # freeze_towers=False runs the towers under the gradient (JAX without
+    # its stop_gradient): the same loss, and a graph into the towers
+    batch = _torch_batch(setup["batch"])
+    frozen = tr.model(**batch)
+    for p in tr.model.image_vision_tower.parameters():
+        p.requires_grad_(True)
+    free = tr.model(**batch, freeze_towers=False)
+    assert float(free.loss.detach()) == float(frozen.loss.detach())
+    tower = list(tr.model.image_vision_tower.parameters())
+    grads = torch.autograd.grad(free.loss, tower, allow_unused=True)
+    assert any(g is not None and bool(g.abs().max() > 0) for g in grads)
+    for name, p in tr.model.named_parameters():
+        p.requires_grad_(name in tr.tx.trainable)
     with pytest.raises(ValueError, match="float LLM"):
         VideoGLaMM(port_config(CFG), lora_rank=2, quant_llm_int8=True)
 

@@ -294,9 +294,9 @@ def test_hiera_unhoisted_takes_both_window_branches(hiera_setup, monkeypatch):
                         lambda qkv, nh, hd: seen.append(("small", tuple(qkv.shape)))
                         or small(qkv, nh, hd))
     monkeypatch.setattr(thiera, "attention_packed_qkv_padded",
-                        lambda qkv, nh, hd, win=0: seen.append(
+                        lambda qkv, nh, hd, win=0, **kw: seen.append(
                             ("super", tuple(qkv.shape), win))
-                        or padded(qkv, nh, hd, win=win))
+                        or padded(qkv, nh, hd, win=win, **kw))
     a, b = Hiera(from_jax.port_config(_HIERA)), \
         Hiera(from_jax.port_config(_HIERA), hoist_layout=False)
     a.load_state_dict(sd)

@@ -81,17 +81,26 @@ def serving_options(args) -> dict:
     name: `--device`, `--precision` (the compute dtype), `--quant`,
     `--kv_cache`, `--max_new_tokens` and `--draft_k`. The stop tokens
     (`eos_id`) come from the LLM and the tokenizer: `terminators_for`.
-    f32 on the card raises here, so call it before loading anything: the
-    Hiera window block's GEMMs (K2) take bf16 only."""
+    `--precision f32` on the card serves the model in full f32; with
+    `--quant int8|int4` or `--kv_cache int8` it raises here (K5 and K4
+    take bf16 only), so call it before loading anything; so does
+    `--device cuda` where no card is present."""
+    from ..inference.pipeline import check_f32_serving
     device = torch.device(args.device)
-    if args.precision == "f32" and device.type == "cuda":
-        raise NotImplementedError(
-            "--precision f32 on the card: the Hiera window block (K2) takes "
-            "bf16 only; use --precision bf16, or --device cpu for f32")
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    check_f32_serving(device, dtype, args.quant, args.kv_cache)
+    check_card(device)
     return dict(device=device, dtype=dtype, quant=args.quant,
                 kv_cache=args.kv_cache, max_new_tokens=args.max_new_tokens,
                 draft_k=args.draft_k)
+
+
+def check_card(device) -> None:
+    """Raise RuntimeError for a CUDA device when no card is present: there
+    is no silent CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {device}: no CUDA device is present; "
+                           "pass --device cpu to run on the CPU")
 
 
 def placement(pipe):

@@ -6,12 +6,12 @@ the card by a worker thread -> `build_training`'s step (the loaded
 inference weights grafted into a model with LoRA on the LLM's q and v) ->
 `Trainer`: a checkpoint each epoch, then the MeViS / ReasonSeg validators.
 
-The model runs on the card unless `--device cpu` asks for the CPU. Flags
-the port cannot serve yet raise: `--model_parallel` above 1 (the sharded
-step), `--quant` other than none (quantised weights do not train), and
-`--precision f32` on the card (the Hiera window block and the flash
-backward kernels take bf16 only). Without one of these the JAX CLI's flags
-mean what they mean there.
+The model runs on the card unless `--device cpu` asks for the CPU;
+`--precision f32` trains in full f32 there (the f32 routes of K1, K2 and
+K6). Flags the port cannot serve yet raise: `--model_parallel` above 1
+(the sharded step) and `--quant` other than none (quantised weights do not
+train). Without one of these the JAX CLI's flags mean what they mean
+there.
 
 Usage:
   python -m videoglamm_torch.cli.train --checkpoint CKPT --tokenizer TOK \\
@@ -38,7 +38,7 @@ from ..data.datasets import (A2DSentencesDataset, DatasetSpec, GCGVideoDataset,
 from ..data.prefetch import device_copier, prefetch_to_device
 from ..training import build_training
 from ..training.trainer import Trainer, validate_mevis, validate_reasonseg
-from .common import add_model_args, load_model, load_tokenizer
+from .common import add_model_args, check_card, load_model, load_tokenizer
 
 
 def make_val_fn(model, builder, max_text_len: int, to_device: Callable, *,
@@ -152,11 +152,7 @@ def main(argv=None):
         raise NotImplementedError(
             f"--quant {args.quant}: quantised LLM weights do not train; "
             "fine-tune from float weights (--quant none)")
-    if args.precision == "f32" and device.type == "cuda":
-        raise NotImplementedError(
-            "--precision f32 on the card: the Hiera window block (K2) and "
-            "the flash backward (K6) take bf16 only; use --precision bf16, "
-            "or --device cpu for f32")
+    check_card(device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
 
     cfg = VideoGLaMMConfig.flagship()

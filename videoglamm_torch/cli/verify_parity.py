@@ -18,11 +18,14 @@ Stages (each skippable, each contributes to the JSON report):
                 runs twice: an f32 control gated at the tight
                 import-fidelity thresholds, and the serving-dtype run
                 gated at the calibrated bf16 drift bounds (see THRESHOLDS).
-                CPU only (`--device cpu`): the f32 control needs f32 on the
-                card, and the oracles need `transformers`.
+                CPU only (`--device cpu`): the oracles are transformers'
+                modules on the CPU.
 3. quant      - the int8 (and optionally int4) serving gates at this
                 checkpoint's scale: greedy generation token agreement and
                 mask IoU float-vs-quantized on a fixed clip (`clip_run`).
+                With `--dtype f32` on the card the float run serves in f32
+                (TF32 off) and the quantised runs raise: K5 and K4 take
+                bf16 only.
 4. eval       - optional ReasonSeg-val gIoU/cIoU computed at bf16 and f32
                 to quantify end-to-end metric drift (CPU only, as stage 2).
 
@@ -61,6 +64,7 @@ from ..constants import IMAGE_TOKEN_INDEX
 from ..inference.generate import generate_with_prefix
 from ..inference.pipeline import build_inference, extract_seg_from_generation
 from ..io.reference import from_reference_layout, read_reference_dir
+from ..models.common import full_precision
 from ..models.videoglamm import TRACKER_MODULES, VideoGLaMM
 from ..utils.profiling import StepTimer, annotate
 
@@ -464,7 +468,7 @@ def _serve(cfg, params, device, dtype, batch, name, quant="none",
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
     timer = StepTimer()
-    with annotate(f"verify_parity/{name}"):
+    with annotate(f"verify_parity/{name}"), full_precision(model.exact_f32):
         timer.start()
         tokens, masks, n_seg = clip_run(model, batch)
         run_s = timer.stop()
@@ -486,11 +490,12 @@ def run(args) -> dict:
     will_eval = "eval" in stages and args.reason_seg_root and args.tokenizer
     if device.type == "cuda" and ("modules" in stages or will_eval):
         raise NotImplementedError(
-            "verify_parity: the modules and eval stages run f32 controls "
-            "(and the modules stage HF oracles); f32 on the card is not "
-            "ported (the Hiera window block, K2, takes bf16 only). Run them "
-            "with --device cpu, and the quant stage on the card with "
-            "--stages import,quant")
+            "verify_parity: the modules and eval stages run with --device "
+            "cpu: the modules stage holds the port to the HF oracles "
+            "(transformers' Phi-3 and CLIP, on the CPU) and the eval stage "
+            "needs the tokenizer's host pipeline. On the card run --stages "
+            "import,quant (with --dtype f32 for an f32 float run; its "
+            "quantised runs then raise, as K5 and K4 take bf16 only)")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("verify_parity: --device cuda asked for, but no "
                            "CUDA device is present; pass --device cpu")

@@ -23,7 +23,7 @@ from typing import Callable, Mapping, NamedTuple, Optional
 import torch
 
 from ..config import SAM1Config, SAM2Config
-from ..models.common import cast_compute
+from ..models.common import cast_compute, full_precision, set_exact_f32
 from ..models.phi3 import quantize_llm
 from ..models.sam1 import SAM1
 from ..models.sam2.sam2_base import SAM2Base
@@ -97,6 +97,9 @@ class GroundedInference:
         self.eos_id = eos_id
         self.temperature = temperature
         self.draft_k = draft_k
+        # an f32 model (`set_exact_f32`) keeps f32 exact: no TF32 in its
+        # convolutions and products while it serves (`full_precision`)
+        self.f32 = getattr(model, "exact_f32", False)
 
     @torch.no_grad()
     def __call__(self, frames, context_images, frames_sam, input_ids,
@@ -112,7 +115,14 @@ class GroundedInference:
         in place of the independent per-frame decoding (stages `sam_encode`
         and `mask_decode`); the rows of a batch are tracked one after the
         other, where the JAX pipeline maps its tracker over them
-        (pipeline.py:94-97)."""
+        (pipeline.py:94-97). An f32 model runs with TF32 off
+        (`full_precision`)."""
+        with full_precision(self.f32):
+            return self._run(frames, context_images, frames_sam, input_ids,
+                             text_lens, timings, use_video_branch, generator)
+
+    def _run(self, frames, context_images, frames_sam, input_ids, text_lens,
+             timings, use_video_branch, generator) -> InferenceResult:
         m = self.model
         clock = StageClock(timings, frames.device)
         visual = m.encode_visual_prefix(frames, context_images)
@@ -154,9 +164,10 @@ class GroundedInference:
         m = self.model
         clock = StageClock(timings, raw_frames.device)
         dtype = m.llm.model.embed_tokens.weight.dtype
-        streams = prepare_vision_inputs(raw_frames, m.cfg,
-                                        num_sam_frames=num_sam_frames,
-                                        dtype=dtype)
+        with full_precision(self.f32):
+            streams = prepare_vision_inputs(raw_frames, m.cfg,
+                                            num_sam_frames=num_sam_frames,
+                                            dtype=dtype)
         clock("preprocess")
         return self(*streams, input_ids, text_lens, timings=timings,
                     use_video_branch=use_video_branch, generator=generator)
@@ -178,6 +189,12 @@ def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
     quant: "none", "int8" or "int4" weights for the LLM; float weights are
     quantised here from their f32 values, before the cast to `dtype`.
     kv_cache: "bf16" (the compute dtype) or "int8".
+    dtype: the compute dtype, torch.bfloat16 or torch.float32. An f32
+    model takes the full-precision f32 routes of K1, K2 and K6 on the card
+    (`models.common.set_exact_f32`) and serves with TF32 off
+    (`full_precision`). On the card f32 takes neither quantised weights
+    (K5 takes bf16 activations) nor the int8 cache (K4 takes bf16
+    queries): both raise here, before anything is built.
     eos_id, temperature, draft_k: the generation options of
     `GroundedInference`.
     With `cfg.llm_type == "llama3_1"` the LLM is the Llama-3.1 base, which
@@ -190,6 +207,7 @@ def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
         raise ValueError(f"quant {quant!r}: the {cfg.llm_type} base has no "
                          "quantised projections; only Phi-3 serves int8 / int4 "
                          "weights")
+    check_f32_serving(device, dtype, quant, kv_cache)
     dev = _device(device, "build_inference")
     head = state_dict.get("llm.lm_head.weight") if state_dict else None
     prequant = head is not None and head.dtype == torch.int8
@@ -209,9 +227,30 @@ def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
         quantize_llm(model.llm, quant)
     if dtype != torch.float32:
         model.to_compute_dtype(dtype)
+    set_exact_f32(model, dtype == torch.float32)
     return GroundedInference(model.eval(), max_new_tokens=max_new_tokens,
                              eos_id=eos_id, temperature=temperature,
                              draft_k=draft_k)
+
+
+def check_f32_serving(device, dtype, quant: str, kv_cache: str) -> None:
+    """Raise NotImplementedError where an f32 model on the card would need
+    a kernel that has no f32 route: K5 (int8 / int4 weights: its
+    activations are bf16) and K4 (the int8 KV cache: its queries are
+    bf16). Nothing falls back to the CPU or to bf16."""
+    if torch.device(device).type != "cuda" or dtype != torch.float32:
+        return
+    if quant != "none":
+        raise NotImplementedError(
+            f"f32 with {quant} weights on the card: K5, the dequantising "
+            "product, takes bf16 activations only (f32 in K5 is queued); "
+            "serve f32 with float weights, or quantised weights in bf16")
+    if kv_cache == "int8":
+        raise NotImplementedError(
+            "f32 with the int8 KV cache on the card: K4, the int8-cache "
+            "decode attention, takes bf16 queries only (f32 in K4 is "
+            "queued); serve f32 with the float cache, or the int8 cache in "
+            "bf16")
 
 
 def _device(device, what: str) -> torch.device:
@@ -239,7 +278,9 @@ def build_sam2(cfg: Optional[SAM2Config] = None,
     stands in.
     dtype: the image encoder's compute dtype (and the skip projections
     conv_s0 / conv_s1); the prompt encoder, the mask decoder, the memory
-    modules and parameters stay f32, as the tracking path keeps them."""
+    modules and parameters stay f32, as the tracking path keeps them. With
+    dtype=torch.float32 the model's attention takes K1's full-precision
+    route (`set_exact_f32`)."""
     dev = _device(device, "build_sam2")
     with torch.device(dev):
         model = SAM2Base(cfg if cfg is not None else SAM2Config())
@@ -252,6 +293,7 @@ def build_sam2(cfg: Optional[SAM2Config] = None,
         cast_compute(model.image_encoder, dtype)
         model.sam_mask_decoder.conv_s0.to(dtype)
         model.sam_mask_decoder.conv_s1.to(dtype)
+    set_exact_f32(model, dtype == torch.float32)
     return model.eval()
 
 

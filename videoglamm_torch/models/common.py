@@ -9,6 +9,7 @@ parameters are stored unpadded and load into plain linears.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -133,10 +134,46 @@ def gelu_exact(x):
     return F.gelu(x, approximate="tanh")
 
 
+def set_exact_f32(module: nn.Module, on: bool) -> nn.Module:
+    """Tell the attention modules under `module` whether their model
+    computes in f32. A module whose class declares `exact_f32` (False by
+    default) passes it to the attention ops as `exact`, and with it f32
+    operands take K1's full-precision route "simt_f32" on the card
+    (`ops.attention.k1_route`); without it they keep the staged route,
+    as the f32 memory attention of a bf16 model does. `build_inference`,
+    `build_training` and `build_sam2` call this with
+    dtype == torch.float32; nothing else sets it."""
+    for m in module.modules():
+        if hasattr(type(m), "exact_f32"):
+            m.exact_f32 = bool(on)
+    return module
+
+
+@contextlib.contextmanager
+def full_precision(on: bool = True):
+    """While an f32 model runs: TF32 off for cuDNN's convolutions and
+    cuBLAS's products (cuDNN takes TF32 for f32 convolutions by default),
+    restored on the way out. A no-op when `on` is False."""
+    if not on:
+        yield
+        return
+    conv = torch.backends.cudnn.allow_tf32
+    mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm
+
+
 class MultiHeadAttention(nn.Module):
     """Self-attention over [B, S, D] with separate q/k/v/out projections
     (HF CLIP names). Plain self-attention takes the BSHD route of
     common.py:180-187."""
+
+    exact_f32 = False      # set_exact_f32
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -151,7 +188,8 @@ class MultiHeadAttention(nn.Module):
         nh = self.num_heads
         q, k, v = (p(x).view(B, S, nh, D // nh)
                    for p in (self.q_proj, self.k_proj, self.v_proj))
-        return self.out_proj(attention_bshd(q, k, v).reshape(B, S, D))
+        return self.out_proj(attention_bshd(q, k, v, exact=self.exact_f32)
+                             .reshape(B, S, D))
 
 
 class Mlp(nn.Module):

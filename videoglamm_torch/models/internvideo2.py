@@ -87,6 +87,8 @@ class InternVideo2Block(nn.Module):
     """Pre-RMSNorm block with QK-RMSNorm over the FULL flattened dim and
     f32 LayerScale (internvideo2.py:96-158)."""
 
+    exact_f32 = False      # models.common.set_exact_f32
+
     def __init__(self, cfg: InternVideo2Config):
         super().__init__()
         self.cfg = cfg
@@ -112,10 +114,12 @@ class InternVideo2Block(nn.Module):
         if 64 <= hd < 128:
             # internvideo2.py:110: JAX's head-padded route; the port reads
             # the unpadded fused qkv in place
-            o = attention_packed_qkv_padded(qkv, nh, hd)
+            o = attention_packed_qkv_padded(qkv, nh, hd,
+                                            exact=self.exact_f32)
         else:
             x5 = qkv.view(B, N, 3, nh, hd)
-            o = attention_bshd(x5[:, :, 0], x5[:, :, 1], x5[:, :, 2])
+            o = attention_bshd(x5[:, :, 0], x5[:, :, 1], x5[:, :, 2],
+                               exact=self.exact_f32)
             o = o.reshape(B, N, D)
         x = self.ls1(self.attn.proj(o), x)
         return self.ls2(self.mlp(self.norm2(x)), x)

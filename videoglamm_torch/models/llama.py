@@ -58,6 +58,8 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
+    exact_f32 = False      # models.common.set_exact_f32
+
     def __init__(self, cfg: LlamaConfig, causal: bool = True):
         super().__init__()
         self.cfg = cfg
@@ -102,7 +104,7 @@ class LlamaDecoderLayer(nn.Module):
         o = dot_product_attention(q, k_att, v_att, causal=self.causal,
                                   kv_lens=kv_lens, q_start=positions[:, 0],
                                   k_scale=k_scale, v_scale=v_scale,
-                                  layer=layer_idx)
+                                  layer=layer_idx, exact=self.exact_f32)
         x = x + att.o_proj(o.transpose(1, 2).reshape(B, S, nh * hd))
         return x + self.mlp(self.post_attention_layernorm(x))
 

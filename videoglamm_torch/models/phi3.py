@@ -86,6 +86,8 @@ class Phi3MLP(nn.Module):
 
 
 class Phi3DecoderLayer(nn.Module):
+    exact_f32 = False      # models.common.set_exact_f32
+
     def __init__(self, cfg: Phi3Config, quant: str = "none",
                  lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
@@ -134,7 +136,8 @@ class Phi3DecoderLayer(nn.Module):
         # positions[:, 0]: absolute KV position of the first query
         o = dot_product_attention(q, k_att, v_att, causal=True, kv_lens=kv_lens,
                                   q_start=positions[:, 0], k_scale=k_scale,
-                                  v_scale=v_scale, layer=layer_idx)
+                                  v_scale=v_scale, layer=layer_idx,
+                                  exact=self.exact_f32)
         x = x + self.self_attn.o_proj(o.transpose(1, 2).reshape(B, S, nh * hd))
         return x + self.mlp(self.post_attention_layernorm(x))
 

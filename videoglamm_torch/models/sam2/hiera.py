@@ -73,6 +73,8 @@ def _max_pool_2x(x):
 
 
 class MultiScaleAttention(nn.Module):
+    exact_f32 = False      # models.common.set_exact_f32
+
     def __init__(self, dim: int, dim_out: int, num_heads: int,
                  q_pool: bool = False, window_size: int = 0):
         super().__init__()
@@ -103,7 +105,8 @@ class MultiScaleAttention(nn.Module):
             qkv = self.qkv(x.reshape(B * S, x.shape[-1]))
             f = _superwindow_fold(B, S)
             o = attention_packed_qkv_padded(qkv.view(B // f, f * S, 3 * d), nh,
-                                            hd, win=S if f > 1 else 0)
+                                            hd, win=S if f > 1 else 0,
+                                            exact=self.exact_f32)
             return self.proj(o.reshape(B * S, d)).view(B, H, W, d)
         # hiera.py:211-239: pooling blocks, global blocks, other geometries
         qkv = self.qkv(x.reshape(B * S, x.shape[-1]))
@@ -117,15 +120,18 @@ class MultiScaleAttention(nn.Module):
         if q.shape[1] != k.shape[1]:
             o = attention_bshd_cross(q, k, v)
         elif q.shape[1] <= 1536:
-            o = attention_bshd(q, k, v)
+            o = attention_bshd(q, k, v, exact=self.exact_f32)
         else:
             o = dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                      v.transpose(1, 2)).transpose(1, 2)
+                                      v.transpose(1, 2),
+                                      exact=self.exact_f32).transpose(1, 2)
         o = self.proj(o.reshape(B * H * W, d))
         return o.view(B, H, W, d)
 
 
 class MultiScaleBlock(nn.Module):
+    exact_f32 = False      # models.common.set_exact_f32
+
     def __init__(self, dim: int, dim_out: int, num_heads: int,
                  mlp_ratio: float, window_size: int, q_pool: bool = False):
         super().__init__()
@@ -160,7 +166,8 @@ class MultiScaleBlock(nn.Module):
             # hiera.py:305-309: the whole block as one fused op
             NW, w_, _, C = x.shape
             y = fused_window_block(x.reshape(NW, w_ * w_, C),
-                                   self._fused_params(), self.num_heads)
+                                   self._fused_params(), self.num_heads,
+                                   exact=self.exact_f32)
             return y.view(NW, w_, w_, C)
 
         shortcut = x

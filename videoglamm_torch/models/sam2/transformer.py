@@ -42,7 +42,12 @@ class RoPEAttention(nn.Module):
     the spatial keys over a `feat_sizes` grid (transformer.py:47-85). The
     last `num_k_exclude_rope` keys (object pointers) are not rotated; keys
     longer than the grid (several memory frames) see the table tiled.
-    `kv_in_dim`: width of the keys and values that come in (mem_dim)."""
+    `kv_in_dim`: width of the keys and values that come in (mem_dim).
+    The memory attention runs in f32 in every model; its self-attention
+    takes K1's full-precision route only in an f32 model (`exact_f32`,
+    models.common.set_exact_f32), the staged route in a bf16 one."""
+
+    exact_f32 = False
 
     def __init__(self, embedding_dim: int, num_heads: int, feat_sizes,
                  rope_theta: float = 10000.0, kv_in_dim: Optional[int] = None):
@@ -75,7 +80,8 @@ class RoPEAttention(nn.Module):
             k_rot = apply_axial_rope(kh[:, :, :n_rope], cos, sin)
             kh = torch.cat([k_rot, kh[:, :, n_rope:]], dim=2) \
                 if num_k_exclude_rope > 0 else k_rot
-        o = dot_product_attention(qh, kh, vh, kv_mask=kv_mask)
+        o = dot_product_attention(qh, kh, vh, kv_mask=kv_mask,
+                                  exact=self.exact_f32)
         o = o.transpose(1, 2).reshape(o.shape[0], -1, qh.shape[1] * qh.shape[3])
         return self.out_proj(o)
 

@@ -102,7 +102,13 @@ class VideoGLaMM(nn.Module):
     (videoglamm.py:110-132). `cfg.llm_type` selects the base decoder
     (videoglamm.py:119-138); the Llama-3.1 base has neither LoRA nor
     quantised projections, and asking for them raises (the JAX module
-    drops those options without a word)."""
+    drops those options without a word). `exact_f32` is True for a model
+    whose compute dtype is f32 (`models.common.set_exact_f32`, called by
+    `build_inference` and `build_training`): its attention takes the
+    full-precision f32 routes on the card, and the serving and training
+    entry points run it with TF32 off."""
+
+    exact_f32 = False
 
     def __init__(self, cfg: VideoGLaMMConfig, *, remat_llm: bool = False,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
@@ -279,15 +285,19 @@ class VideoGLaMM(nn.Module):
         [R, S_text]; video_idx [R] row -> video slot; gt_masks
         [R, max_seg, T_sam, h, w] binary with MASK_IGNORE_INDEX padding.
 
-        The towers, the projectors and the SAM image encoder run without a
-        gradient (the stop_gradient of videoglamm.py:321-323). Their
-        kernels have no backward, so freeze_towers=False is not ported."""
-        if not freeze_towers:
-            raise NotImplementedError(
-                "freeze_towers=False needs a backward for the tower kernels "
-                "(K1 BSHD through the towers' weights, the fused Hiera block)")
+        freeze_towers=True: the towers, the projectors and the SAM image
+        encoder run without a gradient (the stop_gradient of
+        videoglamm.py:321-323). freeze_towers=False runs them under the
+        gradient, as JAX does without the stop_gradient: the gradient
+        reaches every tower leaf that asks for one (the leaves that train
+        are the optimizer's patterns, `training.make_optimizer`). Their
+        kernels carry the JAX package's backward rules: K1 in BSHD and
+        window modes and K7 / K8 recompute through their plain twins, the
+        Hiera window block recomputes through `_fused_block_ref`, K1 flash
+        takes K6, and K3 recomputes through its twin."""
         cfg = self.cfg
-        with torch.no_grad():
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not freeze_towers):
             visual = self.encode_visual_prefix(frames, context_images)
             sam_feats, _ = self.encode_sam_features(frames_sam)
 

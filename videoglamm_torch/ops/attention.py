@@ -8,12 +8,16 @@ so the [B,H,S,D], [B,S,H,D] and fused [B,S,3,H,D] layouts all go in with
 no copies. One body serves every launch: TMA loads into an mbarrier ring,
 a producer warpgroup, two consumer warpgroups on wgmma, head dims up to 256
 (the SAM-2 memory self-attention [4,1,4096,256] f32 is its "flash_d256"
-mode). `k1_route` names the two ways in: "wgmma" for bf16 operands, and
-"wgmma_f32" for f32 storage, where a hand-written staging pass
-(`stage_bf16`, counted as "stage_bf16") first writes contiguous bf16
-copies of q, k and v, rounded to nearest even, and the body stores O in
-f32. The wrapper computes the TMA plan (`k1_tma_plan`) and refuses a view
-that TMA cannot take.
+mode). `k1_route` names the three ways in: "wgmma" for bf16 operands;
+"wgmma_f32" for f32 storage in a bf16 model (the SAM-2 memory attention),
+where a hand-written staging pass (`stage_bf16`, counted as "stage_bf16")
+first writes contiguous bf16 copies of q, k and v, rounded to nearest even,
+and the body stores O in f32; and "simt_f32" for the f32 operands of a
+model whose compute dtype is f32, a full-precision body of its own
+(`csrc/attention_f32.cu`: f32 FFMA on the CUDA cores, every mode K1 serves,
+head dims up to 256). The model passes that choice down explicitly
+(`exact=True`). The wrapper computes the TMA plan (`k1_tma_plan`) of the
+wgmma routes and refuses a view that TMA cannot take.
 
 K7 (`csrc/window_attention.cu`) is the whole-row-softmax kernel for medium
 non-causal self-attention (512 < S <= 1536). It replaces the Pallas kernel
@@ -50,10 +54,13 @@ the Pallas kernels `_flash_bwd_dq_kernel` (attention.py:302) and
 `_flash_bwd_dkv_kernel` (attention.py:336) with a delta prepass, a dq kernel
 and a dk/dv kernel on the same Hopper design as K1's wgmma route (TMA into
 an mbarrier ring, a producer warpgroup, two consumer warpgroups on wgmma);
-the wrapper checks its TMA plan (`k6_tma_plan`). `flash_attention` is a
-`torch.autograd.Function` when a gradient is asked for: the forward has K1
-write the row log-sum-exp, the backward launches K6 on CUDA tensors and
-runs K6's plain twin `_flash_bwd_plain` on CPU tensors. The BSHD entries
+the wrapper checks its TMA plan (`k6_tma_plan`). f32 operands take K6's
+f32 route in `csrc/attention_f32.cu` (the same three passes in f32 FFMA,
+counted as "flash_bwd:simt_f32" too), its only way in for f32.
+`flash_attention` is a `torch.autograd.Function` when a gradient is asked
+for: the forward has K1 write the row log-sum-exp, the backward launches
+K6 on CUDA tensors and runs K6's plain twin `_flash_bwd_plain` on CPU
+tensors. The BSHD entries
 get the recompute backward that the JAX package gives them (autograd
 through the plain twin), which is no TPU kernel.
 
@@ -86,8 +93,10 @@ NEG_INF = -1e30
 # self-attention), "window" (Hiera window attention inside
 # fused_window_block); K4 launches under "decode_q8", K6 under "flash_bwd",
 # K7 under "window_attn", K8 under "smallwin". K1 also counts each launch
-# under its route: "route:wgmma" (bf16) or "route:wgmma_f32" (f32 storage);
-# the staging pass of f32 operands (K1 and K7) counts under "stage_bf16"
+# under its route: "route:wgmma" (bf16), "route:wgmma_f32" (f32 storage in
+# a bf16 model) or "route:simt_f32" (an f32 model); the staging pass of f32
+# operands (K1 and K7) counts under "stage_bf16"; K6's f32 route counts
+# under "flash_bwd:simt_f32" beside "flash_bwd"
 LAUNCHES = collections.Counter()
 
 # K1 and K7: a CTA owns up to K1_BM query rows (two consumer warpgroups of
@@ -302,12 +311,23 @@ def _check_qkvo(what: str, q, k, v, out, max_d: int):
                          f"(needs D % 8 == 0 and D <= {max_d})")
 
 
-def k1_route(dtype, D: int) -> str:
-    """The way into csrc/attention_fwd.cu's one body for a K1 launch:
-    "wgmma" for bf16 operands, "wgmma_f32" for f32 storage (the staging
-    pass first, O stored in f32). Both take head dims up to 256; the
-    wrapper raises on anything else."""
-    return "wgmma_f32" if dtype == torch.float32 else "wgmma"
+def k1_route(dtype, D: int, exact: bool = False) -> str:
+    """The way into K1 for a launch on operands of `dtype`:
+    "wgmma" for bf16 operands (csrc/attention_fwd.cu); for f32 operands,
+    "simt_f32" when `exact` (csrc/attention_f32.cu: f32 products, f32
+    accumulation) and "wgmma_f32" otherwise (the staging pass to bf16
+    first, O stored in f32).
+
+    The rule: only a model whose compute dtype is f32 takes "simt_f32". Its
+    modules carry `exact_f32 = True` (`models.common.set_exact_f32`, called
+    by `build_inference`, `build_training` and `build_sam2` for
+    dtype=torch.float32) and pass it here as `exact`; f32 operands in a
+    bf16 model (the SAM-2 memory attention) keep the staged route. No
+    environment variable or global switch takes part. Every route takes
+    head dims up to 256; the wrapper raises on anything else."""
+    if dtype != torch.float32:
+        return "wgmma"
+    return "simt_f32" if exact else "wgmma_f32"
 
 
 def key_tile(depth: int) -> int:
@@ -465,9 +485,19 @@ def stage_bf16(*ts):
     return outs
 
 
+def _f32_fwd_fn():
+    fn = _cuda.load("attention_f32").lib.vgt_attention_fwd_f32
+    if fn.argtypes is None:
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [P, P, P, P] + [L] * 12 + [P, P] + [I] * 7 + [
+            ctypes.c_float, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
                          mode: str, kv_lens=None, q_start=None, win: int = 0,
-                         lse=None):
+                         lse=None, exact: bool = False):
     """Launch K1. q: [B,H,Sq,D], k/v: [B,H,Sk,D], out: [B,H,Sq,D] — any
     strides with a contiguous head dim (views of BSHD or fused-qkv tensors
     are read in place). kv_lens/q_start: [B] ints or None. `mode` names the
@@ -476,8 +506,11 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
     for a row with no valid key). Raises unless the operands are CUDA
     tensors of one dtype, bf16 or f32, with D % 8 == 0 and D <= 256; the
     block-diagonal `win` mode serves D <= 128; and on views that the TMA
-    plan refuses (`k1_tma_plan`). f32 operands take route "wgmma_f32": the
-    staging pass (`stage_bf16`) first, then the body with an f32 output."""
+    plan refuses (`k1_tma_plan`). f32 operands take the route
+    `k1_route(torch.float32, D, exact)` names: "simt_f32" (the
+    full-precision body of csrc/attention_f32.cu, no staging) for a model
+    whose compute dtype is f32, else "wgmma_f32": the staging pass
+    (`stage_bf16`) first, then the body with an f32 output."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     _check_qkvo("attention_fwd", q, k, v, out, 128 if win else 256)
@@ -487,20 +520,24 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
                             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError("attention_fwd: lse must be a contiguous f32 "
                          f"[{B},{H},{Sq}] on {q.device}")
-    route = k1_route(q.dtype, D)
-    k1_tma_plan(q, k, v, out)
+    route = k1_route(q.dtype, D, exact)
+    if route != "simt_f32":
+        k1_tma_plan(q, k, v, out)
     if route == "wgmma_f32":
         q, k, v = stage_bf16(q, k, v)
     kvl = _as_int32(kv_lens, B, q.device)
     qs = _as_int32(q_start, B, q.device)
-    err = _kernel_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        kvl.data_ptr() if kvl is not None else None,
-        qs.data_ptr() if qs is not None else None,
-        B, H, Sq, Sk, D, int(causal), int(win), float(sm_scale),
-        lse.data_ptr() if lse is not None else None,
-        int(out.dtype == torch.float32), _cuda.stream_ptr(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            kvl.data_ptr() if kvl is not None else None,
+            qs.data_ptr() if qs is not None else None,
+            B, H, Sq, Sk, D, int(causal), int(win), float(sm_scale),
+            lse.data_ptr() if lse is not None else None)
+    if route == "simt_f32":
+        err = _f32_fwd_fn()(*args, _cuda.stream_ptr(q))
+    else:
+        err = _kernel_fn()(*args, int(out.dtype == torch.float32),
+                           _cuda.stream_ptr(q))
     _cuda.check_launch(err, "attention_fwd")
     LAUNCHES[mode] += 1
     LAUNCHES["route:" + route] += 1
@@ -563,6 +600,11 @@ def smallwin_attention_kernel(qkv, num_heads: int, head_dim: int, *,
     [NW,S,H*hd]. Raises on anything else."""
     NW, S, C3 = qkv.shape
     C = num_heads * head_dim
+    if qkv.dtype == torch.float32:
+        raise ValueError(
+            "smallwin_attention: K8 takes bf16 only; f32 in K8 is queued "
+            "(ROADMAP.md). An f32 Hiera serves its small windows through the "
+            "fused block (the default hoisted layout)")
     _cuda.check_operand(qkv, "qkv", torch.bfloat16)
     if not qkv.is_contiguous() or C3 != 3 * C:
         raise ValueError(f"smallwin_attention: qkv {tuple(qkv.shape)} must be "
@@ -592,16 +634,27 @@ def _flash_bwd_fn():
     return fn
 
 
+def _flash_bwd_f32_fn():
+    fn = _cuda.load("attention_f32").lib.vgt_flash_bwd_f32
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(P), ctypes.POINTER(ctypes.c_longlong),
+                       P, P, P, P] + [I] * 6 + [ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def flash_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool, sm_scale: float,
                      kv_lens=None, q_start=None):
-    """Launch K6. q, out, dout: [B,H,Sq,D]; k, v: [B,H,Sk,D], bf16 on the
-    card; lse: f32 [B,H,Sq] as K1 wrote it. q, k, v, out and dout are read
+    """Launch K6. q, out, dout: [B,H,Sq,D]; k, v: [B,H,Sk,D], bf16 or f32
+    on the card (f32 takes K6's f32 route, csrc/attention_f32.cu, with
+    f32 products); lse: f32 [B,H,Sq] as K1 wrote it. q, k, v, out and dout are read
     in place through their (batch, head, token) strides, so the gradient of
     `o.transpose(1, 2).reshape(...)` arrives with no copy; an operand that
     TMA cannot take as it is (`_tma_refusal`: a broadcast gradient, a head
     dim that is not contiguous) is made contiguous here first. The TMA plan
     (`k6_tma_plan`) is checked before the launch. Returns (dq, dk, dv), new
-    contiguous bf16 tensors. Raises on anything else."""
+    contiguous tensors of the operands' dtype. Raises on anything else."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     if k.shape != (B, H, Sk, D) or v.shape != k.shape or out.shape != q.shape \
@@ -616,11 +669,14 @@ def flash_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool, sm_scale: float,
         raise ValueError("flash_bwd: causal launches need q_start")
     if lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"flash_bwd: lse must be f32 on {q.device}")
+    f32 = q.dtype == torch.float32
+    dt = torch.float32 if f32 else torch.bfloat16
     ops = [t if _tma_refusal(t) is None else t.contiguous()
            for t in (q, k, v, out, dout)]
     for name, t in zip(("q", "k", "v", "out", "dout"), ops):
-        _cuda.check_operand(t, name, torch.bfloat16)
-    k6_tma_plan(*ops)
+        _cuda.check_operand(t, name, dt)
+    if not f32:
+        k6_tma_plan(*ops)
     ops += [torch.empty(t.shape, dtype=t.dtype, device=t.device)
             for t in (q, k, v)]
     lse = lse.contiguous()
@@ -629,13 +685,15 @@ def flash_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool, sm_scale: float,
     qs = _as_int32(q_start, B, q.device)
     ptrs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in ops))
     strides = (ctypes.c_longlong * 24)(*(s for t in ops for s in t.stride()[:3]))
-    err = _flash_bwd_fn()(
+    err = (_flash_bwd_f32_fn() if f32 else _flash_bwd_fn())(
         ptrs, strides, lse.data_ptr(), delta.data_ptr(),
         kvl.data_ptr() if kvl is not None else None,
         qs.data_ptr() if qs is not None else None,
         B, H, Sq, Sk, D, int(causal), float(sm_scale), _cuda.stream_ptr(q))
     _cuda.check_launch(err, "flash_bwd")
     LAUNCHES["flash_bwd"] += 1
+    if f32:
+        LAUNCHES["flash_bwd:simt_f32"] += 1
     return ops[5], ops[6], ops[7]
 
 
@@ -875,8 +933,9 @@ def decode_attention_q8(q, k, v, k_scale, v_scale, kv_lens, layer=None, *,
 # entries
 # ---------------------------------------------------------------------------
 def _flash_fwd(q, k, v, kv_lens, q_start, causal: bool, sm_scale: float,
-               need_lse: bool):
-    """(out, lse or None): the plain twin for CPU tensors, K1 on the card."""
+               need_lse: bool, exact: bool = False):
+    """(out, lse or None): the plain twin for CPU tensors, K1 on the card
+    (`exact`: see `k1_route`)."""
     if q.device.type == "cpu":
         out, lse = _flash_fwd_plain(q, k, v, kv_lens, q_start, causal, sm_scale)
         return out, (lse if need_lse else None)
@@ -886,19 +945,21 @@ def _flash_fwd(q, k, v, kv_lens, q_start, causal: bool, sm_scale: float,
     mode = "causal" if causal else \
         ("flash_d256" if q.shape[-1] > 128 else "flash")
     attention_fwd_kernel(q, k, v, out, causal=causal, sm_scale=sm_scale,
-                         mode=mode, kv_lens=kv_lens, q_start=q_start, lse=lse)
+                         mode=mode, kv_lens=kv_lens, q_start=q_start, lse=lse,
+                         exact=exact)
     return out, lse
 
 
 class _FlashAttention(torch.autograd.Function):
     """Counterpart of `_flash_attention_custom` (attention.py:479-501): the
     forward saves q, k, v, out and the LSE rows; the backward launches K6
-    on CUDA tensors and runs its plain twin on CPU tensors. The integer
-    inputs get no gradient."""
+    on CUDA tensors (f32 operands: K6's f32 route) and runs its plain twin
+    on CPU tensors. The integer inputs get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_lens, q_start, causal, sm_scale):
-        out, lse = _flash_fwd(q, k, v, kv_lens, q_start, causal, sm_scale, True)
+    def forward(ctx, q, k, v, kv_lens, q_start, causal, sm_scale, exact):
+        out, lse = _flash_fwd(q, k, v, kv_lens, q_start, causal, sm_scale, True,
+                              exact)
         ctx.save_for_backward(q, k, v, out, lse, kv_lens, q_start)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return out
@@ -914,17 +975,20 @@ class _FlashAttention(torch.autograd.Function):
                                           causal=ctx.causal,
                                           sm_scale=ctx.sm_scale,
                                           kv_lens=kv_lens, q_start=q_start)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False, kv_lens=None,
-                    q_start=None, sm_scale: Optional[float] = None):
+                    q_start=None, sm_scale: Optional[float] = None,
+                    exact: bool = False):
     """Port of `flash_attention` (attention.py:504). q/k/v: [B,H,S,D].
     q_start: [B] absolute KV position of query 0 (defaults to
     kv_lens - Sq, the decode convention). Differentiable in q, k and v:
     when one of them asks for a gradient the call goes through
     `_FlashAttention` (K1 with the LSE output, K6 backward); otherwise K1
-    runs alone, as in serving."""
+    runs alone, as in serving. exact: the caller is a model whose compute
+    dtype is f32, whose f32 operands take K1's "simt_f32" route
+    (`k1_route`)."""
     B, H, Sq, D = q.shape
     if sm_scale is None:
         sm_scale = D ** -0.5
@@ -936,12 +1000,12 @@ def flash_attention(q, k, v, *, causal: bool = False, kv_lens=None,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, kv_lens, q_start, bool(causal),
-                                     float(sm_scale))
+                                     float(sm_scale), bool(exact))
     if q.device.type == "cpu":
         return _attention_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                                 kv_lens=kv_lens, q_start=q_start)
     return _flash_fwd(q, k, v, kv_lens, q_start, bool(causal), float(sm_scale),
-                      False)[0]
+                      False, bool(exact))[0]
 
 
 class _RecomputeAttention(torch.autograd.Function):
@@ -972,46 +1036,51 @@ def _kernel_or_recompute(launch, plain, *tensors):
     return launch(*tensors)
 
 
-def _bshd_fwd(q, k, v, sm_scale: float, win: int = 0):
+def _bshd_fwd(q, k, v, sm_scale: float, win: int = 0, exact: bool = False):
     """K1 in BSHD mode: q/k/v [B,S,H,D] (views allowed) -> [B,S,H,D]. Under
     a gradient the backward is the recompute of `_bshd_bwd_rule` /
     `_packed_bwd_rule` (attention.py:868-872, :889-897)."""
     if q.device.type == "cpu":
         return _attention_plain_bshd(q, k, v, sm_scale, win)
     return _kernel_or_recompute(
-        lambda q_, k_, v_: _bshd_launch(q_, k_, v_, sm_scale, win),
+        lambda q_, k_, v_: _bshd_launch(q_, k_, v_, sm_scale, win, exact),
         lambda q_, k_, v_: _attention_plain_bshd(q_, k_, v_, sm_scale, win),
         q, k, v)
 
 
-def _bshd_launch(q, k, v, sm_scale: float, win: int = 0):
+def _bshd_launch(q, k, v, sm_scale: float, win: int = 0, exact: bool = False):
     B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     attention_fwd_kernel(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), out.transpose(1, 2),
-                         causal=False, sm_scale=sm_scale, mode="bshd", win=win)
+                         causal=False, sm_scale=sm_scale, mode="bshd", win=win,
+                         exact=exact)
     return out
 
 
-def attention_bshd(q, k, v, *, sm_scale: Optional[float] = None):
+def attention_bshd(q, k, v, *, sm_scale: Optional[float] = None,
+                   exact: bool = False):
     """Full non-causal self-attention in [B,S,H,D] (port of
-    attention_bshd, attention.py:985). Returns [B,S,H,D]."""
+    attention_bshd, attention.py:985). Returns [B,S,H,D]. exact: see
+    `k1_route`."""
     B, S, H, D = q.shape
     if sm_scale is None:
         sm_scale = D ** -0.5
     # attention.py:997
     if q.is_cuda and 128 <= S <= 1536 and D <= 128:
-        return _bshd_fwd(q, k, v, float(sm_scale))
+        return _bshd_fwd(q, k, v, float(sm_scale), exact=exact)
     return _attention_plain_bshd(q, k, v, sm_scale)
 
 
 def attention_packed_qkv_padded(qkv, num_heads: int, head_dim: int, *,
                                 win: int = 0,
-                                sm_scale: Optional[float] = None):
+                                sm_scale: Optional[float] = None,
+                                exact: bool = False):
     """Port of attention_packed_qkv_padded (attention.py:968). The JAX
     entry takes heads pre-padded to 128 lanes, which is a TPU layout device.
     This port takes the UNPADDED fused qkv [B,S,3*H*hd] and returns
-    [B,S,H*hd]. win > 0 = block-diagonal attention over win-token windows."""
+    [B,S,H*hd]. win > 0 = block-diagonal attention over win-token windows.
+    exact: see `k1_route`."""
     B, S, _ = qkv.shape
     if sm_scale is None:
         sm_scale = head_dim ** -0.5
@@ -1019,7 +1088,7 @@ def attention_packed_qkv_padded(qkv, num_heads: int, head_dim: int, *,
     q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
     # attention.py:980
     if qkv.is_cuda and 128 <= S <= 1536:
-        o = _bshd_fwd(q, k, v, float(sm_scale), win)
+        o = _bshd_fwd(q, k, v, float(sm_scale), win, exact)
     else:
         o = _attention_plain_bshd(q, k, v, sm_scale, win)
     return o.reshape(B, S, num_heads * head_dim)
@@ -1067,7 +1136,8 @@ def attention_bshd_cross(q, k, v, *, sm_scale: Optional[float] = None):
 def dot_product_attention(q, k, v, *, causal: bool = False, kv_lens=None,
                           kv_mask=None, bias=None, q_start=None,
                           sm_scale: Optional[float] = None,
-                          k_scale=None, v_scale=None, layer=None):
+                          k_scale=None, v_scale=None, layer=None,
+                          exact: bool = False):
     """Attention entry used by every model stack (attention.py:1231).
     q/k/v: [B,H,S,D]; kv_mask: [B,Sk] bool, True = attendable.
 
@@ -1076,7 +1146,10 @@ def dot_product_attention(q, k, v, *, causal: bool = False, kv_lens=None,
     cache [L,B,C,Hkv*hd] with `layer` an int. Decode (Sq == 1) on a CUDA
     tensor launches K4 or raises; it never takes the plain twin. Sq == 1
     with causal and q_start == kv_len - 1 reduces to the kv_lens mask that
-    K4 applies."""
+    K4 applies. exact: the caller is a model whose compute dtype is f32;
+    its f32 operands take K1's full-precision route (`k1_route`). K7 has
+    none: medium self-attention in an f32 model stays on K7's staged
+    route (a known difference, ROADMAP.md)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if (k_scale is None) != (v_scale is None):
@@ -1114,4 +1187,4 @@ def dot_product_attention(q, k, v, *, causal: bool = False, kv_lens=None,
         return _attention_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                                 kv_lens=kv_lens, q_start=q_start)
     return flash_attention(q, k, v, causal=causal, kv_lens=kv_lens,
-                           q_start=q_start, sm_scale=sm_scale)
+                           q_start=q_start, sm_scale=sm_scale, exact=exact)

@@ -10,10 +10,18 @@ in its body runs in one of them:
     residual -> K3 LN2 -> K2 fc1 + bias + GELU -> K2 fc2 + bias + residual
 
 K2 (`csrc/gemm_epilogue.cu`) is a bf16 GEMM with the bias / GELU / residual
-epilogue fused (TMA, wgmma, a persistent grid). Windows shorter than K1's
-128-row query tile are packed into one (eight of 16 tokens, two of 64) with
-a block-diagonal `win` mask (`window_fold`). Fusing the chain into one launch, so that
-the activation is read once as on the TPU, is queued in ROADMAP.md.
+epilogue fused (TMA, wgmma, a persistent grid). Its f32 route
+(`csrc/gemm_f32.cu`, counted as "gemm:simt_f32") computes the same function
+with f32 products on the CUDA cores and the erf GELU; `gemm_epilogue`
+dispatches by dtype. Windows shorter than K1's 128-row query tile are packed
+into one (eight of 16 tokens, two of 64) with a block-diagonal `win` mask
+(`window_fold`). Fusing the chain into one launch, so that the activation
+is read once as on the TPU, is queued in ROADMAP.md.
+
+Training: under a gradient `fused_window_block` runs the chain inside
+`_FusedBlock`, whose backward recomputes through `_fused_block_ref` on the
+saved input and parameters, as the JAX `custom_vjp` does
+(fused_block.py:219-235).
 
 The plain twin `_fused_block_ref` mirrors the JAX reference op for op:
 LayerNorm with f32 statistics, products with f32 accumulation rounded to
@@ -31,7 +39,8 @@ from . import _cuda
 from .attention import K1_BM, attention_fwd_kernel
 from .norms import _layer_norm_plain, row_norm
 
-# launches: "block" (fused_window_block on the kernel path), "gemm" (K2)
+# launches: "block" (fused_window_block on the kernel path), "gemm" (K2,
+# either route), "gemm:simt_f32" (K2's f32 route)
 LAUNCHES = collections.Counter()
 
 PKEYS = ("ln1_weight", "ln1_bias", "qkv_weight", "qkv_bias", "proj_weight",
@@ -94,8 +103,8 @@ def _fused_block_ref(x, p, num_heads: int, eps: float = 1e-6):
 # ---------------------------------------------------------------------------
 # K2: GEMM + fused epilogue
 # ---------------------------------------------------------------------------
-def _gemm_fn():
-    fn = _cuda.load("gemm_epilogue").lib.vgt_gemm_epilogue
+def _gemm_fn(name: str = "gemm_epilogue", entry: str = "vgt_gemm_epilogue"):
+    fn = getattr(_cuda.load(name).lib, entry)
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [P, L, P, P, P, L, P, L, I, I, I, I, P]
@@ -105,29 +114,37 @@ def _gemm_fn():
 
 def gemm_epilogue(a, w, bias=None, *, gelu: bool = False, residual=None):
     """K2 wrapper: act(a @ w^T + bias) (+ residual). a: [M,K]; w: [N,K]
-    (nn.Linear layout); bias: [N]; residual: [M,N]. GELU is the tanh form,
-    the rule for bf16. A CPU tensor takes the plain twin; a CUDA tensor
-    launches K2 or raises (bf16 only)."""
+    (nn.Linear layout); bias: [N]; residual: [M,N]. A CPU tensor takes the
+    plain twin; a CUDA tensor launches K2 or raises. bf16 operands take the
+    wgmma kernel (GELU in the tanh form, the rule for bf16); f32 operands
+    take the f32 route `csrc/gemm_f32.cu` (f32 FFMA, the erf GELU of
+    `_erf_as`), K2's only way in for f32."""
     if a.device.type == "cpu":
         return _gemm_plain(a, w, bias, gelu=gelu, residual=residual)
     M, K = a.shape
     N = w.shape[0]
-    _cuda.check_operand(a, "a", torch.bfloat16)
-    _cuda.check_operand(w, "w", torch.bfloat16)
+    if a.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gemm_epilogue: expected bf16 or f32 operands, got "
+                         f"{a.dtype}")
+    dt = a.dtype
+    _cuda.check_operand(a, "a", dt)
+    _cuda.check_operand(w, "w", dt)
     if w.shape != (N, K) or not w.is_contiguous():
         raise ValueError("gemm_epilogue: w must be a contiguous [N, K]")
     if K % 8 or N % 8:
         raise ValueError(f"gemm_epilogue: K={K} and N={N} must be multiples of 8")
     if bias is not None:
-        _cuda.check_operand(bias, "bias", torch.bfloat16)
+        _cuda.check_operand(bias, "bias", dt)
         if bias.shape != (N,):
             raise ValueError("gemm_epilogue: bias must be [N]")
     if residual is not None:
-        _cuda.check_operand(residual, "residual", torch.bfloat16)
+        _cuda.check_operand(residual, "residual", dt)
         if residual.shape != (M, N):
             raise ValueError("gemm_epilogue: residual must be [M, N]")
-    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    err = _gemm_fn()(
+    f32 = dt == torch.float32
+    fn = _gemm_fn("gemm_f32", "vgt_gemm_f32") if f32 else _gemm_fn()
+    out = torch.empty((M, N), dtype=dt, device=a.device)
+    err = fn(
         a.data_ptr(), a.stride(0), w.data_ptr(),
         bias.data_ptr() if bias is not None else None,
         residual.data_ptr() if residual is not None else None,
@@ -136,6 +153,8 @@ def gemm_epilogue(a, w, bias=None, *, gelu: bool = False, residual=None):
         _cuda.stream_ptr(a))
     _cuda.check_launch(err, "gemm_epilogue")
     LAUNCHES["gemm"] += 1
+    if f32:
+        LAUNCHES["gemm:simt_f32"] += 1
     return out
 
 
@@ -150,7 +169,7 @@ def window_fold(NW: int, S: int) -> int:
     return f if f > 1 and NW % f == 0 else 1
 
 
-def _fused_block_kernels(x, p, num_heads: int, eps: float):
+def _fused_block_kernels(x, p, num_heads: int, eps: float, exact: bool):
     NW, S, C = x.shape
     H = num_heads
     hd = C // H
@@ -168,7 +187,7 @@ def _fused_block_kernels(x, p, num_heads: int, eps: float):
         qkv5[:, :, 2].transpose(1, 2),
         attn.view(B_, S_, H, hd).transpose(1, 2),
         causal=False, sm_scale=hd ** -0.5, mode="window",
-        win=S if f > 1 else 0)
+        win=S if f > 1 else 0, exact=exact)
     x1 = gemm_epilogue(attn, p["proj_weight"], p["proj_bias"], residual=x2)
     h2 = row_norm(x1, p["ln2_weight"], p["ln2_bias"], eps, rms=False)
     mid = gemm_epilogue(h2, p["fc1_weight"], p["fc1_bias"], gelu=True)
@@ -177,15 +196,60 @@ def _fused_block_kernels(x, p, num_heads: int, eps: float):
     return y.view(NW, S, C)
 
 
-def fused_window_block(x, p, num_heads: int, *, eps: float = 1e-6):
+class _FusedBlock(torch.autograd.Function):
+    """Counterpart of the block's `custom_vjp` (fused_block.py:219-235):
+    the forward is `launch(x, *params)` (the kernel chain, or the plain
+    twin for CPU tensors); the backward recomputes through
+    `_fused_block_ref` on the saved input and parameters and returns the
+    gradients of x and of the 12 parameters (PKEYS order) that ask for
+    one."""
+
+    @staticmethod
+    def forward(ctx, launch, num_heads, eps, x, *params):
+        ctx.save_for_backward(x, *params)
+        ctx.num_heads, ctx.eps = num_heads, eps
+        return launch(x, *params)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            y = _fused_block_ref(ins[0], dict(zip(PKEYS, ins[1:])),
+                                 ctx.num_heads, ctx.eps)
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(y, wrt, dout))
+        return (None, None, None,
+                *(next(got) if n else None for n in need))
+
+
+def fused_window_block(x, p, num_heads: int, *, eps: float = 1e-6,
+                       exact: bool = False):
     """Full windowed transformer block over window tokens.
 
     x: [NW, S, C]; p: dict of PKEYS (nn.Linear layout). Returns [NW, S, C].
-    A CPU tensor takes the plain twin."""
+    A CPU tensor takes the plain twin. On the card the chain runs in x's
+    dtype: bf16, or f32, where K2 takes its f32 route and K1 the route that
+    `k1_route(dtype, hd, exact)` names ("simt_f32" for a model whose
+    compute dtype is f32, which passes exact=True). When x or a parameter
+    asks for a gradient (and grad mode is on) the chain runs inside
+    `_FusedBlock`, whose backward is the recompute through the plain twin:
+    no kernel output under a gradient lacks a grad_fn."""
     NW, S, C = x.shape
     hd = C // num_heads
+    eps = float(eps)
     # fused_block.py:248
     if (x.is_cuda and S in (16, 64, 256) and hd <= 128
             and C == num_heads * hd):
-        return _fused_block_kernels(x, p, num_heads, float(eps))
-    return _fused_block_ref(x, p, num_heads, float(eps))
+        def launch(x_, *ps):
+            return _fused_block_kernels(x_, dict(zip(PKEYS, ps)), num_heads,
+                                        eps, exact)
+    else:
+        def launch(x_, *ps):
+            return _fused_block_ref(x_, dict(zip(PKEYS, ps)), num_heads, eps)
+    params = [p[k] for k in PKEYS]
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or any(t.requires_grad for t in params)):
+        return _FusedBlock.apply(launch, num_heads, eps, x, *params)
+    return launch(x, *params)

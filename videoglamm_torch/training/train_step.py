@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional
 import torch
 
 from ..config import TrainConfig, VideoGLaMMConfig
+from ..models.common import full_precision, set_exact_f32
 from ..models.videoglamm import VideoGLaMM
 
 # The five patterns of train_step.py:36-39 over the port's parameter names.
@@ -158,12 +159,18 @@ def make_train_step(model, tx: AdamW, grad_accum: int = 1):
     parameters must be the model's own (`create_train_state(model, tx)`).
     metrics: 0-d tensors (reading one synchronises). With a `timings` dict,
     the forward, backward and optimizer stages are synchronised and their
-    wall seconds added up there."""
+    wall seconds added up there. A model whose compute dtype is f32 steps
+    with TF32 off (`full_precision`)."""
     trainable = set(tx.trainable)
     for name, p in model.named_parameters():
         p.requires_grad_(name in trainable)
+    f32 = model.exact_f32
 
     def train_step(state: TrainState, batch, timings: Optional[dict] = None):
+        with full_precision(f32):
+            return _step(state, batch, timings)
+
+    def _step(state: TrainState, batch, timings: Optional[dict]):
         def clock(stage, t0):
             if timings is None:
                 return t0
@@ -227,7 +234,9 @@ def build_training(cfg: VideoGLaMMConfig, tcfg: TrainConfig,
     Without one, `init` (a callable that fills the model in place) or
     torch's default initialisation stands in.
     dtype: the compute dtype. Frozen weights are stored in it; trainable
-    ones keep f32 masters and are cast at use."""
+    ones keep f32 masters and are cast at use. An f32 model takes the
+    full-precision f32 routes of K1 (with the LSE), K2 and K6 on the card
+    (`models.common.set_exact_f32`) and steps with TF32 off."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -243,6 +252,7 @@ def build_training(cfg: VideoGLaMMConfig, tcfg: TrainConfig,
         init(model)
     if dtype != torch.float32:
         model.to_compute_dtype(dtype, keep_masters=True)
+    set_exact_f32(model, dtype == torch.float32)
     tx = make_optimizer(tcfg, model)
     state = create_train_state(model, tx)
     return Training(model, tx, state,
