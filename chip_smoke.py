@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the videoglamm_torch port once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,sam1,train,cli,parity,f32,towers]
+    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,sam1,train,cli,parity,f32,f32q,towers]
 
 Run from the root of a checkout. `--phases` (default all, as the contract
 runs it) picks phases 3 (kernels), the experiment harnesses, 4-5 (serve and
 check), 6 (predictors), 7 (sam1), 8-10 (train), 11 (cli), 12 (parity), 13
-(f32) and 14 (towers) to run; the build always runs.
+(f32), 14 (f32q) and 15 (towers) to run; the build always runs.
 Phases, each fatal on failure:
 
 1. device: needs CUDA; prints the card's name and power limit
@@ -252,7 +252,25 @@ Phases, each fatal on failure:
    peak memory), and a narrow f32 model on the card against its CPU f32
    twin within relative L2 1e-4: teacher-forced logits, mask logits, one
    training micro-step's loss and every trainable gradient;
-14. towers: `freeze_towers=False` on a narrow model with Hiera-L's widths
+14. f32q: the f32 routes of K4 (`vgt_decode_attention_q8_f32`), K5 (the
+   `_f32` entries of dequant_gemv), K7 and K8 (K1's full-precision body
+   from their wrappers) against their f32 twins with TF32 off, relative L2
+   and max-norm ratio within 2e-6, each timed beside its bound, its twin
+   and, for K7 and K8, SDPA in f32: K4 at Phi-3 over 32 stacked layers and
+   at Llama-3.1-8B's GQA (two calls bit-equal), K5 int8 and int4 at the
+   five Phi-3 decode products for 1, 2, 3, 4, 8 and 64 rows, K7 at
+   [4,1,1024,256], K8 at the unhoisted Hiera-L's three small-window shapes.
+   Then the f32 flagship with int8 weights and the int8 cache (2 framewise
+   requests; its Hiera-L unhoisted against hoisted in f32), with int4
+   weights (1 request) and at SAM image size 512 on the video branch (1
+   request), each by the bf16 formula on the f32 routes (K4, K5 and K7
+   never on their bf16 counters, nothing staged); a narrow f32 model with
+   int8 weights and cache on the card against its CPU f32 twin through
+   prefill and cached decode (logits, [SEG] hidden states, masks; the two
+   caches compared code by code); and `verify_parity --dtype f32 --stages
+   import,quant --int4 --tokens_advisory` at flagship scale (launches by
+   `parity_expected` on the f32 routes) and at tiny scale, both exit 0;
+15. towers: `freeze_towers=False` on a narrow model with Hiera-L's widths
    (head dim 72) whose projectors, an InternVideo2 block, a CLIP layer, a
    Hiera global block and a Hiera window block train: their gradients on
    the card in bf16 and in f32 against the CPU f32 twin (K1 BSHD with its
@@ -1577,6 +1595,14 @@ def read_counts() -> dict:
         "attention_fwd_f32": attention["route:simt_f32"],
         "gemm_epilogue_f32": fused_block["gemm:simt_f32"],
         "flash_bwd_f32": attention["flash_bwd:simt_f32"],
+        # the f32 routes of K4, K5, K7 and K8 (an f32 model's serving
+        # kernels), counted under these names only, never under their
+        # kernel's bf16 counter above
+        "decode_attention_q8_f32": attention["decode_q8:f32"],
+        "dequant_gemv_f32[int8]": quant["gemv_int8:f32"],
+        "dequant_gemv_f32[int4]": quant["gemv_int4:f32"],
+        "window_attention_f32": attention["window:simt_f32"],
+        "smallwin_attention_f32": attention["smallwin:simt_f32"],
     }
 
 
@@ -1590,6 +1616,9 @@ EXPECTED_TOWERS = {"attention_fwd[causal]": 32, "attention_fwd[flash]": 3,
                    "k1_route[wgmma]": K1_WGMMA, "k1_route[wgmma_f32]": 0,
                    "stage_bf16": 0, "attention_fwd_f32": 0,
                    "gemm_epilogue_f32": 0, "flash_bwd_f32": 0,
+                   "decode_attention_q8_f32": 0, "dequant_gemv_f32[int8]": 0,
+                   "dequant_gemv_f32[int4]": 0, "window_attention_f32": 0,
+                   "smallwin_attention_f32": 0,
                    "fused_window_block": 42, "gemm_epilogue": 168,
                    "flash_bwd": 0, "attention_fwd[flash_d256]": 0,
                    "window_attention": 0, "smallwin_attention": 0,
@@ -1662,15 +1691,26 @@ EXPECTED_PER_REQUEST["llama"] = dict(
     EXPECTED_PER_REQUEST["bf16"], **{"decode_attention_q8": DECODE_Q8})
 
 
+# the kernels whose f32 route counts under a name of its own instead
+F32_ROUTE_OF = {"decode_attention_q8": "decode_attention_q8_f32",
+                "dequant_gemv[int8]": "dequant_gemv_f32[int8]",
+                "dequant_gemv[int4]": "dequant_gemv_f32[int4]",
+                "window_attention": "window_attention_f32",
+                "smallwin_attention": "smallwin_attention_f32"}
+
+
 def f32_formula(bf16: dict) -> dict:
     """An f32 model's launches from the bf16 model's: every K1 launch on
     the "simt_f32" route (attention_fwd_f32), none on a wgmma route and
-    nothing staged; K2 and K6 as often, each on its f32 route."""
+    nothing staged; K2 and K6 as often, each on its f32 route; K4, K5, K7
+    and K8 as often, each on its f32 route and none on its bf16 one."""
     out = dict(bf16)
     out["attention_fwd_f32"] = bf16["k1_route[wgmma]"] + bf16["k1_route[wgmma_f32]"]
     out.update({"k1_route[wgmma]": 0, "k1_route[wgmma_f32]": 0,
                 "stage_bf16": 0, "gemm_epilogue_f32": bf16["gemm_epilogue"],
                 "flash_bwd_f32": bf16["flash_bwd"]})
+    for name, f32 in F32_ROUTE_OF.items():
+        out[f32], out[name] = bf16[name], 0
     return out
 
 
@@ -1682,6 +1722,15 @@ EXPECTED_PER_REQUEST["f32_track"] = f32_formula(dict(
     **{"attention_fwd[flash_d256]": TRACK_SELF_ATTN,
        "k1_route[wgmma_f32]": TRACK_SELF_ATTN, "stage_bf16": TRACK_SELF_ATTN}))
 EXPECTED_PER_MICRO_STEP_F32 = f32_formula(EXPECTED_PER_MICRO_STEP)
+# the f32 flagship with quantised weights: the int8 main path and the int4
+# path on the f32 routes of K4 and K5; the video branch at SAM image size
+# 512 on the int8 model, its memory self-attention on K7's f32 route
+EXPECTED_PER_REQUEST["f32_int8"] = f32_formula(EXPECTED_PER_REQUEST["int8"])
+EXPECTED_PER_REQUEST["f32_int4"] = f32_formula(EXPECTED_PER_REQUEST["int4"])
+EXPECTED_PER_REQUEST["f32_track512"] = f32_formula(dict(
+    EXPECTED_PER_REQUEST["int8"],
+    **{"attention_fwd[flash]": 0, "attention_fwd[bshd]": 62 + 3,
+       "window_attention": TRACK_SELF_ATTN, "stage_bf16": TRACK_SELF_ATTN}))
 
 
 def phase_serve(gi, cfg, mode: str, requests, raw: bool, track: bool = False,
@@ -2260,14 +2309,17 @@ def profile_track(gi, cfg, raw):
                     f"x{sum(e.count for e in es)}" for name, es in mem if es))
 
 
-def phase_unhoisted_hiera(trunk):
+def phase_unhoisted_hiera(trunk, dtype=None, tol=TOL_HOIST):
     """`Hiera(hoist_layout=False)` on 8 flagship frames against the hoisted
     encoder of the same weights: every windowed block partitions on its own
     and takes the unfused branches (stage 1 and 2: K8; stage 3: K1 under a
-    block-diagonal mask over two folded 256-token windows)."""
+    block-diagonal mask over two folded 256-token windows). dtype: the
+    frames' (bf16 by default); an f32 trunk of an f32 model takes K8's f32
+    route, counted apart."""
     import torch
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(31)
-    x = torch.randn(8, 1024, 1024, 3, generator=g, device="cuda").bfloat16()
+    x = torch.randn(8, 1024, 1024, 3, generator=g, device="cuda").to(dtype)
 
     def run(hoist):
         trunk.hoist_layout = hoist
@@ -2293,7 +2345,10 @@ def phase_unhoisted_hiera(trunk):
     # global blocks stay on K1 flash; no fused block
     want = {"smallwin_attention": 10, "attention_fwd[bshd]": 32,
             "attention_fwd[flash]": 3, "fused_window_block": 0,
-            "attention_fwd[window]": 0}
+            "attention_fwd[window]": 0, "smallwin_attention_f32": 0,
+            "stage_bf16": 0}
+    if dtype == torch.float32:
+        want.update(smallwin_attention=0, smallwin_attention_f32=10)
     for name, n in want.items():
         if c_p[name] != n:
             raise AssertionError(f"unhoisted Hiera: {name} launched "
@@ -2302,13 +2357,15 @@ def phase_unhoisted_hiera(trunk):
         raise AssertionError(f"hoisted Hiera: launches {c_h}")
     for i, (a, b) in enumerate(zip(plain, hoisted)):
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
-        ok = rel <= TOL_HOIST and bool(torch.isfinite(a).all())
-        log(f"  unhoisted Hiera stage {i} {tuple(a.shape)}: rel L2 against the "
-            f"hoisted path {rel:.3e} (tol {TOL_HOIST:g}) {'ok' if ok else 'MISS'}")
+        ok = rel <= tol and bool(torch.isfinite(a).all())
+        log(f"  unhoisted Hiera stage {i} {tuple(a.shape)} {a.dtype}: rel L2 "
+            f"against the hoisted path {rel:.3e} (tol {tol:g}) "
+            f"{'ok' if ok else 'MISS'}")
         if not ok:
             raise AssertionError("unhoisted Hiera disagrees with the hoisted path")
+    k8 = c_p["smallwin_attention"] + c_p["smallwin_attention_f32"]
     log(f"  Hiera-L on 8 frames: hoisted {t_h:.3f} s (42 fused blocks), "
-        f"unhoisted {t_p:.3f} s (K8 x{c_p['smallwin_attention']}, K1 "
+        f"unhoisted {t_p:.3f} s (K8 x{k8}, K1 "
         f"super-windows x{c_p['attention_fwd[bshd]']})")
     return c_p
 
@@ -5319,6 +5376,400 @@ def phase_f32_small(seed: int):
                ref.tx.trainable, TOL_F32_MODEL, TOL_F32_MODEL)
 
 
+# ---------------------------------------------------------------------------
+# f32 through every serving kernel: the f32 routes of K4, K5, K7 and K8, the
+# f32 flagship with int8 / int4 weights and the int8 cache, a narrow f32
+# model with quantised weights against its CPU twin, verify_parity in f32
+# ---------------------------------------------------------------------------
+TOL_F32_SERVE = 2e-6    # relative L2 of K4's, K5's, K7's and K8's f32 routes
+                        # against their f32 twins (TF32 off): the same f32
+                        # products summed in another order (the f32 routes
+                        # of K1, K2 and K6 reach 1.7e-6); a bf16 rounding
+                        # gives 1e-3. Their max-norm ratio is held at
+                        # TOL_F32_ROUTE: the worst of 2 million K5 outputs at
+                        # M = 64 read 2.5e-6 on an NVIDIA H100 80GB HBM3,
+                        # 700.00 W
+TOL_F32_HOIST = 1e-4    # relative L2, the unhoisted f32 Hiera-L (K8 f32,
+                        # super-windows, plain norms and linears) against the
+                        # hoisted one (fused blocks) over 48 blocks
+TOL_F32_QUANT_LOOSE = 2e-2  # a narrow f32 model with the int8 cache, card vs
+                        # CPU, once a code of the two caches differs: a
+                        # last-bit difference before round() moves a code by
+                        # one, its row by amax/127 (tests/test_torch_slice_quant.py)
+N_F32Q_REQUESTS = 2     # framewise f32 requests with int8 weights and cache
+K5_F32_ROWS = (1, 2, 3, 4, 8, 64)
+PHI3_PRODUCTS = (("qkv_proj", 3072, 9216), ("o_proj", 3072, 3072),
+                 ("gate_up_proj", 3072, 16384), ("down_proj", 8192, 3072),
+                 ("lm_head", 3072, 32065))
+
+
+def phase_f32q_kernels(K: Kernels, cfg):
+    """The f32 routes of K4, K5, K7 and K8 against their f32 twins with TF32
+    off at the f32 model's path shapes, relative L2 within TOL_F32_SERVE
+    (max-norm ratio within TOL_F32_ROUTE),
+    each timed beside its bound and its twin (K7 and K8 also beside SDPA in
+    f32; K4 and K5 have no one-call library counterpart): K4 at Phi-3 over
+    a stacked 32-layer cache (698 MB, past L2) and at Llama-3.1-8B's GQA,
+    equal bits on a repeat; K5 int8 and int4 at the five Phi-3 decode
+    products for 1, 2, 3, 4, 8 and 64 rows (timed over weight copies past
+    L2); K7 at the memory self-attention [4,1,1024,256]; K8 at the
+    unhoisted Hiera-L's three small-window shapes over 8 frames."""
+    import torch
+    import torch.nn.functional as F
+    from videoglamm_torch.ops import attention as A
+    from videoglamm_torch.ops import quant as Q
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    randn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+
+    # K4: as the bf16 case of phase_kernels, f32 q and out
+    def decode_case(L, Hq, Hkv, hd, C, kv_len, layer, key, label):
+        HD = Hkv * hd
+        kc, vc = (torch.randint(-127, 128, (L, 1, C, HD), dtype=torch.int8,
+                                generator=g, device="cuda") for _ in range(2))
+        ks, vs = (torch.rand(L, 1, Hkv, C, generator=g, device="cuda") * 0.02
+                  + 0.005 for _ in range(2))
+        dq = randn(1, Hq, 1, hd)
+        kvl = torch.tensor([kv_len], device="cuda", dtype=torch.int32)
+        rot = itertools.count()
+
+        def launch(layer_):
+            return A.dot_product_attention(dq, kc, vc, causal=True, kv_lens=kvl,
+                                           q_start=kvl - 1, k_scale=ks,
+                                           v_scale=vs, layer=layer_)
+
+        a, b = launch(layer), launch(layer)
+        torch.cuda.synchronize()
+        if a.dtype != torch.float32 or not torch.equal(a, b):
+            raise AssertionError(f"{label}: not f32, or repeats differ")
+        nb = 2 * kv_len * HD + 2 * Hkv * kv_len * 4 + 2 * Hq * hd * 4
+        K.compare(key, label + " (two calls bit-equal)", lambda: launch(layer),
+                  lambda: A._decode_attention_q8_plain(
+                      dq, kc, vc, ks, vs, sm_scale=hd ** -0.5, kv_lens=kvl,
+                      layer=layer), TOL_F32_ROUTE, tol_l2=TOL_F32_SERVE,
+                  nbytes=nb, ops=4 * Hq * kv_len * hd, rate="f32", graphed=True,
+                  timed_fn=lambda: launch(next(rot) % L))
+        del kc, vc, ks, vs
+
+    decode_case(32, 32, 32, 96, 3456, 3400, 17, "decode_attention_q8_f32",
+                "K4 f32 decode Phi-3 [1,32,1,96] over [32,1,3456,3072] int8, "
+                "layer 17, kv_len 3400")
+    decode_case(32, 32, 8, 128, 3456, 3400, 2, "decode_attention_q8_f32@gqa",
+                "K4 f32 decode GQA G=4 [1,32,1,128] over [32,1,3456,1024] int8, "
+                "layer 2, kv_len 3400")
+    torch.cuda.empty_cache()
+
+    # K5: f32 x at every row count on the CUDA cores, tiles of 4 rows
+    sums = {}
+    for what, Kd, Nd in PHI3_PRODUCTS:
+        wf = randn(Nd, Kd) * Kd ** -0.5
+        q8, s8 = Q.quantize_int8(wf)
+        q8 = Q.pad_rows8(q8)
+        p4, s4 = Q.quantize_int4(wf, 128)
+        del wf
+        ring = max(2, min(16, math.ceil(150e6 / (Nd * Kd))))
+        ring8 = [q8] + [q8.clone() for _ in range(ring - 1)]
+        ring4 = [(p4, s4)] + [(p4.clone(), s4.clone())
+                              for _ in range(2 * ring - 1)]
+        r8, r4 = itertools.count(), itertools.count()
+        for M in K5_F32_ROWS:
+            x = randn(M, Kd)
+            io = 4 * M * (Kd + Nd)
+            tiles = -(-M // Q.K5_F32_MT)
+            main = what == "gate_up_proj" and M in (1, 64)
+            for kind, nb, kern, plain, timed in (
+                    ("int8", Nd * Kd + 4 * Nd + io,
+                     lambda: Q.dequant_matmul(x, q8, s8),
+                     lambda: Q._dequant_matmul_plain(x, q8, s8),
+                     lambda: Q.dequant_matmul(x, ring8[next(r8) % len(ring8)], s8)),
+                    ("int4", Nd * Kd // 2 + 4 * Nd * Kd // 128 + io,
+                     lambda: Q.dequant4_matmul(x, p4, s4, 128),
+                     lambda: Q._dequant4_matmul_plain(x, p4, s4, 128),
+                     lambda: Q.dequant4_matmul(x, *ring4[next(r4) % len(ring4)], 128))):
+                key = (f"dequant_gemv_f32[{kind}]" + ("" if M == 1 else f"@M={M}")
+                       if main else None)
+                ms = K.compare(key, f"K5 f32 {kind} {what} M={M} [{Nd},{Kd}] "
+                               f"({tiles} pass{'es' if tiles > 1 else ''} over "
+                               "the weights)", kern, plain, TOL_F32_ROUTE,
+                               tol_l2=TOL_F32_SERVE, nbytes=nb,
+                               ops=2 * M * Nd * Kd, rate="f32", graphed=True,
+                               timed_fn=timed)
+                t = sums.setdefault((kind, M), [0.0, 0.0])
+                t[0] += ms
+                t[1] += max(nb / HBM_BYTES_S, 2 * M * Nd * Kd / PEAK_OPS["f32"]) * 1e3
+            del x
+        del ring8, ring4, q8, p4, s4
+        torch.cuda.empty_cache()
+    for (kind, M), (ms, bound) in sorted(sums.items()):
+        log(f"  K5 f32 {kind} M={M}, sum of the five Phi-3 products: {ms:.4f} ms "
+            f"back to back, bound {bound:.4f} ms ({bound / ms:.1%} of it)")
+
+    # K7: the memory self-attention at the 32x32 grid
+    q, k, v = (randn(4, 1, 1024, 256) for _ in range(3))
+    nb, ops = attn_cost(4, 1, 1024, 1024, 256, elt=4)
+    K.compare("window_attention_f32", "K7 f32 memory self-attention "
+              "[4,1,1024,256] (an f32 model: nothing staged)",
+              lambda: A.dot_product_attention(q, k, v, exact=True),
+              lambda: A._window_attention_plain(q, k, v, 256 ** -0.5),
+              TOL_F32_ROUTE, tol_l2=TOL_F32_SERVE, nbytes=nb, ops=ops,
+              rate="f32", graphed=True,
+              library_fn=lambda: F.scaled_dot_product_attention(q, k, v))
+    del q, k, v
+
+    # K8: Hiera-L's small windows over 8 frames without hoisting (stage 1:
+    # 8x8 windows of a 256x256 grid, stage 2: 4x4 of 128x128, stage 4: 8x8
+    # of 32x32)
+    for stage, NW, Sw, H in ((1, 8192, 64, 2), (2, 8192, 16, 4), (4, 128, 64, 16)):
+        hd = 72
+        qkv = randn(NW, Sw, 3 * H * hd)
+        wins = [qkv.view(NW, Sw, 3, H, hd)[:, :, i].transpose(1, 2)
+                for i in range(3)]
+        nb, ops = attn_cost(NW, H, Sw, Sw, hd, elt=4)
+        K.compare("smallwin_attention_f32" + ("" if stage == 1 else f"@stage{stage}"),
+                  f"K8 f32 Hiera-L stage {stage} windows [{NW},{Sw},{3 * H * hd}] "
+                  f"H={H}", lambda: A.attention_packed_qkv_smallwin(
+                      qkv, H, hd, exact=True),
+                  lambda: A._smallwin_plain(qkv, H, hd ** -0.5), TOL_F32_ROUTE,
+                  tol_l2=TOL_F32_SERVE, nbytes=nb, ops=ops, rate="f32",
+                  library_fn=lambda: F.scaled_dot_product_attention(*wins))
+        del qkv, wins
+        torch.cuda.empty_cache()
+
+
+def phase_f32q_serve(cfg):
+    """The flagship in f32 with quantised weights through
+    `build_inference(dtype=torch.float32, quant=..., kv_cache="int8")`:
+    N_F32Q_REQUESTS framewise requests with int8 weights (the main path's
+    mode in f32), the unhoisted Hiera-L against the hoisted one in f32 on
+    that model's trunk, one request with int4 weights, and one video-branch
+    request at SAM image size 512 with int8 weights. Launches by the bf16
+    formulas on the f32 routes: K4, K5 and K7 never on their bf16 counters,
+    nothing staged. Returns the launch counts of the int8, int4, tracking
+    and unhoisted runs."""
+    import torch
+    from videoglamm_torch.inference.pipeline import build_inference
+
+    def f32_model(c, quant, what):
+        t0 = time.perf_counter()
+        gi = build_inference(
+            c, device="cuda", dtype=torch.float32, quant=quant,
+            kv_cache="int8", max_new_tokens=MAX_NEW,
+            init=lambda m: seeded_init(
+                m, torch.Generator(device="cuda").manual_seed(0)))
+        torch.cuda.synchronize()
+        log(f"  flagship VideoGLaMM in f32, {what}: built in "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
+            f"exact_f32={gi.model.exact_f32}")
+        if not (gi.model.exact_f32 and gi.model.quant_kv_int8
+                and gi.model.llm.quant == quant):
+            raise AssertionError(f"f32 {what}: build_inference built {gi.model}")
+        return gi
+
+    raw = [make_raw_request(cfg, 400 + i) for i in range(N_F32Q_REQUESTS)]
+    gi = f32_model(cfg, "int8", "int8 weights, int8 cache")
+    results, counts8 = phase_serve(gi, cfg, "f32_int8", raw, raw=True)
+    check_outputs(cfg, results, "f32 int8")
+    del results
+    hoist_counts = phase_unhoisted_hiera(
+        gi.model.visual_model.image_encoder.trunk, dtype=torch.float32,
+        tol=TOL_F32_HOIST)
+    del gi
+    torch.cuda.empty_cache()
+
+    gi = f32_model(cfg, "int4", "int4 weights, int8 cache")
+    results, counts4 = phase_serve(gi, cfg, "f32_int4", raw[:1], raw=True)
+    check_outputs(cfg, results, "f32 int4")
+    del gi, results
+    torch.cuda.empty_cache()
+
+    cfg512 = dataclasses.replace(
+        cfg, sam2=dataclasses.replace(cfg.sam2, image_size=512))
+    gi = f32_model(cfg512, "int8", "int8 weights, int8 cache, SAM image size 512")
+    results, track_counts = phase_serve(gi, cfg512, "f32_track512", raw[:1],
+                                        raw=True, track=True)
+    check_outputs(cfg512, results, "f32 video branch at 512",
+                  t_sam=cfg.num_frames)
+    del gi, results
+    torch.cuda.empty_cache()
+    return counts8, counts4, track_counts, hoist_counts
+
+
+def phase_f32q_small(seed: int):
+    """A narrow f32 model (`small_config`) with int8 weights and the int8
+    cache on the card against the same codes in f32 on the CPU, teacher-
+    forced through the model's own prefill and cached decode steps (K5
+    f32 on every product, W8A8 left out by raising its gate on both sides,
+    and K4 f32 at every step): the decode logits, the [SEG] hidden states
+    and the mask logits of the forced [SEG] prompts. The two int8 caches
+    are compared code by code: with none differing the outputs are held at
+    TOL_F32_MODEL, else at TOL_F32_QUANT_LOOSE with under 1e-3 of the codes
+    differing, by one."""
+    import torch
+    from videoglamm_torch.inference.generate import decode_step, prefill
+    from videoglamm_torch.inference.pipeline import build_inference
+    from videoglamm_torch.models.common import QDense
+    from videoglamm_torch.models.videoglamm import SegExtraction
+
+    cfg = small_config()
+    f32 = torch.float32
+    ref = build_inference(cfg, device="cpu", dtype=f32, quant="int8",
+                          kv_cache="int8", init=lambda m: seeded_init(
+                              m, torch.Generator().manual_seed(7))).model
+    dev = build_inference(cfg, ref.state_dict(), device="cuda", dtype=f32,
+                          quant="int8", kv_cache="int8").model
+    g = torch.Generator().manual_seed(seed + 13)
+    T = cfg.num_frames
+    frames = torch.randn(1, T, 224, 224, 3, generator=g)
+    context = torch.randn(1, T, 336, 336, 3, generator=g)
+    sam = torch.randn(1, 1, 1024, 1024, 3, generator=g)
+    ids = torch.randint(1, 32000, (1, S_TEXT), generator=g)
+    ids[:, 2] = -200
+    lens = torch.tensor([S_TEXT])
+    forced = torch.randint(1, 32000, (1, 8), generator=g)
+    forced[0, 2] = forced[0, 5] = cfg.seg_token_idx
+
+    def run(model, device):
+        on = lambda t: t.to(device)
+        n = forced.shape[1]
+        visual = model.encode_visual_prefix(on(frames), on(context))
+        h_pre, cache, sp, last = prefill(model.llm, visual, on(ids), on(lens), n,
+                                         quant_kv=True)
+        logits, hidden = [last], []
+        for i in range(n):
+            lg, h = decode_step(model.llm, cache, on(forced[:, i]),
+                                sp.attn_lens + i)
+            logits.append(lg)
+            hidden.append(h)
+        hidden = torch.stack(hidden, dim=1)
+        # the two forced [SEG] first, the other slots empty (pipeline order)
+        ms = cfg.max_seg_tokens
+        idx = on(torch.tensor([[2, 5] + [0] * (ms - 2)]))
+        valid = on(torch.arange(ms)[None] < 2)
+        pick = hidden[:, idx[0]]
+        seg = SegExtraction(torch.where(valid[..., None],
+                                        model.text_hidden_fcs[0](pick), 0.0),
+                            valid, idx)
+        feats, _ = model.encode_sam_features(on(sam))
+        masks = model.decode_masks(feats, seg, torch.arange(1, device=device))
+        return dict(decode_logits=torch.stack(logits, 1),
+                    seg_hidden=pick[:, :2], masks=masks[:, :2]), cache
+
+    gate = QDense.w8a8_min_m
+    QDense.w8a8_min_m = 1 << 30
+    try:
+        with torch.no_grad():
+            want, cache_ref = run(ref, "cpu")
+            reset_counts()
+            got, cache_dev = run(dev, "cuda")
+            torch.cuda.synchronize()
+            counts = read_counts()
+    finally:
+        QDense.w8a8_min_m = gate
+    flips = 0
+    for key in ("k", "v"):
+        d = (cache_dev[key].cpu().int() - cache_ref[key].int()).abs()
+        if d.max() > 1 or (d > 0).float().mean() >= 1e-3:
+            raise AssertionError(f"narrow f32 int8 model: cache {key} codes "
+                                 f"differ by {int(d.max())} at {(d > 0).float().mean():.2e}")
+        flips += int((d > 0).sum())
+    tol = TOL_F32_QUANT_LOOSE if flips else TOL_F32_MODEL
+    for k, w in want.items():
+        rel = rel_l2(got[k].cpu(), w)
+        log(f"  narrow f32 model, int8 weights and cache, {k} {tuple(w.shape)}: "
+            f"card vs CPU rel L2 {rel:.3e} (tol {tol:g}; {flips} of the "
+            f"caches' codes differ)")
+        if not rel <= tol:
+            raise AssertionError(f"narrow f32 int8 model {k}: the card disagrees")
+    L = cfg.llm.num_layers
+    n = forced.shape[1]
+    if counts["decode_attention_q8_f32"] != n * L or counts["decode_attention_q8"] \
+            or counts["dequant_gemv_f32[int8]"] != (n + 1) * (4 * L + 1) \
+            or counts["dequant_gemv[int8]"] or counts["stage_bf16"] \
+            or counts["k1_route[wgmma]"]:
+        raise AssertionError(f"narrow f32 int8 model: launches {counts}")
+
+
+def phase_f32q_parity(cfg, seed: int, smi: str, ckpt=None):
+    """verify_parity on the card in f32: `--scale flagship --dtype f32
+    --stages import,quant --int4 --tokens_advisory` on a reference-layout
+    checkpoint of seeded weights (the cli phase's when it ran), each
+    clip_run's launches by `parity_expected` on the f32 routes; then
+    `--scale tiny --stages import,quant --int4 --tokens_advisory` (f32 by
+    default) on a tiny checkpoint written here. Both must exit 0. Prints
+    the f32 quant-parity record."""
+    import os
+    import tempfile
+    import torch
+    from videoglamm_torch.cli import verify_parity as vp
+    from videoglamm_torch.config import VideoGLaMMConfig
+
+    with tempfile.TemporaryDirectory() as d:
+        tiny = write_reference_checkpoint(VideoGLaMMConfig.tiny(num_frames=4),
+                                          os.path.join(d, "tiny"))
+        if ckpt is None:
+            ckpt = write_reference_checkpoint(cfg, os.path.join(d, "flagship"))
+        runs = []
+        real = vp.clip_run
+
+        def counted(model, batch):
+            torch.cuda.synchronize()
+            reset_counts()
+            out = real(model, batch)
+            torch.cuda.synchronize()
+            runs.append(read_counts())
+            return out
+
+        reports = {}
+        for scale, paths, extra in (("flagship", ckpt, ["--dtype", "f32"]),
+                                    ("tiny", tiny, [])):
+            argv = ["--scale", scale, "--checkpoint", paths["dir"],
+                    "--internvideo_ckpt", paths["iv"], "--clip_ckpt",
+                    paths["clip"], "--stages", "import,quant", "--int4",
+                    "--tokens_advisory", "--seed", str(seed), "--out_dir",
+                    os.path.join(d, "report"), "--report_name",
+                    f"parity_{scale}_f32.json", *extra]
+            log(f"  verify_parity.main({argv})")
+            t0 = time.perf_counter()
+            vp.clip_run = counted
+            try:
+                rc = vp.main(argv)
+            finally:
+                vp.clip_run = real
+            rep = json.load(open(os.path.join(d, "report", f"parity_{scale}_f32.json")))
+            imp = rep["stages"]["import"]
+            if rc != 0 or not rep["ok"] or rep["serving_dtype"] != "float32" \
+                    or imp["unmatched"] or imp["random_init_modules"]:
+                raise AssertionError(f"verify_parity {scale} f32: rc {rc}, report {rep}")
+            reports[scale] = (rep, time.perf_counter() - t0)
+    if len(runs) != 6:
+        raise AssertionError(f"verify_parity ran clip_run {len(runs)} times")
+    for name, counts in zip(("float", "int8", "int4"), runs[:3]):
+        check_launches(counts, f32_formula(parity_expected(name)),
+                       f"parity f32 {name} run")
+    for name, counts in zip(("float", "int8", "int4"), runs[3:]):
+        if counts["stage_bf16"] or counts["k1_route[wgmma]"] \
+                or counts["decode_attention_q8"] or counts["dequant_gemv[int8]"] \
+                or counts["dequant_gemv[int4]"]:
+            raise AssertionError(f"parity tiny f32 {name} run left the f32 "
+                                 f"routes: {counts}")
+    for scale, (rep, wall) in reports.items():
+        q, r = rep["stages"]["quant"], rep["runs"]
+        log(f"  f32 quant parity ({scale}, {smi}): main() {wall:.1f} s, exit "
+            f"code 0, ok {rep['ok']}, serving dtype {rep['serving_dtype']}")
+        for name in ("float", "int8", "int4"):
+            peak = r[name]["peak_bytes"] or 0
+            log(f"    {name} run: clip_run {r[name]['run_s']:.3f} s, build "
+                f"{r[name]['build_s']:.1f} s, peak device memory "
+                f"{peak / 2**30:.2f} GiB, valid [SEG] {r[name]['seg_valid']}")
+        for mode in ("int8", "int4"):
+            log(f"    {mode}: token agreement {q[mode]['token_agreement']:.4f}, "
+                f"mask IoU {q[mode]['mask_iou']:.4f}, valid [SEG] float "
+                f"{q[mode]['float_seg_valid']} / {mode} {q[mode]['seg_valid']}, "
+                f"ok {q[mode]['ok']}{' (advisory)' if mode == 'int4' else ''}")
+    return runs[1]
+
+
 def towers_config():
     """small_config()'s narrow LLM, CLIP and InternVideo2 (head dims 64 and
     88) with a shallow Hiera at Hiera-L's widths (144 to 1152, head dim 72):
@@ -5467,7 +5918,7 @@ def phase_towers(cfg, seed: int):
 
 
 PHASES = ("kernels", "experiments", "serve", "predictors", "sam1", "train",
-          "cli", "parity", "f32", "towers")
+          "cli", "parity", "f32", "f32q", "towers")
 SOURCES = {
     "attention_fwd": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
     "gemm_epilogue": ("cuda", "videoglamm_torch/csrc/gemm_epilogue.cu"),
@@ -5487,6 +5938,12 @@ SOURCES = {
     "attention_fwd_f32": ("cuda", "videoglamm_torch/csrc/attention_f32.cu"),
     "gemm_epilogue_f32": ("cuda", "videoglamm_torch/csrc/gemm_f32.cu"),
     "flash_bwd_f32": ("cuda", "videoglamm_torch/csrc/attention_f32.cu"),
+    # K4's and K5's f32 routes in their own sources; K7's and K8's through
+    # the full-precision body of K1's f32 route
+    "decode_attention_q8_f32": ("cuda", "videoglamm_torch/csrc/decode_attention_q8.cu"),
+    "dequant_gemv_f32": ("cuda", "videoglamm_torch/csrc/dequant_gemv.cu"),
+    "window_attention_f32": ("cuda", "videoglamm_torch/csrc/attention_f32.cu"),
+    "smallwin_attention_f32": ("cuda", "videoglamm_torch/csrc/attention_f32.cu"),
 }
 REPLACES = {
     "attention_fwd[causal]": "videoglamm_tpu/ops/attention.py:93",
@@ -5517,6 +5974,11 @@ REPLACES = {
     "attention_fwd_f32": "videoglamm_tpu/ops/attention.py:93",
     "gemm_epilogue_f32": "videoglamm_tpu/ops/fused_block.py:108",
     "flash_bwd_f32": "videoglamm_tpu/ops/attention.py:302",
+    "decode_attention_q8_f32": "videoglamm_tpu/ops/attention.py:1061",
+    "dequant_gemv_f32[int8]": "videoglamm_tpu/ops/quant.py:36",
+    "dequant_gemv_f32[int4]": "videoglamm_tpu/ops/quant.py:132",
+    "window_attention_f32": "videoglamm_tpu/ops/attention.py:523",
+    "smallwin_attention_f32": "videoglamm_tpu/ops/attention.py:605",
 }
 
 
@@ -5755,6 +6217,25 @@ def main() -> int:
             phase_f32_small(args.seed)
             torch.cuda.empty_cache()
 
+        if "f32q" in chosen:
+            phase("[f32q] the f32 routes of K4, K5, K7 and K8 against their f32 "
+                  "twins at the f32 model's path shapes")
+            phase_f32q_kernels(K, cfg)
+            torch.cuda.empty_cache()
+            phase(f"[f32q] the flagship in f32 with int8 weights and the int8 "
+                  f"cache ({N_F32Q_REQUESTS} framewise requests, the unhoisted "
+                  "Hiera-L), int4 weights (1 request), and the video branch at "
+                  "SAM image size 512 (1 request), from raw frames")
+            f32q = phase_f32q_serve(cfg)
+            phase("[check] narrow f32 model with int8 weights and the int8 cache "
+                  "on the card against its CPU f32 twin")
+            phase_f32q_small(args.seed)
+            torch.cuda.empty_cache()
+            phase("[f32q] verify_parity --dtype f32 --stages import,quant at "
+                  "flagship and tiny scale")
+            f32q_parity_counts = phase_f32q_parity(cfg, args.seed, smi, ckpt)
+            torch.cuda.empty_cache()
+
         if "towers" in chosen:
             phase("[towers] freeze_towers=False: narrow tower gradients in bf16 "
                   "and f32 against the CPU f32 twin, then one backward through "
@@ -5823,6 +6304,21 @@ def main() -> int:
         counts["flash_bwd_f32"] = f32_train_counts["flash_bwd_f32"]
     else:
         f32_counts = f32_track_counts = f32_train_counts = {}
+    # the f32 routes of K4, K5, K7 and K8: K4's and K5 int8's from the f32
+    # flagship's int8 run (2 requests), K5 int4's from its int4 run (1
+    # request), K7's from its video branch at 512 (1 request), K8's from the
+    # unhoisted f32 Hiera-L; launches_f32q (the int8 run) and
+    # launches_f32q_parity (verify_parity's f32 int8 run at flagship
+    # width) stand beside every kernel
+    if "f32q" in chosen:
+        f32q_counts, f32q4_counts, f32q_track_counts, f32q_hoist_counts = f32q
+        counts["decode_attention_q8_f32"] = f32q_counts["decode_attention_q8_f32"]
+        counts["dequant_gemv_f32[int8]"] = f32q_counts["dequant_gemv_f32[int8]"]
+        counts["dequant_gemv_f32[int4]"] = f32q4_counts["dequant_gemv_f32[int4]"]
+        counts["window_attention_f32"] = f32q_track_counts["window_attention_f32"]
+        counts["smallwin_attention_f32"] = f32q_hoist_counts["smallwin_attention_f32"]
+    else:
+        f32q_counts = f32q_parity_counts = {}
     if "towers" not in chosen:
         towers_counts = {}
     if "experiments" in chosen:
@@ -5846,6 +6342,8 @@ def main() -> int:
                             launches_f32=f32_counts.get(counter),
                             launches_f32_track=f32_track_counts.get(counter),
                             launches_f32_train=f32_train_counts.get(counter),
+                            launches_f32q=f32q_counts.get(counter),
+                            launches_f32q_parity=f32q_parity_counts.get(counter),
                             launches_towers=towers_counts.get(counter), **row))
     log(json.dumps({"kernels": kernels}))
     log(smi)

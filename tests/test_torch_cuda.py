@@ -355,13 +355,15 @@ def test_k4_entry_layout_is_the_plan(dev):
 
 
 def test_k4_refuses_f32_and_unsupported_geometry(dev):
+    """q of another dtype than bf16 or f32 (f32 takes K4's f32 route) and
+    a GQA group K4 has no instantiation for raise."""
     rng = np.random.default_rng(6)
     cache = _int8_cache(rng, 1, 1, 2, 32, 16, dev)
     kv_lens = torch.tensor([32], dtype=torch.int32, device=dev)
     args = (cache["k"], cache["v"], cache["k_scale"], cache["v_scale"], kv_lens)
     with pytest.raises(ValueError):
         attn.decode_attention_q8(_randn(rng, (1, 2, 1, 16), dev,
-                                        dtype=torch.float32), *args,
+                                        dtype=torch.float16), *args,
                                  sm_scale=0.25)
     with pytest.raises(ValueError):      # G = 3
         attn.decode_attention_q8(_randn(rng, (1, 6, 1, 16), dev), *args,
@@ -501,7 +503,8 @@ def test_k5_entry_refuses_a_plan_its_kernels_do_not_fit(dev, int4, M):
 
 def test_k5_routing_and_refusals(dev):
     """Large M leaves K5: W8A8 through the s8 x s8 product (N padded to 8)
-    and int4 through dequantise-then-matmul; f32 operands raise."""
+    and int4 through dequantise-then-matmul; fp16 operands raise (f32 ones
+    take K5's f32 entries)."""
     rng = np.random.default_rng(9)
     K, N = 256, 193
     q, s = quant.quantize_int8(_randn(rng, (N, K), dev, K ** -0.5,
@@ -521,9 +524,9 @@ def test_k5_routing_and_refusals(dev):
     _close(y, ref, 3e-2, "w8a8")
     _close(y4, ref4, 2e-2, "int4 large M")
     with pytest.raises(ValueError):
-        quant.dequant_matmul(x[:2].float(), wq, s)
+        quant.dequant_matmul(x[:2].half(), wq, s)
     with pytest.raises(ValueError):
-        quant.dequant4_matmul(x[:2].float(), p4, s4, 128)
+        quant.dequant4_matmul(x[:2].half(), p4, s4, 128)
 
 
 def _rel_l2(got, ref):
@@ -1491,13 +1494,15 @@ def test_k6_compiles_to_hgmma(dev):
 
 
 def test_k4_compiles_without_i2f(dev):
-    """K4 turns codes into f32 images with byte permutes and FFMAs: no I2F in
-    any instantiation (G = 1 at 16 and 24 dims a lane, G = 2, G = 4), and
-    no runtime integer division either (its reciprocal step is an I2F)."""
+    """K4 turns codes into f32 images with byte permutes and FFMAs (its f32
+    route into signed codes by the magic number): no I2F in any
+    instantiation (G = 1 at 16 and 24 dims a lane, G = 2, G = 4, each bf16
+    and f32), and no runtime integer division either (its reciprocal step
+    is an I2F)."""
     from videoglamm_torch.ops import _cuda
     k4 = _sass_functions(_cuda.load("decode_attention_q8").path)
     body = {n: s for n, s in k4.items() if "decode_q8_kernel" in n}
-    assert len(body) == 4
+    assert len(body) == 8
     for n, s in k4.items():
         assert "I2F" not in s, n
 
@@ -1526,13 +1531,14 @@ def test_k9_compiles_without_i2f(dev):
 def test_k5_compiles_without_i2f(dev):
     """K5's int -> float steps are magic-number integer logic and FADDs (or
     bf16 subtractions): no I2F anywhere in its kernels, at every
-    instantiation (int8 / int4 x one to three rows on the CUDA cores / the
-    tensor-core route), and only the tensor-core route issues mma (HMMA)."""
+    instantiation (int8 / int4 x one to three rows on the CUDA cores with
+    bf16 x, one to four with f32 x / the tensor-core route), and only the
+    tensor-core route issues mma (HMMA)."""
     from videoglamm_torch.ops import _cuda
     k5 = _sass_functions(_cuda.load("dequant_gemv").path)
     rows = {n: s for n, s in k5.items() if "gemv_rows_kernel" in n}
     mma = {n: s for n, s in k5.items() if "gemv_mma_kernel" in n}
-    assert len(rows) == 6 and len(mma) == 2
+    assert len(rows) == 14 and len(mma) == 2
     for n, s in rows.items():
         assert "I2F" not in s and "HMMA" not in s, n
     for n, s in mma.items():
@@ -1908,3 +1914,143 @@ def test_f32_model_stages_nothing_and_bf16_model_keeps_staging(dev):
         assert torch.isfinite(y).all()
         assert attn.LAUNCHES[route] == before.get(route, 0) + 1
         assert attn.LAUNCHES["stage_bf16"] == before.get("stage_bf16", 0) + staged
+
+
+# ---------------------------------------------------------------------------
+# the f32 routes of K4, K5, K7 and K8 (an f32 model's serving kernels)
+# against their f32 twins with TF32 off: the same f32 products summed in
+# another order, relative L2 within 2e-6 (a bf16 rounding anywhere gives
+# 1e-3)
+# ---------------------------------------------------------------------------
+TOL_F32_SERVE = 2e-6
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,C,hd,L,layer,kv", [
+    (1, 32, 32, 3456, 96, 3, 1, (3400,)),     # Phi-3
+    (4, 32, 8, 3456, 128, 2, 1, (3456, 3400, 61, 7)),   # Llama-3.1-8B GQA
+    (2, 8, 4, 160, 96, 1, 0, (160, 97)),      # G = 2
+    (2, 4, 4, 40, 16, 2, 1, (33, 1)),         # tiny() head dim, one token
+    (1, 4, 4, 64, 128, 1, 0, (0,)),           # empty cache row -> zeros
+])
+def test_k4_f32_route_matches_plain(dev, B, Hq, Hkv, C, hd, L, layer, kv):
+    """f32 q through the dispatcher: one launch counted as "decode_q8:f32"
+    (none as "decode_q8"), f32 out, equal bits on a repeat."""
+    rng = np.random.default_rng(51)
+    cache = _int8_cache(rng, L, B, Hkv, C, hd, dev)
+    q = _randn(rng, (B, Hq, 1, hd), dev, dtype=torch.float32)
+    kv_lens = torch.tensor(kv, dtype=torch.int32, device=dev)
+    before = dict(attn.LAUNCHES)
+    call = lambda: attn.dot_product_attention(
+        q, cache["k"], cache["v"], causal=True, kv_lens=kv_lens,
+        q_start=kv_lens - 1, k_scale=cache["k_scale"],
+        v_scale=cache["v_scale"], layer=layer)
+    got = call()
+    assert attn.LAUNCHES["decode_q8:f32"] == before.get("decode_q8:f32", 0) + 1
+    assert attn.LAUNCHES["decode_q8"] == before.get("decode_q8", 0)
+    ref = attn._decode_attention_q8_plain(
+        q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+        sm_scale=hd ** -0.5, kv_lens=kv_lens, layer=layer)
+    again = call()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    for b in range(B):
+        if kv[b]:
+            _close_l2(got[b], ref[b], TOL_F32_SERVE, f"K4 f32 {(B, Hq, Hkv, hd)} b={b}")
+        else:               # no valid key: K4 writes 0, the twin averages V
+            assert not got[b].abs().max().item()
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 64, 255])
+@pytest.mark.parametrize("K,N", K5_SHAPES)
+@pytest.mark.parametrize("int4", [False, True])
+def test_k5_f32_route_matches_plain(dev, M, K, N, int4):
+    """f32 x through the dispatchers below the W8A8 gate (int4: up to its
+    matvec gate, 64): one launch counted as "gemv_int8:f32" or
+    "gemv_int4:f32", f32 y, equal bits on a repeat."""
+    if int4 and M > quant.MATVEC4_MAX_M:
+        pytest.skip("int4 above its matvec gate dequantises for a matmul")
+    rng = np.random.default_rng(52)
+    x, w = _k5_operands(rng, dev, M, K, N, int4)
+    x = x.float()
+    kind = "gemv_int4:f32" if int4 else "gemv_int8:f32"
+    before = dict(quant.LAUNCHES)
+    got = (quant.dequant4_matmul(x, *w, 128) if int4
+           else quant.dequant_matmul(x, *w))
+    again = _k5(x, w, int4)
+    assert quant.LAUNCHES[kind] == before.get(kind, 0) + 2
+    assert quant.LAUNCHES["int8"] == before.get("int8", 0)
+    assert quant.LAUNCHES["int4"] == before.get("int4", 0)
+    ref = _k5_plain(x, w, int4)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    _close_l2(got, ref, TOL_F32_SERVE, f"K5 f32 {'int4' if int4 else 'int8'} "
+              f"M={M} K={K} N={N}")
+
+
+@pytest.mark.parametrize("B,H,S,D", [(4, 1, 1024, 256),   # memory self-attention
+                                     (2, 3, 600, 72), (1, 2, 1536, 96)])
+def test_k7_f32_route_matches_plain(dev, B, H, S, D):
+    """An f32 model's medium self-attention through the dispatcher: K7's
+    full-precision route, counted as "window:simt_f32", nothing staged; a
+    bf16 model's f32 operands keep the staged route."""
+    rng = np.random.default_rng(53)
+    q, k, v = (_randn(rng, (B, H, S, D), dev, dtype=torch.float32)
+               for _ in range(3))
+    before = dict(attn.LAUNCHES)
+    got = attn.dot_product_attention(q, k, v, exact=True)
+    assert attn.LAUNCHES["window:simt_f32"] == before.get("window:simt_f32", 0) + 1
+    for name in ("window_attn", "stage_bf16", "route:simt_f32"):
+        assert attn.LAUNCHES[name] == before.get(name, 0), name
+    ref = attn._window_attention_plain(q, k, v, D ** -0.5)
+    staged = attn.dot_product_attention(q, k, v)
+    assert attn.LAUNCHES["stage_bf16"] == before.get("stage_bf16", 0) + 1
+    torch.cuda.synchronize()
+    _close_l2(got, ref, TOL_F32_SERVE, f"K7 f32 {(B, H, S, D)}")
+    _close_l2(staged, ref, 1e-2, f"K7 staged {(B, H, S, D)}")
+
+
+@pytest.mark.parametrize("NW,S,H,hd", [
+    (1024, 64, 2, 72), (1024, 16, 4, 72), (16, 64, 16, 72),   # Hiera-L stages 1, 2, 4
+    (7, 16, 4, 72), (5, 32, 3, 128), (9, 32, 2, 32), (3, 64, 2, 40)])
+def test_k8_f32_route_matches_plain(dev, NW, S, H, hd):
+    """An f32 model's packed small windows: K8's full-precision route
+    (windows of S tokens in 64-row tiles, the others' keys masked),
+    counted as "smallwin:simt_f32"; odd window counts leave a partial last
+    tile. A bf16 model's f32 qkv raises."""
+    rng = np.random.default_rng(54)
+    qkv = _randn(rng, (NW, S, 3 * H * hd), dev, dtype=torch.float32)
+    before = dict(attn.LAUNCHES)
+    got = attn.attention_packed_qkv_smallwin(qkv, H, hd, exact=True)
+    assert attn.LAUNCHES["smallwin:simt_f32"] == \
+        before.get("smallwin:simt_f32", 0) + 1
+    assert attn.LAUNCHES["smallwin"] == before.get("smallwin", 0)
+    ref = attn._smallwin_plain(qkv, H, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (NW, S, H * hd)
+    _close_l2(got, ref, TOL_F32_SERVE, f"K8 f32 {(NW, S, H, hd)}")
+    with pytest.raises(ValueError, match="K8 takes bf16 only"):
+        attn.attention_packed_qkv_smallwin(qkv, H, hd)
+
+
+def test_f32_hiera_unhoisted_matches_hoisted(dev):
+    """A narrow Hiera marked f32 on the card: without hoisting (K8's f32
+    route at stages 1, 2 and 4) against the hoisted fused blocks, to f32
+    reduction-order noise."""
+    from videoglamm_torch.config import HieraConfig
+    from videoglamm_torch.models.common import set_exact_f32
+    from videoglamm_torch.models.sam2.hiera import Hiera
+    torch.manual_seed(55)
+    cfg = HieraConfig(embed_dim=144, num_heads=2, stages=(1, 2, 2, 2),
+                      global_att_blocks=(4,), window_spec=(8, 4, 14, 8))
+    trunk = Hiera(cfg).to(dev)
+    set_exact_f32(trunk, True)
+    x = torch.randn(2, 512, 512, 3, device=dev)
+    before = dict(attn.LAUNCHES)
+    with torch.no_grad():
+        hoisted = trunk(x)
+        trunk.hoist_layout = False
+        plain = trunk(x)
+    assert attn.LAUNCHES["smallwin:simt_f32"] > before.get("smallwin:simt_f32", 0)
+    assert attn.LAUNCHES["stage_bf16"] == before.get("stage_bf16", 0)
+    for a, b in zip(plain, hoisted):
+        _close_l2(a, b, 1e-5, "unhoisted vs hoisted f32 Hiera")

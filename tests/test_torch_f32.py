@@ -7,9 +7,9 @@
   attention) keep the staged route.
 - `full_precision`: an f32 model serves and steps with TF32 off, and the
   flags come back after.
-- The entry points accept `--precision f32` on the card and stop at the
-  missing card here; f32 with quantised weights (K5) or the int8 KV cache
-  (K4) raises before anything loads, naming the kernel.
+- The entry points accept `--precision f32` on the card with every
+  `--quant` and `--kv_cache` (K4, K5, K7 and K8 have f32 routes too) and
+  stop at the missing card here, before anything loads.
 - The f32 routes' plain twins on CPU tensors: K2's f32 GELU is the erf form
   of `_erf_as`, the function the TPU kernel computes in f32.
 
@@ -30,8 +30,7 @@ from videoglamm_torch.cli import verify_parity as cli_vp
 from videoglamm_torch.config import SAM2Config, VideoGLaMMConfig
 from videoglamm_torch.inference import pipeline
 from videoglamm_torch.inference.pipeline import (GroundedInference,
-                                                 build_inference, build_sam2,
-                                                 check_f32_serving)
+                                                 build_inference, build_sam2)
 from videoglamm_torch.models import common, internvideo2, phi3
 from videoglamm_torch.models.common import full_precision, set_exact_f32
 from videoglamm_torch.models.sam2 import hiera, transformer
@@ -170,13 +169,14 @@ def _args(**kw):
     ({}, RuntimeError, "no CUDA device"),
     ({"precision": "bf16", "quant": "int8", "kv_cache": "int8"}, RuntimeError,
      "no CUDA device"),
-    ({"quant": "int8"}, NotImplementedError, "K5"),
-    ({"quant": "int4"}, NotImplementedError, "K5"),
-    ({"kv_cache": "int8"}, NotImplementedError, "K4"),
+    ({"quant": "int8"}, RuntimeError, "no CUDA device"),
+    ({"quant": "int4"}, RuntimeError, "no CUDA device"),
+    ({"kv_cache": "int8"}, RuntimeError, "no CUDA device"),
 ])
 def test_serving_options_f32_on_the_card(kw, raises, match):
-    """--precision f32 --device cuda passes the f32 rules and stops at the
-    missing card; the kernels without an f32 route are named."""
+    """--precision f32 --device cuda passes the option checks with every
+    --quant and --kv_cache (K5 and K4 have f32 routes) and stops at the
+    missing card."""
     if torch.cuda.is_available():
         pytest.skip("the no-card error needs a machine without a card")
     with pytest.raises(raises, match=match):
@@ -189,17 +189,21 @@ def test_serving_options_f32_on_the_cpu_takes_everything():
     assert opts["dtype"] == F32 and opts["quant"] == "int8"
 
 
-@pytest.mark.parametrize("quant,kv,match", [("int8", "bf16", "K5"),
-                                            ("int4", "int8", "K5"),
-                                            ("none", "int8", "K4")])
+@pytest.mark.parametrize("quant,kv,match", [("int8", "bf16", "no CUDA device"),
+                                            ("int4", "int8", "no CUDA device"),
+                                            ("none", "int8", "no CUDA device")])
 def test_build_inference_refuses_f32_with_k4_or_k5_before_building(
         monkeypatch, quant, kv, match):
+    """f32 with quantised weights (K5) or the int8 cache (K4) is no longer
+    refused: build_inference on CUDA passes its option checks and stops at
+    the missing card before anything is built, in f32 as in bf16."""
+    if torch.cuda.is_available():
+        pytest.skip("the no-card error needs a machine without a card")
     monkeypatch.setattr(pipeline, "VideoGLaMM", None)     # nothing is built
-    with pytest.raises(NotImplementedError, match=match):
-        build_inference(CFG, device="cuda", dtype=F32, quant=quant,
-                        kv_cache=kv)
-    check_f32_serving("cpu", F32, quant, kv)              # the CPU takes all
-    check_f32_serving("cuda", BF16, quant, kv)            # and bf16 on the card
+    for dtype in (F32, BF16):
+        with pytest.raises(RuntimeError, match=match):
+            build_inference(CFG, device="cuda", dtype=dtype, quant=quant,
+                            kv_cache=kv)
 
 
 def test_train_and_verify_parity_take_f32_on_the_card(monkeypatch):

@@ -164,16 +164,23 @@ def _images(codes):
     return (codes.to(torch.int32) + 128).view(torch.float32)
 
 
-def _dots(plan, qh, kh):
+def _dots(plan, qh, kh, f32: bool = False):
     """q . k_j for G query heads against every token of a kv head, as a
     lane takes it: q pre-scaled by 2^(252 - ef) (ef: the exponent field of
     the lane's largest |q|, in [1, 230]) against the images, four chains
     over the lane's dims, then times 2^(ef - 103) less 128 * sum(q), and the
-    segment's lanes summed in a butterfly (pad lanes add zeros).
+    segment's lanes summed in a butterfly (pad lanes add zeros). f32 (K4's
+    f32 route): the four chains run on q and the signed codes themselves.
     qh [G, hd] f32, kh [T, hd] codes -> [G, T]."""
     G, hd = qh.shape
     dpl, vph, seg = plan.dpl, plan.vph, plan.seg
     ql = qh.view(G, vph, dpl)
+    if f32:
+        codes = kh.float().view(-1, vph, dpl)
+        d = [torch.zeros(G, codes.shape[0], vph) for _ in range(4)]
+        for i in range(dpl):
+            d[i & 3] = _fma(ql[:, None, :, i], codes[None, :, :, i], d[i & 3])
+        return _lane_sum(plan, (d[0] + d[1]) + (d[2] + d[3]))
     qmax = ql.abs().amax(dim=(0, 2))                                 # [vph]
     ef = ((qmax.view(torch.int32) >> 23) & 0xff).clamp(1, 230)
     e_up = 252 - ef
@@ -186,7 +193,14 @@ def _dots(plan, qh, kh):
     d = [torch.zeros(G, img.shape[0], vph) for _ in range(4)]
     for i in range(dpl):
         d[i & 3] = _fma(qs[:, None, :, i], img[None, :, :, i], d[i & 3])
-    lane = _fma((d[0] + d[1]) + (d[2] + d[3]), _pow2(ef - 103), qneg[:, None])
+    return _lane_sum(plan, _fma((d[0] + d[1]) + (d[2] + d[3]),
+                                _pow2(ef - 103), qneg[:, None]))
+
+
+def _lane_sum(plan, lane):
+    """A segment's lane sums [G, T, vph] met in a butterfly (pad lanes add
+    zeros) -> [G, T]."""
+    G, seg, vph = lane.shape[0], plan.seg, plan.vph
     lane = torch.cat([lane, torch.zeros(G, lane.shape[1], seg - vph)], dim=2)
     off = 1
     while off < seg:                        # every lane ends with lane 0's sum
@@ -244,7 +258,7 @@ def _fold_splits(plan, splits):
     return parts[0]
 
 
-def _emulate(plan, q, k, v, ks, vs, kv_lens, sm_scale):
+def _emulate(plan, q, k, v, ks, vs, kv_lens, sm_scale, f32: bool = False):
     """K4 for one layer's slab as the kernel computes it. q [B,Hq,1,hd] f32;
     k, v: [B,C,Hkv*hd] codes; ks, vs: [B,Hkv,C]. The dot products run on
     the code images against pre-scaled q (`_dots`); each phase runs its
@@ -254,20 +268,25 @@ def _emulate(plan, q, k, v, ks, vs, kv_lens, sm_scale):
     a warp's phases merge in a butterfly, a split folds its warps in warp
     order, and the last split folds the splits' partials (`_fold_splits`);
     l == 0 gives 0. Where the kernel rounds p * vs to bf16, the emulation
-    rounds to q's dtype, as the reference does."""
+    rounds to q's dtype, as the reference does. f32 (K4's f32 route): the
+    dot products and V sums on the signed codes, p * vs unscaled and
+    unrounded, no correction at the end."""
     B, Hq, _, hd = q.shape
     G, Hkv, C = plan.G, plan.Hkv, k.shape[1]
     c2 = torch.tensor(sm_scale, dtype=torch.float32) * torch.tensor(
         LOG2E, dtype=torch.float32)
     vs_up, acc_up, psum_down = _pow2(90), _pow2(59), -_pow2(-83)
+    if f32:
+        vs_up = torch.tensor(1.0)
     out = torch.zeros(B, Hq, 1, hd)
     for b in range(B):
         kv_len = int(kv_lens[b])
         for h in range(Hkv):
             kh = k[b].view(C, Hkv, hd)[:, h]
-            vimg = _images(v[b].view(C, Hkv, hd)[:, h])
+            vh = v[b].view(C, Hkv, hd)[:, h]
+            vimg = vh.float() if f32 else _images(vh)
             qh = q[b, h * G:(h + 1) * G, 0].float()                 # [G, hd]
-            dots = _dots(plan, qh, kh[:min(max(kv_len, 1), C)])              # [G, T]
+            dots = _dots(plan, qh, kh[:min(max(kv_len, 1), C)], f32)         # [G, T]
             cks_all = c2 * ks[b, h]
             splits = []
             for s in range(plan.splits):
@@ -294,7 +313,8 @@ def _emulate(plan, q, k, v, ks, vs, kv_lens, sm_scale):
                             pb = (p * (vs[b, h, tok] * vs_up)).to(q.dtype).float()
                             psum = psum + pb
                             acc = _fma(pb[:, None], vimg[tok][None], acc)
-                    acc = _fma(acc, acc_up, psum[:, None] * psum_down)
+                    if not f32:
+                        acc = _fma(acc, acc_up, psum[:, None] * psum_down)
                     phases.append((m, l, acc))
                 # a warp's phases merge in a butterfly, the lower one first
                 spw = 32 // plan.seg                 # phases a warp

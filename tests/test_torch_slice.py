@@ -165,8 +165,8 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     region with `utils.profiling`; segment boxes with the datagen
     segmenter on a tiny SAM-2; import the last data modules; build an f32
     model for training and take a forward and backward through its towers
-    (`freeze_towers=False`) inside `full_precision`. `transformers` is
-    blocked too."""
+    (`freeze_towers=False`) inside `full_precision`; serve an f32 model
+    with int4 weights and the int8 cache. `transformers` is blocked too."""
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'videoglamm_tpu', 'transformers'):\n"
@@ -310,6 +310,12 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "from videoglamm_torch.training import train_step, build_training\n"
         "assert attention.k1_route(torch.float32, 72, True) == 'simt_f32'\n"
         "assert attention.k1_route(torch.float32, 72) == 'wgmma_f32'\n"
+        "assert attention.k8_route(torch.float32, True) == 'simt_f32'\n"
+        "gi = build_inference(cfg, device='cpu', dtype=torch.float32,\n"
+        "                     quant='int4', kv_cache='int8', max_new_tokens=4)\n"
+        "assert gi.model.exact_f32 and gi.model.quant_kv_int8\n"
+        "out = gi.serve_raw(raw, ids, torch.tensor([8]), num_sam_frames=1)\n"
+        "assert torch.isfinite(out.pred_masks).all()\n"
         "from videoglamm_torch.config import TrainConfig\n"
         "trn = build_training(cfg, TrainConfig(), device='cpu', dtype=torch.float32)\n"
         "assert trn.model.exact_f32\n"

@@ -141,7 +141,14 @@ def _close(got, ref, tol, what):
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_quantised_slice_from_raw_frames_matches_jax(name, float_params,
                                                      monkeypatch):
-    quant, kv_cache, w8a8 = CONFIGS[name]
+    check_slice_against_jax(*CONFIGS[name], float_params, monkeypatch)
+
+
+def check_slice_against_jax(quant, kv_cache, w8a8, float_params, monkeypatch):
+    """The port's cached slice (build_inference in f32 on the CPU, the
+    weights quantised as `quant` names, the `kv_cache` cache) teacher-forced
+    against the JAX model on the same quantised tree, at the tolerances of
+    the module docstring."""
     quant_kv = kv_cache == "int8"
     if w8a8:     # the prefill (M > 1) quantises its activations; decode is M = 1
         monkeypatch.setenv("VGT_W8A8_MIN_M", "2")

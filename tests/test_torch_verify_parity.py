@@ -241,6 +241,12 @@ def test_cuda_refuses_the_modules_stage_before_loading(tmp_path):
                  "import,eval", "--reason_seg_root", absent, "--tokenizer",
                  absent])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            vp.main(["--checkpoint", absent, "--stages", "import,quant"])
+        # the quant stage on the card in bf16 and in f32 (the default at
+        # tiny scale; its quantised runs take K5's and K4's f32 routes) is
+        # refused by nothing but the missing card
+        for extra in ([], ["--dtype", "f32"], ["--scale", "flagship", "--dtype",
+                                               "f32", "--int4"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                vp.main(["--checkpoint", absent, "--stages", "import,quant",
+                         *extra])
     assert not os.path.exists(absent)

@@ -291,8 +291,8 @@ def test_hiera_unhoisted_takes_both_window_branches(hiera_setup, monkeypatch):
     small, padded = thiera.attention_packed_qkv_smallwin, \
         thiera.attention_packed_qkv_padded
     monkeypatch.setattr(thiera, "attention_packed_qkv_smallwin",
-                        lambda qkv, nh, hd: seen.append(("small", tuple(qkv.shape)))
-                        or small(qkv, nh, hd))
+                        lambda qkv, nh, hd, **kw: seen.append(
+                            ("small", tuple(qkv.shape))) or small(qkv, nh, hd, **kw))
     monkeypatch.setattr(thiera, "attention_packed_qkv_padded",
                         lambda qkv, nh, hd, win=0, **kw: seen.append(
                             ("super", tuple(qkv.shape), win))

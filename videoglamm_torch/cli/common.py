@@ -81,14 +81,11 @@ def serving_options(args) -> dict:
     name: `--device`, `--precision` (the compute dtype), `--quant`,
     `--kv_cache`, `--max_new_tokens` and `--draft_k`. The stop tokens
     (`eos_id`) come from the LLM and the tokenizer: `terminators_for`.
-    `--precision f32` on the card serves the model in full f32; with
-    `--quant int8|int4` or `--kv_cache int8` it raises here (K5 and K4
-    take bf16 only), so call it before loading anything; so does
-    `--device cuda` where no card is present."""
-    from ..inference.pipeline import check_f32_serving
+    `--precision f32` serves the model in full f32 with every `--quant`
+    and `--kv_cache`. `--device cuda` where no card is present raises here,
+    so call it before loading anything."""
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
-    check_f32_serving(device, dtype, args.quant, args.kv_cache)
     check_card(device)
     return dict(device=device, dtype=dtype, quant=args.quant,
                 kv_cache=args.kv_cache, max_new_tokens=args.max_new_tokens,

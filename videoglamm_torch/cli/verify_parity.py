@@ -23,9 +23,9 @@ Stages (each skippable, each contributes to the JSON report):
 3. quant      - the int8 (and optionally int4) serving gates at this
                 checkpoint's scale: greedy generation token agreement and
                 mask IoU float-vs-quantized on a fixed clip (`clip_run`).
-                With `--dtype f32` on the card the float run serves in f32
-                (TF32 off) and the quantised runs raise: K5 and K4 take
-                bf16 only.
+                With `--dtype f32` (the default at tiny scale) on the card
+                every run serves in f32 (TF32 off), the quantised runs
+                through K5's and K4's f32 routes.
 4. eval       - optional ReasonSeg-val gIoU/cIoU computed at bf16 and f32
                 to quantify end-to-end metric drift (CPU only, as stage 2).
 
@@ -494,8 +494,7 @@ def run(args) -> dict:
             "cpu: the modules stage holds the port to the HF oracles "
             "(transformers' Phi-3 and CLIP, on the CPU) and the eval stage "
             "needs the tokenizer's host pipeline. On the card run --stages "
-            "import,quant (with --dtype f32 for an f32 float run; its "
-            "quantised runs then raise, as K5 and K4 take bf16 only)")
+            "import,quant, in bf16 or f32 (--dtype)")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("verify_parity: --device cuda asked for, but no "
                            "CUDA device is present; pass --device cpu")

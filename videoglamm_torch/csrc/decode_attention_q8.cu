@@ -72,6 +72,18 @@
 //
 // bf16(p * vs) is rounded where the TPU kernel rounds it (:1121), relative
 // to the phase's running maximum; the merges and folds rescale in f32.
+//
+// f32 queries (an f32 model's decode, `vgt_decode_attention_q8_f32`) take
+// the same kernel through a template parameter, F32: the same plan, ring,
+// walk, workspace, ticket and folds; q is read and o written in f32. The
+// TPU kernel in f32 rounds nothing (`pb = (p * vs).astype(qbd.dtype)` is
+// f32 there), so neither does this route: pb = p * vs stays f32. The
+// denormal images of the bf16 route (exact only because a bf16 q or pb
+// times an 8-bit code fits an f32 significand) would make an f32 dot
+// product carry 128 * sum(q) and cancel it afterwards, so the f32 route
+// turns codes into their signed values by the magic number instead (one
+// PRMT and one exact FADD a code, `int8_to_f32`: still no I2F), and its
+// dot products and V sums are the plain f32 FMA sums of q . k and pb * v.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -124,10 +136,10 @@ struct Plan {
 constexpr int PLAN_FIELDS = 21;
 
 struct Params {
-  const __nv_bfloat16* q; long long q_sb, q_sh;      // [B, Hq, 1, hd]
+  const void* q; long long q_sb, q_sh;                // [B, Hq, 1, hd] bf16 or f32
   const float* ks; const float* vs;                   // layer slab [B, Hkv, C]
   const int* kv_lens;                                 // [B]
-  __nv_bfloat16* out; long long o_sb, o_sh;           // [B, Hq, 1, hd]
+  void* out; long long o_sb, o_sh;                    // [B, Hq, 1, hd], q's type
   float* ws;                                          // [B, Hkv, splits, ws_stride]
   unsigned* tickets;                                  // [B, Hkv], 0 between calls
   long long layer_row;                                // layer * B * C: the slab's first row
@@ -186,12 +198,14 @@ __device__ __forceinline__ int head_of(int o, int hd) {
   return (o >= hd) + (o >= 2 * hd) + (o >= 3 * hd);
 }
 
-// CTA (split, h, b): 15 consumer warps, one producer warp
-template <int G, int DPL>
+// CTA (split, h, b): 15 consumer warps, one producer warp. F32: q and out
+// are f32 and nothing is rounded to bf16 (the header)
+template <int G, int DPL, bool F32>
 __global__ void __launch_bounds__(THREADS, 1) decode_q8_kernel(
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const Params p, const Plan pl) {
   constexpr int NW = DPL / 4;                  // the words of my DPL codes
+  constexpr int QV = F32 ? DPL / 4 : DPL / 8;  // 16-byte loads of my q slice
   constexpr int CH = chunk_of(G, DPL);
   constexpr float VS_UP = 1237940039285380274899124224.f;   // 2^90
   extern __shared__ __align__(128) unsigned char smem[];
@@ -211,17 +225,20 @@ __global__ void __launch_bounds__(THREADS, 1) decode_q8_kernel(
     }
     mbar_fence_init();
   }
-  // my DPL dims of the G query heads (DPL / 8 16-byte loads each)
-  uint4 qw[G][DPL / 8];
+  // my DPL dims of the G query heads (QV 16-byte loads each)
+  uint4 qw[G][QV];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
-    for (int j = 0; j < DPL / 8; ++j) qw[g][j] = make_uint4(0, 0, 0, 0);
+    for (int j = 0; j < QV; ++j) qw[g][j] = make_uint4(0, 0, 0, 0);
     if (active) {
-      const uint4* qp = reinterpret_cast<const uint4*>(
-          p.q + b * p.q_sb + (static_cast<long long>(h) * G + g) * p.q_sh + lane_v * DPL);
+      const long long at = b * p.q_sb + (static_cast<long long>(h) * G + g) * p.q_sh +
+                           lane_v * DPL;
+      const uint4* qp = F32 ? reinterpret_cast<const uint4*>(static_cast<const float*>(p.q) + at)
+                            : reinterpret_cast<const uint4*>(
+                                  static_cast<const __nv_bfloat16*>(p.q) + at);
 #pragma unroll
-      for (int j = 0; j < DPL / 8; ++j) qw[g][j] = __ldg(qp + j);
+      for (int j = 0; j < QV; ++j) qw[g][j] = __ldg(qp + j);
     }
   }
   int kv_len = __ldg(p.kv_lens + b);
@@ -263,41 +280,53 @@ __global__ void __launch_bounds__(THREADS, 1) decode_q8_kernel(
     }
   }
 
-  // q, scaled by 2^(252 - ef) (ef: the exponent field of my largest |q|,
-  // kept in [1, 230]) so that its products with the code images stay normal
-  // and below overflow; a lane's dot product is then its image sum times
-  // 2^(ef - 103), less 128 * sum(q)
   float qs[G][DPL], qneg[G];
-  float qmax = 0.f;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
-    for (int j = 0; j < DPL / 8; ++j) {
+    for (int j = 0; j < QV; ++j) {
       const uint32_t w[4] = {qw[g][j].x, qw[g][j].y, qw[g][j].z, qw[g][j].w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        qs[g][8 * j + 2 * i] = bf16_lo(w[i]);
-        qs[g][8 * j + 2 * i + 1] = bf16_hi(w[i]);
+        if constexpr (F32) {
+          qs[g][4 * j + i] = __uint_as_float(w[i]);
+        } else {
+          qs[g][8 * j + 2 * i] = bf16_lo(w[i]);
+          qs[g][8 * j + 2 * i + 1] = bf16_hi(w[i]);
+        }
       }
     }
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      sum += qs[g][i];
-      qmax = fmaxf(qmax, fabsf(qs[g][i]));
-    }
-    qneg[g] = -128.f * sum;
+    qneg[g] = 0.f;
   }
-  const int ef = min(max((__float_as_int(qmax) >> 23) & 0xff, 1), 230);
-  const int e_up = 252 - ef;
-  const float up1 = pow2(e_up >> 1), up2 = pow2(e_up - (e_up >> 1));
-  const float down = pow2(ef - 103);
+  // bf16: q, scaled by 2^(252 - ef) (ef: the exponent field of my largest
+  // |q|, kept in [1, 230]) so that its products with the code images stay
+  // normal and below overflow; a lane's dot product is then its image sum
+  // times 2^(ef - 103), less 128 * sum(q)
+  float down = 1.f;
+  if constexpr (!F32) {
+    float qmax = 0.f;
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+    for (int g = 0; g < G; ++g) {
+      float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) qs[g][i] = qs[g][i] * up1 * up2;
+      for (int i = 0; i < DPL; ++i) {
+        sum += qs[g][i];
+        qmax = fmaxf(qmax, fabsf(qs[g][i]));
+      }
+      qneg[g] = -128.f * sum;
+    }
+    const int ef = min(max((__float_as_int(qmax) >> 23) & 0xff, 1), 230);
+    const int e_up = 252 - ef;
+    const float up1 = pow2(e_up >> 1), up2 = pow2(e_up - (e_up >> 1));
+    down = pow2(ef - 103);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) qs[g][i] = qs[g][i] * up1 * up2;
+  }
 
-  // acc holds sum_j pb_j * image_j with pb scaled by 2^90 (psum: sum_j pb_j)
+  // acc holds sum_j pb_j * image_j with pb scaled by 2^90 (psum: sum_j
+  // pb_j); F32: sum_j pb_j * code_j
   float m[G], l[G], psum[G], acc[G][DPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -328,13 +357,19 @@ __global__ void __launch_bounds__(THREADS, 1) decode_q8_kernel(
           ksv = *reinterpret_cast<const float*>(st + pl.ks_off + 4 * r);
         }
         float kf[DPL];
-        code_images<NW>(kw, kf);
+        if constexpr (F32) {
+#pragma unroll
+          for (int i = 0; i < NW; ++i) int8_to_f32(kw[i], kf + 4 * i);
+        } else {
+          code_images<NW>(kw, kf);
+        }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           float d[4] = {0.f, 0.f, 0.f, 0.f};        // four independent chains
 #pragma unroll
           for (int i = 0; i < DPL; ++i) d[i & 3] = fmaf(qs[g][i], kf[i], d[i & 3]);
-          dot[c][g] = fmaf((d[0] + d[1]) + (d[2] + d[3]), down, qneg[g]);
+          const float sum = (d[0] + d[1]) + (d[2] + d[3]);
+          dot[c][g] = F32 ? sum : fmaf(sum, down, qneg[g]);
         }
         cks[c] = p.scale2 * ksv;
       }
@@ -377,15 +412,21 @@ __global__ void __launch_bounds__(THREADS, 1) decode_q8_kernel(
         float vsv = 0.f;
         if (active) {
           lds_codes<DPL>(st + pl.v_off + r * pl.pitch + lane_v * DPL, vw);
-          vsv = *reinterpret_cast<const float*>(st + pl.vs_off + 4 * r) * VS_UP;
+          vsv = *reinterpret_cast<const float*>(st + pl.vs_off + 4 * r) * (F32 ? 1.f : VS_UP);
         }
         float vf[DPL];
-        code_images<NW>(vw, vf);
+        if constexpr (F32) {
+#pragma unroll
+          for (int i = 0; i < NW; ++i) int8_to_f32(vw[i], vf + 4 * i);
+        } else {
+          code_images<NW>(vw, vf);
+        }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float pj = ex2(fmaf(dot[c][g], cks[c], -m[g]));
           l[g] += pj;
-          const float pb = bf16_round(pj * vsv);   // bf16(p * vs) * 2^90, exactly
+          // bf16: bf16(p * vs) * 2^90, exactly; F32: p * vs
+          const float pb = F32 ? pj * vsv : bf16_round(pj * vsv);
           psum[g] += pb;
 #pragma unroll
           for (int i = 0; i < DPL; ++i) acc[g][i] = fmaf(pb, vf[i], acc[g][i]);
@@ -399,12 +440,14 @@ __global__ void __launch_bounds__(THREADS, 1) decode_q8_kernel(
       }
     }
   }
-  // back to sum_j bf16(p_j * vs_j) * code_j: acc * 2^59 - 128 * psum * 2^-90
+  // bf16: back to sum_j bf16(p_j * vs_j) * code_j: acc * 2^59 - 128 * psum * 2^-90
+  if constexpr (!F32) {
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      acc[g][i] = fmaf(acc[g][i], pow2(59), psum[g] * -pow2(-83));
+      for (int i = 0; i < DPL; ++i)
+        acc[g][i] = fmaf(acc[g][i], pow2(59), psum[g] * -pow2(-83));
+  }
 
   // The warp's segments merge in a fixed butterfly (partners `off` lanes
   // apart; the lower lane's state is "a" in both, so both get the same
@@ -529,10 +572,16 @@ __global__ void __launch_bounds__(THREADS, 1) decode_q8_kernel(
   }
   if (mine4 && j == 0) {
     const float inv = ls == 0.f ? 0.f : 1.f / ls;
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-        p.out + b * p.o_sb + (static_cast<long long>(h) * G + g) * p.o_sh + f4 - g * p.hd);
-    dst[0] = __floats2bfloat162_rn(sum.x * inv, sum.y * inv);
-    dst[1] = __floats2bfloat162_rn(sum.z * inv, sum.w * inv);
+    const long long at = b * p.o_sb + (static_cast<long long>(h) * G + g) * p.o_sh + f4 - g * p.hd;
+    if constexpr (F32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(p.out) + at) =
+          make_float4(sum.x * inv, sum.y * inv, sum.z * inv, sum.w * inv);
+    } else {
+      __nv_bfloat162* dst =
+          reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + at);
+      dst[0] = __floats2bfloat162_rn(sum.x * inv, sum.y * inv);
+      dst[1] = __floats2bfloat162_rn(sum.z * inv, sum.w * inv);
+    }
   }
 }
 
@@ -615,7 +664,7 @@ bool cache_map(CUtensorMap* out, const void* base, long long rows, int HD, int p
   return true;
 }
 
-template <int G, int DPL>
+template <int G, int DPL, bool F32>
 int launch(const Params& p, const Plan& pl, const void* k, const void* v, long long rows,
            int B, cudaStream_t st) {
   CUtensorMap tk, tv;
@@ -629,12 +678,12 @@ int launch(const Params& p, const Plan& pl, const void* k, const void* v, long l
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[dev]) {
-    e = cudaFuncSetAttribute(decode_q8_kernel<G, DPL>,
+    e = cudaFuncSetAttribute(decode_q8_kernel<G, DPL, F32>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, DYN_SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     ready[dev] = 1;
   }
-  decode_q8_kernel<G, DPL><<<dim3(pl.splits, p.Hkv, B), THREADS, pl.smem, st>>>(tk, tv, p, pl);
+  decode_q8_kernel<G, DPL, F32><<<dim3(pl.splits, p.Hkv, B), THREADS, pl.smem, st>>>(tk, tv, p, pl);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -655,23 +704,25 @@ extern "C" int vgt_decode_q8_layout(int G, int hd, int splits, int pitch, int bo
   return 0;
 }
 
-// Plain C entry (bound with ctypes). Returns a cudaError_t code, 0 = ok.
-// q, out: [B, Hq, 1, hd] bf16 with batch / head strides in elements (head dim
-// contiguous, 16-byte aligned rows). k, v: the stacked [L, B, C, Hkv*hd] int8
-// cache, contiguous; ks, vs: [L, B, Hkv, C] f32; kv_lens: [B] int32 on the
-// device. ws: `ws_floats` f32, at least B * Hkv * splits * ws_stride, and
-// tickets: `ntickets` int32, at least B * Hkv, zero before the first call
-// (each call leaves them zero), used by one stream at a time. splits,
-// pitch, box, stages: the choices of `k4_plan`, refused where they do not
-// fit the kernel. Supports hd % 16 == 0, hd <= 128, Hkv*hd <= 4096 and
-// Hq / Hkv in {1, 2, 4}.
-extern "C" int vgt_decode_attention_q8(
-    const void* q, long long q_sb, long long q_sh,
-    const void* k, const void* v, const void* ks, const void* vs,
-    const void* kv_lens, void* out, long long o_sb, long long o_sh,
-    void* ws, long long ws_floats, void* tickets, long long ntickets,
-    int layer, int L, int B, int Hq, int Hkv, int C, int hd, float sm_scale,
-    int splits, int pitch, int box, int stages, void* stream) {
+// Plain C entries (bound with ctypes). Each returns a cudaError_t code, 0 =
+// ok. q, out: [B, Hq, 1, hd] bf16 (`vgt_decode_attention_q8`) or f32
+// (`vgt_decode_attention_q8_f32`) with batch / head strides in elements
+// (head dim contiguous, 16-byte aligned rows). k, v: the stacked [L, B, C,
+// Hkv*hd] int8 cache, contiguous; ks, vs: [L, B, Hkv, C] f32; kv_lens: [B]
+// int32 on the device. ws: `ws_floats` f32, at least B * Hkv * splits *
+// ws_stride, and tickets: `ntickets` int32, at least B * Hkv, zero before
+// the first call (each call leaves them zero), used by one stream at a
+// time. splits, pitch, box, stages: the choices of `k4_plan`, refused where
+// they do not fit the kernel. Supports hd % 16 == 0, hd <= 128, Hkv*hd <=
+// 4096 and Hq / Hkv in {1, 2, 4}.
+namespace {
+
+template <bool F32>
+int entry(const void* q, long long q_sb, long long q_sh, const void* k, const void* v,
+          const void* ks, const void* vs, const void* kv_lens, void* out, long long o_sb,
+          long long o_sh, void* ws, long long ws_floats, void* tickets, long long ntickets,
+          int layer, int L, int B, int Hq, int Hkv, int C, int hd, float sm_scale, int splits,
+          int pitch, int box, int stages, void* stream) {
   if (B <= 0 || Hq <= 0) return 0;
   const int G = Hkv > 0 ? Hq / Hkv : 0;
   if (hd <= 0 || hd % 16 || hd > 128 || Hkv <= 0 || Hq != G * Hkv ||
@@ -688,11 +739,11 @@ extern "C" int vgt_decode_attention_q8(
   if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const long long sslab = static_cast<long long>(B) * Hkv * C;
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q); p.q_sb = q_sb; p.q_sh = q_sh;
+  p.q = q; p.q_sb = q_sb; p.q_sh = q_sh;
   p.ks = static_cast<const float*>(ks) + layer * sslab;
   p.vs = static_cast<const float*>(vs) + layer * sslab;
   p.kv_lens = static_cast<const int*>(kv_lens);
-  p.out = static_cast<__nv_bfloat16*>(out); p.o_sb = o_sb; p.o_sh = o_sh;
+  p.out = out; p.o_sb = o_sb; p.o_sh = o_sh;
   p.ws = static_cast<float*>(ws);
   p.tickets = static_cast<unsigned*>(tickets);
   p.layer_row = static_cast<long long>(layer) * B * C;
@@ -701,9 +752,33 @@ extern "C" int vgt_decode_attention_q8(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (G) {
     case 1:
-      return dpl == DPL_G1_WIDE ? launch<1, DPL_G1_WIDE>(p, pl, k, v, rows, B, st)
-                                : launch<1, DPL_G1>(p, pl, k, v, rows, B, st);
-    case 2: return launch<2, DPL_G2>(p, pl, k, v, rows, B, st);
-    default: return launch<4, DPL_G4>(p, pl, k, v, rows, B, st);
+      return dpl == DPL_G1_WIDE ? launch<1, DPL_G1_WIDE, F32>(p, pl, k, v, rows, B, st)
+                                : launch<1, DPL_G1, F32>(p, pl, k, v, rows, B, st);
+    case 2: return launch<2, DPL_G2, F32>(p, pl, k, v, rows, B, st);
+    default: return launch<4, DPL_G4, F32>(p, pl, k, v, rows, B, st);
   }
+}
+
+}  // namespace
+
+extern "C" int vgt_decode_attention_q8(
+    const void* q, long long q_sb, long long q_sh, const void* k, const void* v,
+    const void* ks, const void* vs, const void* kv_lens, void* out, long long o_sb,
+    long long o_sh, void* ws, long long ws_floats, void* tickets, long long ntickets,
+    int layer, int L, int B, int Hq, int Hkv, int C, int hd, float sm_scale, int splits,
+    int pitch, int box, int stages, void* stream) {
+  return entry<false>(q, q_sb, q_sh, k, v, ks, vs, kv_lens, out, o_sb, o_sh, ws, ws_floats,
+                     tickets, ntickets, layer, L, B, Hq, Hkv, C, hd, sm_scale, splits, pitch,
+                     box, stages, stream);
+}
+
+extern "C" int vgt_decode_attention_q8_f32(
+    const void* q, long long q_sb, long long q_sh, const void* k, const void* v,
+    const void* ks, const void* vs, const void* kv_lens, void* out, long long o_sb,
+    long long o_sh, void* ws, long long ws_floats, void* tickets, long long ntickets,
+    int layer, int L, int B, int Hq, int Hkv, int C, int hd, float sm_scale, int splits,
+    int pitch, int box, int stages, void* stream) {
+  return entry<true>(q, q_sb, q_sh, k, v, ks, vs, kv_lens, out, o_sb, o_sh, ws, ws_floats,
+                    tickets, ntickets, layer, L, B, Hq, Hkv, C, hd, sm_scale, splits, pitch,
+                    box, stages, stream);
 }

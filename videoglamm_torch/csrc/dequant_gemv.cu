@@ -66,6 +66,17 @@
 //   is an I2F, and in the unit loop it was a large share of the one-row time.
 //   `fast_div` multiplies by ceil(2^32 / d) from the plan.
 //
+// f32 activations (an f32 model's decode, the `_f32` entries): x and y are
+// f32, and nothing is rounded to bf16, as the Pallas bodies compute in f32
+// (quant.py:43, :151-155). The tensor-core route would round x to bf16, so
+// f32 runs on the CUDA cores at every M: `gemv_rows_kernel` with x staged
+// from f32 and y stored in f32, its conversions and its int4 order (each
+// 32-k slice scaled once) unchanged, one pass over the weights for every
+// tile of up to F32_MT rows of x (tiles on grid.y). The Pallas kernels take
+// 8-row tiles of x against blocks of weight columns; here a tile is 4 rows
+// (x in f32 for 4 rows of K = 8192 is 128 KB of shared memory), so M = 64
+// reads the weights 16 times.
+//
 // Measured on the card and not kept: the ring of bulk copies feeding the
 // one-row route too, each warp on two rows of a stage (its consumers were
 // bound by shared-memory traffic and latency, and lost to direct loads with
@@ -77,12 +88,15 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 #include "sm90_common.cuh"
 #include "mma_common.cuh"
 
 constexpr int GROUP_ROWS = 16;         // rows of a stage
+constexpr int F32_MT = 4;              // rows of x a pass takes with f32 x
 constexpr int CONS_BAR = 1;            // named barrier of the consumer warps
 
 // the plan's fields, in the order of `k5_plan(...).fields()`
@@ -96,32 +110,40 @@ struct Plan {
 };
 constexpr int PLAN_FIELDS = 20;
 
-// Stage x rows m0 .. m0+MT-1 (zeros past M) into shared memory, NT threads.
+// Stage x rows m0 .. m0+MT-1 (zeros past M) into shared memory, NT threads;
+// x is XT (bf16, or f32 on the CUDA-core route).
 // CUDA-core route (MT <= 3): f32, each block of 32 chunks of 16 weight bytes
 // permuted so that the lanes' 16-byte loads of one quarter-chunk q are
 // consecutive (no bank conflicts): x[k], k = 4 q + e of chunk ca, lives at
 // (ca / 32) * 32 KPC + 128 q + 4 (ca % 32) + e. Tensor-core route: bf16 rows
 // xstride bytes apart, each group of 4 k (int8) or 8 k (int4) in the order
 // the conversions give the weights: (0,2,1,3) or (0,4,1,5,2,6,3,7).
-template <bool INT4, int MT, int NT>
+template <bool INT4, int MT, int NT, typename XT>
 __device__ __forceinline__ void stage_x(unsigned char* smem, const Plan& p,
-                                        const __nv_bfloat16* x, long long ldx,
+                                        const XT* x, long long ldx,
                                         int m0, int M, int K) {
+  constexpr bool XF32 = std::is_same<XT, float>::value;
   const int kv8 = K / 8;
   for (int mi = 0; mi < MT; ++mi)
   for (int c = threadIdx.x; c < kv8; c += NT) {
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (m0 + mi < M)
-      v = *reinterpret_cast<const uint4*>(x + (long long)(m0 + mi) * ldx + c * 8);
-    if (MT < 8) {
+    uint4 v = make_uint4(0, 0, 0, 0), v2 = make_uint4(0, 0, 0, 0);
+    if (m0 + mi < M) {
+      const uint4* src = reinterpret_cast<const uint4*>(x + (long long)(m0 + mi) * ldx + c * 8);
+      v = src[0];
+      if (XF32) v2 = src[1];
+    }
+    if constexpr (MT < 8) {
       constexpr int KPC = INT4 ? 32 : 16;       // k a 16-byte chunk holds
       float* xr = reinterpret_cast<float*>(smem + p.x_off + (long long)mi * p.xstride);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int k = c * 8 + 4 * h, ca = k / KPC, q = (k % KPC) / 4;
         const uint32_t lo = h ? v.z : v.x, hi = h ? v.w : v.y;
+        const uint4 f = h ? v2 : v;
         *reinterpret_cast<float4*>(xr + (ca / 32) * 32 * KPC + 128 * q + 4 * (ca % 32)) =
-            make_float4(bf16_lo(lo), bf16_hi(lo), bf16_lo(hi), bf16_hi(hi));
+            XF32 ? make_float4(__uint_as_float(f.x), __uint_as_float(f.y),
+                               __uint_as_float(f.z), __uint_as_float(f.w))
+                 : make_float4(bf16_lo(lo), bf16_hi(lo), bf16_lo(hi), bf16_hi(hi));
       }
     } else {
       uint4 o;
@@ -148,12 +170,12 @@ constexpr int ROW_WARPS = 16;
 constexpr int ROW_CTAS = 2;              // CTAs an SM with one row of x (k5_plan)
 constexpr int UNROLL = 2;                // units a batch; two batches in flight
 
-template <bool INT4, int MT>
+template <bool INT4, int MT, typename XT>
 __global__ void __launch_bounds__(ROW_WARPS * 32, MT == 1 ? ROW_CTAS : 1)
-gemv_rows_kernel(const __nv_bfloat16* __restrict__ x, long long ldx,
+gemv_rows_kernel(const XT* __restrict__ x, long long ldx,
                  const unsigned char* __restrict__ w,
                  const float* __restrict__ scale,
-                 __nv_bfloat16* __restrict__ out, long long ldo,
+                 XT* __restrict__ out, long long ldo,
                  int M, int N, int K, int group, Plan p) {
   constexpr int W = ROW_WARPS;
   constexpr int KPC = INT4 ? 32 : 16;    // k a vector holds
@@ -291,8 +313,11 @@ gemv_rows_kernel(const __nv_bfloat16* __restrict__ x, long long ldx,
     if (m0 + mi >= M) continue;
     float v = 0.f;
     for (int k = 0; k < vpr; ++k) v += part[(row * vpr + k) * MT + mi];
-    out[(long long)(m0 + mi) * ldo + r0 + row] =
-        __float2bfloat16(INT4 ? v : v * scale[r0 + row]);
+    const float y = INT4 ? v : v * scale[r0 + row];
+    if constexpr (std::is_same<XT, float>::value)
+      out[(long long)(m0 + mi) * ldo + r0 + row] = y;
+    else
+      out[(long long)(m0 + mi) * ldo + r0 + row] = __float2bfloat16(y);
   }
 }
 
@@ -439,7 +464,7 @@ constexpr int kMaxSmem = 232448;       // dynamic shared memory a block can use
 constexpr int kSmemSM = 233472;        // shared memory of an SM
 constexpr int kSmemCTA = 1024;         // of which the system reserves a CTA
 
-template <typename Kernel>
+template <typename XT, typename Kernel>
 int launch_k(Kernel kernel, int threads, const void* x, long long ldx,
              const void* w, const void* scale, void* out, long long ldo, int M,
              int N, int K, int group, const Plan& p, cudaStream_t st) {
@@ -456,15 +481,16 @@ int launch_k(Kernel kernel, int threads, const void* x, long long ldx,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x), ldx,
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const XT*>(x), ldx,
                          static_cast<const unsigned char*>(w),
                          static_cast<const float*>(scale),
-                         static_cast<__nv_bfloat16*>(out), ldo, M, N, K, group, p);
+                         static_cast<XT*>(out), ldo, M, N, K, group, p);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool INT4>
+// F32: x and out f32, the CUDA-core route in tiles of up to F32_MT rows
+template <bool INT4, bool F32>
 int launch(const void* x, long long ldx, const void* w, const void* scale,
            void* out, long long ldo, int M, int N, int K, int group,
            const int* fields, int nfields, void* stream) {
@@ -474,11 +500,12 @@ int launch(const void* x, long long ldx, const void* w, const void* scale,
   int* dst = reinterpret_cast<int*>(&p);
   for (int i = 0; i < PLAN_FIELDS; ++i) dst[i] = fields[i];
   const int rowbytes = INT4 ? K / 2 : K;
-  const bool mma = M > 3;
+  const bool mma = !F32 && M > 3;
+  const int mt = mma ? 8 : F32 ? (M < F32_MT ? M : F32_MT) : M;
   // the plan's invariants that the kernels rely on, each region of shared
   // memory against the constants of the kernel that uses it
   bool bad = K <= 0 || K % (INT4 ? 32 : 16) || (INT4 && (group <= 0 || group % 32 || K % group))
-      || p.ctas <= 0 || p.ctas > N || p.mt != (mma ? 8 : M) || p.m_tiles != (M + p.mt - 1) / p.mt
+      || p.ctas <= 0 || p.ctas > N || p.mt != mt || p.m_tiles != (M + p.mt - 1) / p.mt
       || p.m_tiles > 65535 || p.smem > kMaxSmem || p.x_off % 16 || p.s_off % 16
       || p.xstride % 16 || p.base != N / p.ctas || p.extra != N % p.ctas
       || (INT4 && p.gdiv * 32 != group)
@@ -493,7 +520,7 @@ int launch(const void* x, long long ldx, const void* w, const void* scale,
     const long long units = (long long)p.vpr * max_rows;
     bad = p.vpr != (rowbytes + (INT4 ? 511 : 1023)) / (INT4 ? 512 : 1024)
         || p.x_off != 0 || p.xstride < 4LL * ((K + block - 1) / block) * block
-        || p.s_off < (long long)M * p.xstride || p.smem < p.s_off + units * M * 4;
+        || p.s_off < (long long)mt * p.xstride || p.smem < p.s_off + units * mt * 4;
   } else {
     bad = p.kseg <= 0 || p.kseg % 16 || p.nseg != (rowbytes + p.kseg - 1) / p.kseg
         || p.stages < 2 || p.stages > 8 || p.rstride < p.kseg || p.rstride % 16
@@ -506,27 +533,44 @@ int launch(const void* x, long long ldx, const void* w, const void* scale,
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tr = ROW_WARPS * 32, tm = MMA_WARPS * 32 + 32;
+  if constexpr (F32) {
+    switch (p.mt) {
+      case 1: return launch_k<float>(gemv_rows_kernel<INT4, 1, float>, tr, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
+      case 2: return launch_k<float>(gemv_rows_kernel<INT4, 2, float>, tr, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
+      case 3: return launch_k<float>(gemv_rows_kernel<INT4, 3, float>, tr, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
+      default: return launch_k<float>(gemv_rows_kernel<INT4, F32_MT, float>, tr, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
+    }
+  }
+  using BF = __nv_bfloat16;
   switch (p.mt) {
-    case 1: return launch_k(gemv_rows_kernel<INT4, 1>, tr, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
-    case 2: return launch_k(gemv_rows_kernel<INT4, 2>, tr, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
-    case 3: return launch_k(gemv_rows_kernel<INT4, 3>, tr, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
-    default: return launch_k(gemv_mma_kernel<INT4>, tm, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
+    case 1: return launch_k<BF>(gemv_rows_kernel<INT4, 1, BF>, tr, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
+    case 2: return launch_k<BF>(gemv_rows_kernel<INT4, 2, BF>, tr, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
+    case 3: return launch_k<BF>(gemv_rows_kernel<INT4, 3, BF>, tr, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
+    default: return launch_k<BF>(gemv_mma_kernel<INT4>, tm, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
   }
 }
 
 }  // namespace
 
 // Plain C entries (bound with ctypes). Each returns a cudaError_t code,
-// 0 = ok. x: [M, K] bf16 with row stride ldx (elements, a multiple of 8),
-// out: [M, N] bf16 with row stride ldo; pointers 16-byte aligned (checked in
-// Python). plan: the PLAN_FIELDS integers of `k5_plan(...).fields()`.
+// 0 = ok. x: [M, K] bf16 (f32 for the `_f32` entries) with row stride ldx
+// (elements, a multiple of 8), out: [M, N] of x's type with row stride ldo;
+// pointers 16-byte aligned (checked in Python). plan: the PLAN_FIELDS
+// integers of `k5_plan(...).fields()` (with f32=True for the `_f32` entries).
 
 // w: [>= N, K] int8 rows, K % 16 == 0; scale: [N] f32.
 extern "C" int vgt_dequant_gemv_int8(
     const void* x, long long ldx, const void* w, const void* scale,
     void* out, long long ldo, int M, int N, int K, const int* plan,
     int nplan, void* stream) {
-  return launch<false>(x, ldx, w, scale, out, ldo, M, N, K, 1, plan, nplan, stream);
+  return launch<false, false>(x, ldx, w, scale, out, ldo, M, N, K, 1, plan, nplan, stream);
+}
+
+extern "C" int vgt_dequant_gemv_int8_f32(
+    const void* x, long long ldx, const void* w, const void* scale,
+    void* out, long long ldo, int M, int N, int K, const int* plan,
+    int nplan, void* stream) {
+  return launch<false, true>(x, ldx, w, scale, out, ldo, M, N, K, 1, plan, nplan, stream);
 }
 
 // packed: [N, K/2] int8 bytes, K % 32 == 0; scales: [N, K/group] f32,
@@ -535,6 +579,14 @@ extern "C" int vgt_dequant_gemv_int4(
     const void* x, long long ldx, const void* packed, const void* scales,
     void* out, long long ldo, int M, int N, int K, int group,
     const int* plan, int nplan, void* stream) {
-  return launch<true>(x, ldx, packed, scales, out, ldo, M, N, K, group, plan,
-                      nplan, stream);
+  return launch<true, false>(x, ldx, packed, scales, out, ldo, M, N, K, group, plan,
+                             nplan, stream);
+}
+
+extern "C" int vgt_dequant_gemv_int4_f32(
+    const void* x, long long ldx, const void* packed, const void* scales,
+    void* out, long long ldo, int M, int N, int K, int group,
+    const int* plan, int nplan, void* stream) {
+  return launch<true, true>(x, ldx, packed, scales, out, ldo, M, N, K, group, plan,
+                            nplan, stream);
 }

@@ -190,11 +190,10 @@ def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
     quantised here from their f32 values, before the cast to `dtype`.
     kv_cache: "bf16" (the compute dtype) or "int8".
     dtype: the compute dtype, torch.bfloat16 or torch.float32. An f32
-    model takes the full-precision f32 routes of K1, K2 and K6 on the card
-    (`models.common.set_exact_f32`) and serves with TF32 off
-    (`full_precision`). On the card f32 takes neither quantised weights
-    (K5 takes bf16 activations) nor the int8 cache (K4 takes bf16
-    queries): both raise here, before anything is built.
+    model takes the full-precision f32 routes of its kernels on the card
+    (`models.common.set_exact_f32`: K1, K2, K6, K7 and K8; K5 and K4 take
+    f32 activations and queries with every `quant` and `kv_cache`) and
+    serves with TF32 off (`full_precision`).
     eos_id, temperature, draft_k: the generation options of
     `GroundedInference`.
     With `cfg.llm_type == "llama3_1"` the LLM is the Llama-3.1 base, which
@@ -207,7 +206,6 @@ def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
         raise ValueError(f"quant {quant!r}: the {cfg.llm_type} base has no "
                          "quantised projections; only Phi-3 serves int8 / int4 "
                          "weights")
-    check_f32_serving(device, dtype, quant, kv_cache)
     dev = _device(device, "build_inference")
     head = state_dict.get("llm.lm_head.weight") if state_dict else None
     prequant = head is not None and head.dtype == torch.int8
@@ -231,26 +229,6 @@ def build_inference(cfg, state_dict: Optional[Mapping] = None, *,
     return GroundedInference(model.eval(), max_new_tokens=max_new_tokens,
                              eos_id=eos_id, temperature=temperature,
                              draft_k=draft_k)
-
-
-def check_f32_serving(device, dtype, quant: str, kv_cache: str) -> None:
-    """Raise NotImplementedError where an f32 model on the card would need
-    a kernel that has no f32 route: K5 (int8 / int4 weights: its
-    activations are bf16) and K4 (the int8 KV cache: its queries are
-    bf16). Nothing falls back to the CPU or to bf16."""
-    if torch.device(device).type != "cuda" or dtype != torch.float32:
-        return
-    if quant != "none":
-        raise NotImplementedError(
-            f"f32 with {quant} weights on the card: K5, the dequantising "
-            "product, takes bf16 activations only (f32 in K5 is queued); "
-            "serve f32 with float weights, or quantised weights in bf16")
-    if kv_cache == "int8":
-        raise NotImplementedError(
-            "f32 with the int8 KV cache on the card: K4, the int8-cache "
-            "decode attention, takes bf16 queries only (f32 in K4 is "
-            "queued); serve f32 with the float cache, or the int8 cache in "
-            "bf16")
 
 
 def _device(device, what: str) -> torch.device:

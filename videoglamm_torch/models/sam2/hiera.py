@@ -95,7 +95,8 @@ class MultiScaleAttention(nn.Module):
         # any count takes it.
         if windowed and S in (16, 64):
             qkv = self.qkv(x.reshape(B * S, x.shape[-1]))
-            o = attention_packed_qkv_smallwin(qkv.view(B, S, 3 * d), nh, hd)
+            o = attention_packed_qkv_smallwin(qkv.view(B, S, 3 * d), nh, hd,
+                                              exact=self.exact_f32)
             return self.proj(o.reshape(B * S, d)).view(B, H, W, d)
         # hiera.py:191-209: windows of 256 tokens and more, folded into
         # super-windows under a block-diagonal mask. The JAX module pads the

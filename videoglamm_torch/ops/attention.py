@@ -25,27 +25,35 @@ non-causal self-attention (512 < S <= 1536). It replaces the Pallas kernel
 key tiles through the same TMA ring, first the exact row maximum and sum
 from q k^T alone, then exp(s - m) / l rounded to bf16 into p v, so no
 accumulator is rescaled. On a grid too small for 128-query tiles it takes
-64-query tiles (`k7_plan`). f32 operands take the same staging pass.
-`dot_product_attention` takes it where the JAX package takes
-`_window_attention` (attention.py:1308-1310).
+64-query tiles (`k7_plan`). f32 operands in a bf16 model take the same
+staging pass; an f32 model's (`exact`) take K7's full-precision route,
+which is K1's "simt_f32" body (`csrc/attention_f32.cu`) launched from K7's
+wrapper as non-causal full self-attention: an online softmax and the TPU
+kernel's two passes agree to f32 rounding. `dot_product_attention` takes it
+where the JAX package takes `_window_attention` (attention.py:1308-1310).
 
 K8 (`csrc/smallwin_attention.cu`) is the attention inside 16-, 32- or
 64-token windows straight from a fused qkv projection. It replaces the
 Pallas kernel `_smallwin_kernel` (attention.py:605): a (window, head) pair
 is a unit of S/16 warps, a window's keys are one tile, and the softmax is a
-single pass in registers; nothing is packed or masked. K7 and K8 get the
-recompute backward of the JAX `custom_vjp`s (autograd through the plain
-twin, attention.py:588-599 and :709-714).
+single pass in registers; nothing is packed or masked. An f32 model's f32
+qkv takes K8's full-precision route: the "simt_f32" body over the packed
+qkv's strides in its block-diagonal mode, the NW windows of S tokens read
+as one sequence of NW * S with window S, so a 64-row tile holds 64 / S
+whole windows and the keys of other windows are masked, never summed. K7
+and K8 get the recompute backward of the JAX `custom_vjp`s (autograd
+through the plain twin, attention.py:588-599 and :709-714).
 
 K4 (`csrc/decode_attention_q8.cu`) is the single-query attention over the
 int8 token-major KV cache. It replaces the Pallas kernel `_decode_q_kernel`
 (attention.py:1061): the stacked cache is read in place (TMA tensor maps
 over the whole cache, the layer a coordinate), the per-token and per-head
 scales fold into the logits (K) and the probabilities (V), GQA is native,
-and kv_lens is read on the device. One launch a call: CTAs split the tokens
-of a (row, kv head), and the last split to finish folds the others'
-partials from a workspace kept per device and stream (`k4_plan` sizes it
-all). `dot_product_attention` sends every Sq == 1 call with `k_scale` on a
+and kv_lens is read on the device; f32 queries (an f32 model) take the
+same kernel with q and o in f32 and nothing rounded to bf16. One launch a
+call: CTAs split the tokens of a (row, kv head), and the last split to
+finish folds the others' partials from a workspace kept per device and
+stream (`k4_plan` sizes it all). `dot_product_attention` sends every Sq == 1 call with `k_scale` on a
 CUDA tensor to K4 (the TPU's lane-layout condition `_decode_group_plan`
 has no counterpart here).
 
@@ -96,7 +104,9 @@ NEG_INF = -1e30
 # under its route: "route:wgmma" (bf16), "route:wgmma_f32" (f32 storage in
 # a bf16 model) or "route:simt_f32" (an f32 model); the staging pass of f32
 # operands (K1 and K7) counts under "stage_bf16"; K6's f32 route counts
-# under "flash_bwd:simt_f32" beside "flash_bwd"
+# under "flash_bwd:simt_f32" beside "flash_bwd". The f32 routes of K4, K7
+# and K8 count under "decode_q8:f32", "window:simt_f32" and
+# "smallwin:simt_f32" instead of their kernel's name
 LAUNCHES = collections.Counter()
 
 # K1 and K7: a CTA owns up to K1_BM query rows (two consumer warpgroups of
@@ -330,6 +340,21 @@ def k1_route(dtype, D: int, exact: bool = False) -> str:
     return "simt_f32" if exact else "wgmma_f32"
 
 
+def k8_route(dtype, exact: bool = False) -> str:
+    """The way into K8 for qkv of `dtype`: "mma" for bf16 (its own body,
+    csrc/smallwin_attention.cu) and, for f32 qkv, "simt_f32" when `exact`
+    (the rule of `k1_route`: only an f32 model takes it). K8 has no staged
+    route: f32 qkv in a bf16 model raises ValueError. K7 routes as K1
+    (`k1_route`)."""
+    if dtype != torch.float32:
+        return "mma"
+    if not exact:
+        raise ValueError(
+            "smallwin_attention: f32 qkv takes K8's full-precision route only "
+            "in an f32 model (exact=True); K8 takes bf16 only otherwise")
+    return "simt_f32"
+
+
 def key_tile(depth: int) -> int:
     """Keys a ring tile of K1 and K7 at a padded head dim: 128, and 64 at
     256, where Q and two stages of K and V fill the shared memory."""
@@ -495,6 +520,24 @@ def _f32_fwd_fn():
     return fn
 
 
+def _simt_f32(q, k, v, out, *, sm_scale: float, what: str, causal=False,
+              kv_lens=None, q_start=None, win: int = 0, lse=None):
+    """One launch of the full-precision f32 body (csrc/attention_f32.cu) on
+    [B,H,S,D] views through their (batch, head, token) strides: K1's
+    "simt_f32" route, and K7's and K8's f32 routes. kv_lens / q_start:
+    int32 [B] on the device or None; lse: None or a contiguous f32
+    [B,H,Sq]."""
+    B, H, Sq, D = q.shape
+    err = _f32_fwd_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        kv_lens.data_ptr() if kv_lens is not None else None,
+        q_start.data_ptr() if q_start is not None else None,
+        B, H, Sq, k.shape[2], D, int(causal), int(win), float(sm_scale),
+        lse.data_ptr() if lse is not None else None, _cuda.stream_ptr(q))
+    _cuda.check_launch(err, what)
+
+
 def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
                          mode: str, kv_lens=None, q_start=None, win: int = 0,
                          lse=None, exact: bool = False):
@@ -521,24 +564,24 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
         raise ValueError("attention_fwd: lse must be a contiguous f32 "
                          f"[{B},{H},{Sq}] on {q.device}")
     route = k1_route(q.dtype, D, exact)
-    if route != "simt_f32":
-        k1_tma_plan(q, k, v, out)
-    if route == "wgmma_f32":
-        q, k, v = stage_bf16(q, k, v)
     kvl = _as_int32(kv_lens, B, q.device)
     qs = _as_int32(q_start, B, q.device)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            kvl.data_ptr() if kvl is not None else None,
+    if route == "simt_f32":
+        _simt_f32(q, k, v, out, sm_scale=sm_scale, what="attention_fwd",
+                  causal=causal, kv_lens=kvl, q_start=qs, win=win, lse=lse)
+    else:
+        k1_tma_plan(q, k, v, out)
+        if route == "wgmma_f32":
+            q, k, v = stage_bf16(q, k, v)
+        err = _kernel_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], kvl.data_ptr() if kvl is not None else None,
             qs.data_ptr() if qs is not None else None,
             B, H, Sq, Sk, D, int(causal), int(win), float(sm_scale),
-            lse.data_ptr() if lse is not None else None)
-    if route == "simt_f32":
-        err = _f32_fwd_fn()(*args, _cuda.stream_ptr(q))
-    else:
-        err = _kernel_fn()(*args, int(out.dtype == torch.float32),
-                           _cuda.stream_ptr(q))
-    _cuda.check_launch(err, "attention_fwd")
+            lse.data_ptr() if lse is not None else None,
+            int(out.dtype == torch.float32), _cuda.stream_ptr(q))
+        _cuda.check_launch(err, "attention_fwd")
     LAUNCHES[mode] += 1
     LAUNCHES["route:" + route] += 1
     return out
@@ -556,20 +599,27 @@ def _window_fn():
     return fn
 
 
-def window_attention_kernel(q, k, v, *, sm_scale: float):
+def window_attention_kernel(q, k, v, *, sm_scale: float, exact: bool = False):
     """Launch K7. q/k/v: [B,H,S,D] views with a contiguous head dim, one
     dtype, bf16 or f32, on the card; non-causal full self-attention with a
     whole-row softmax. Returns a new contiguous [B,H,S,D] tensor of the
-    operands' dtype. f32 operands take the staging pass (`stage_bf16`)
-    first. Raises on other operands, on D % 8 != 0 or D > 256, on S > 1536
-    (the branch `dot_product_attention` sends here) and on views that the
-    TMA plan refuses (`k7_plan`)."""
+    operands' dtype. f32 operands take the route `k1_route(torch.float32,
+    D, exact)` names: "simt_f32" for an f32 model (the full-precision body
+    of csrc/attention_f32.cu, f32 FFMA, nothing staged; counted as
+    "window:simt_f32"), else the staging pass (`stage_bf16`) first. Raises
+    on other operands, on D % 8 != 0 or D > 256, on S > 1536 (the branch
+    `dot_product_attention` sends here) and, on the staged and bf16 routes,
+    on views that the TMA plan refuses (`k7_plan`)."""
     B, H, S, D = q.shape
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
     _check_qkvo("window_attention", q, k, v, out, 256)
     if k.shape[2] != S or S > 1536:
         raise ValueError(f"window_attention: needs Sq == Sk <= 1536, got "
                          f"Sq {S}, Sk {k.shape[2]}")
+    if k1_route(q.dtype, D, exact) == "simt_f32":
+        _simt_f32(q, k, v, out, sm_scale=sm_scale, what="window_attention")
+        LAUNCHES["window:simt_f32"] += 1
+        return out
     k7_plan(q, k, v, out, torch.cuda.get_device_properties(q.device)
             .multi_processor_count)
     if q.dtype == torch.float32:
@@ -594,18 +644,18 @@ def _smallwin_fn():
 
 
 def smallwin_attention_kernel(qkv, num_heads: int, head_dim: int, *,
-                              sm_scale: float):
-    """Launch K8. qkv: contiguous bf16 [NW,S,3*H*hd] on the card, S in
-    (16, 32, 64), hd % 8 == 0, hd <= 128; any window count. Returns bf16
-    [NW,S,H*hd]. Raises on anything else."""
+                              sm_scale: float, exact: bool = False):
+    """Launch K8. qkv: contiguous [NW,S,3*H*hd] on the card, S in (16, 32,
+    64), hd % 8 == 0, hd <= 128; any window count. Returns [NW,S,H*hd] of
+    qkv's dtype. bf16 takes K8's body (csrc/smallwin_attention.cu); f32
+    takes K8's full-precision route, and only for an f32 model (`exact`):
+    the "simt_f32" body of csrc/attention_f32.cu over qkv's strides as one
+    sequence of NW * S tokens with windows of S (its block-diagonal mode),
+    counted as "smallwin:simt_f32". Raises on anything else."""
     NW, S, C3 = qkv.shape
     C = num_heads * head_dim
-    if qkv.dtype == torch.float32:
-        raise ValueError(
-            "smallwin_attention: K8 takes bf16 only; f32 in K8 is queued "
-            "(ROADMAP.md). An f32 Hiera serves its small windows through the "
-            "fused block (the default hoisted layout)")
-    _cuda.check_operand(qkv, "qkv", torch.bfloat16)
+    f32 = k8_route(qkv.dtype, exact) == "simt_f32"
+    _cuda.check_operand(qkv, "qkv", torch.float32 if f32 else torch.bfloat16)
     if not qkv.is_contiguous() or C3 != 3 * C:
         raise ValueError(f"smallwin_attention: qkv {tuple(qkv.shape)} must be "
                          f"contiguous [NW,S,3*{num_heads}*{head_dim}]")
@@ -614,6 +664,14 @@ def smallwin_attention_kernel(qkv, num_heads: int, head_dim: int, *,
                          f"{head_dim} unsupported (needs S in 16, 32, 64, "
                          "hd % 8 == 0, hd <= 128)")
     out = torch.empty((NW, S, C), dtype=qkv.dtype, device=qkv.device)
+    if f32:
+        x = qkv.view(1, NW * S, 3, num_heads, head_dim)
+        q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+        o = out.view(1, NW * S, num_heads, head_dim).transpose(1, 2)
+        _simt_f32(q, k, v, o, sm_scale=sm_scale, what="smallwin_attention",
+                  win=S)
+        LAUNCHES["smallwin:simt_f32"] += 1
+        return out
     err = _smallwin_fn()(qkv.data_ptr(), out.data_ptr(), NW, S, num_heads,
                          head_dim, float(sm_scale), _cuda.stream_ptr(qkv))
     _cuda.check_launch(err, "smallwin_attention")
@@ -864,8 +922,9 @@ def _k4_workspace(device, stream: int, floats: int, tickets: int):
     return ws
 
 
-def _decode_fn():
-    fn = _cuda.load("decode_attention_q8").lib.vgt_decode_attention_q8
+def _decode_fn(f32: bool = False):
+    lib = _cuda.load("decode_attention_q8").lib
+    fn = lib.vgt_decode_attention_q8_f32 if f32 else lib.vgt_decode_attention_q8
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [P, L, L, P, P, P, P, P, P, L, L, P, L, P, L] + \
@@ -876,13 +935,15 @@ def _decode_fn():
 
 def decode_attention_q8(q, k, v, k_scale, v_scale, kv_lens, layer=None, *,
                         sm_scale: float):
-    """Launch K4. q: [B,Hq,1,hd] bf16 (q head i reads kv head i // G);
-    k/v: the token-major int8 cache, one layer's slab [B,C,Hkv*hd] or the
-    stacked [L,B,C,Hkv*hd] with `layer` an int, read in place; k_scale /
-    v_scale: [(L,) B,Hkv,C] f32; kv_lens: [B] ints on the device.
-    Returns [B,Hq,1,hd] bf16. Supports hd % 16 == 0, hd <= 128,
+    """Launch K4. q: [B,Hq,1,hd] bf16 or f32 (q head i reads kv head i //
+    G); k/v: the token-major int8 cache, one layer's slab [B,C,Hkv*hd] or
+    the stacked [L,B,C,Hkv*hd] with `layer` an int, read in place; k_scale
+    / v_scale: [(L,) B,Hkv,C] f32; kv_lens: [B] ints on the device.
+    Returns [B,Hq,1,hd] of q's dtype: f32 q takes K4's f32 route (the same
+    kernel, q and o in f32, p * vs not rounded to bf16; counted as
+    "decode_q8:f32"). Supports hd % 16 == 0, hd <= 128,
     Hkv*hd <= 4096 and G = Hq/Hkv in (1, 2, 4); raises otherwise, and
-    unless q is a bf16 CUDA tensor. One device kernel a call; the wrapper
+    unless q is a bf16 or f32 CUDA tensor. One device kernel a call; the wrapper
     allocates only the output (the splits' partials go to a workspace kept
     per device and stream, so calls on one stream run one after the other,
     as a stream runs them)."""
@@ -892,7 +953,8 @@ def decode_attention_q8(q, k, v, k_scale, v_scale, kv_lens, layer=None, *,
         layer = 0
     L, _, C, HD = k.shape
     Hkv = k_scale.shape[-2]
-    _cuda.check_operand(q, "q", torch.bfloat16)
+    f32 = q.dtype == torch.float32
+    _cuda.check_operand(q, "q", torch.float32 if f32 else torch.bfloat16)
     if Sq != 1 or HD != Hkv * hd or v.shape != k.shape or k.shape[1] != B \
             or k_scale.shape != (L, B, Hkv, C) or v_scale.shape != k_scale.shape:
         raise ValueError(f"decode_attention_q8: shapes q{tuple(q.shape)} "
@@ -918,14 +980,14 @@ def decode_attention_q8(q, k, v, k_scale, v_scale, kv_lens, layer=None, *,
     stream = _cuda.stream_ptr(q)
     ws, tickets = _k4_workspace(q.device, stream, plan.ws_floats, B * Hkv)
     out = torch.empty((B, Hq, 1, hd), dtype=q.dtype, device=q.device)
-    err = _decode_fn()(
+    err = _decode_fn(f32)(
         q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), kv_lens.data_ptr(),
         out.data_ptr(), out.stride(0), out.stride(1), ws.data_ptr(), ws.numel(),
         tickets.data_ptr(), tickets.numel(), int(layer), L, B, Hq, Hkv, C, hd,
         float(sm_scale), plan.splits, plan.pitch, plan.box, plan.stages, stream)
     _cuda.check_launch(err, "decode_attention_q8")
-    LAUNCHES["decode_q8"] += 1
+    LAUNCHES["decode_q8:f32" if f32 else "decode_q8"] += 1
     return out
 
 
@@ -1094,26 +1156,30 @@ def attention_packed_qkv_padded(qkv, num_heads: int, head_dim: int, *,
     return o.reshape(B, S, num_heads * head_dim)
 
 
-def _window_attention(q, k, v, sm_scale: float):
+def _window_attention(q, k, v, sm_scale: float, exact: bool = False):
     """Port of `_window_attention` (attention.py:580): medium non-causal
     self-attention [B,H,S,D] with a whole-row softmax. The plain twin for
-    CPU tensors, K7 on the card."""
+    CPU tensors, K7 on the card (`exact`: see `window_attention_kernel`)."""
     if q.device.type == "cpu":
         return _window_attention_plain(q, k, v, sm_scale)
     return _kernel_or_recompute(
         lambda q_, k_, v_: window_attention_kernel(q_, k_, v_,
-                                                   sm_scale=sm_scale),
+                                                   sm_scale=sm_scale,
+                                                   exact=exact),
         lambda q_, k_, v_: _window_attention_plain(q_, k_, v_, sm_scale),
         q, k, v)
 
 
 def attention_packed_qkv_smallwin(qkv, num_heads: int, head_dim: int, *,
-                                  sm_scale: Optional[float] = None):
+                                  sm_scale: Optional[float] = None,
+                                  exact: bool = False):
     """Port of attention_packed_qkv_smallwin (attention.py:717).
     Self-attention inside tiny fixed windows straight from a fused qkv
     projection: qkv [NW,S,3*H*hd], S tokens a window -> [NW,S,H*hd]. The
     plain twin for CPU tensors; on the card K8 (S in 16, 32, 64, any window
-    count: nothing is packed) or it raises."""
+    count: nothing is packed) or it raises. exact: the caller is a model
+    whose compute dtype is f32, whose f32 qkv takes K8's full-precision
+    route (`smallwin_attention_kernel`)."""
     if sm_scale is None:
         sm_scale = head_dim ** -0.5
     sm_scale = float(sm_scale)
@@ -1121,7 +1187,7 @@ def attention_packed_qkv_smallwin(qkv, num_heads: int, head_dim: int, *,
         return _smallwin_plain(qkv, num_heads, sm_scale)
     return _kernel_or_recompute(
         lambda x: smallwin_attention_kernel(x, num_heads, head_dim,
-                                            sm_scale=sm_scale),
+                                            sm_scale=sm_scale, exact=exact),
         lambda x: _smallwin_plain(x, num_heads, sm_scale), qkv)
 
 
@@ -1146,10 +1212,10 @@ def dot_product_attention(q, k, v, *, causal: bool = False, kv_lens=None,
     cache [L,B,C,Hkv*hd] with `layer` an int. Decode (Sq == 1) on a CUDA
     tensor launches K4 or raises; it never takes the plain twin. Sq == 1
     with causal and q_start == kv_len - 1 reduces to the kv_lens mask that
-    K4 applies. exact: the caller is a model whose compute dtype is f32;
-    its f32 operands take K1's full-precision route (`k1_route`). K7 has
-    none: medium self-attention in an f32 model stays on K7's staged
-    route (a known difference, ROADMAP.md)."""
+    K4 applies (f32 q: K4's f32 route). exact: the caller is a model whose
+    compute dtype is f32; its f32 operands take the full-precision routes
+    of K1 (`k1_route`) and K7 (`window_attention_kernel`), and nothing is
+    staged to bf16."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if (k_scale is None) != (v_scale is None):
@@ -1180,7 +1246,7 @@ def dot_product_attention(q, k, v, *, causal: bool = False, kv_lens=None,
     # whole-row-softmax kernel (K7)
     if (not causal and kv_lens is None and q_start is None and Sq == Sk
             and 512 < Sq <= 1536):
-        return _window_attention(q, k, v, float(sm_scale))
+        return _window_attention(q, k, v, float(sm_scale), exact)
     # attention.py:1315: short and windowed shapes stay plain
     long_enough = Sq >= 1024 and Sk >= 1024 and (causal or Sq >= 2048)
     if not long_enough:

@@ -16,7 +16,10 @@ multiplied by its group scale once (the Pallas body scales every weight
 first: the same function, f32 rounding in another order). Both are bound by the bytes of the weights, which a persistent
 grid of contiguous row ranges reads once: for 1 to 3 rows of x on the
 CUDA cores straight into registers, for 4 or more on the tensor cores
-through a ring of bulk copies, in tiles of 8 rows. `k5_plan` computes the
+through a ring of bulk copies, in tiles of 8 rows. f32 activations (an f32
+model) take K5's f32 entries: the CUDA-core kernel at every M, x staged from
+f32 and y stored in f32 with nothing rounded to bf16, one pass over the
+weights for every tile of up to 4 rows. `k5_plan` computes the
 grid and its shared-memory layout and hands them to the kernel.
 
 Routing follows the JAX package. `dequant_matmul` sends M >= `w8a8_min_m`
@@ -40,7 +43,8 @@ import torch.nn.functional as F
 
 from . import _cuda
 
-# K5 launches by entry point ("int8", "int4"); counted where it launches
+# K5 launches by entry point ("int8", "int4"; f32 activations:
+# "gemv_int8:f32", "gemv_int4:f32"); counted where it launches
 LAUNCHES = collections.Counter()
 
 W8A8_MIN_M = 256       # quant.py:253: rows from which the W8A8 branch runs
@@ -140,10 +144,11 @@ K5_GROUP_ROWS = 16       # rows of a ring stage (tensor-core route)
 K5_SEGMENT = 1024        # bytes of a row a stage holds (the last one shorter)
 K5_MAX_STAGES = 6
 K5_ROWS_MAX_M = 3        # up to 3 rows on the CUDA cores, from 4 on mma
+K5_F32_MT = 4            # rows of x a pass takes with f32 x (.cu: F32_MT)
 K5_MMA_TILE = 8          # rows of x a tensor-core pass takes
 K5_MMA_WARPS = 16        # consumer warps of the tensor-core route (.cu)
 K5_UNIT = {False: 1024, True: 512}  # bytes of a CUDA-core unit, int8 / int4
-K5_ROW_CTAS = (2, 1, 1)  # CUDA-core route: CTAs an SM for M = 1, 2, 3 (.cu)
+K5_ROW_CTAS = (2, 1, 1, 1)  # CUDA cores: CTAs an SM by rows of x a tile (.cu)
 K5_SMEM = 232448         # dynamic shared memory a block can use (H100)
 K5_SMEM_SM = 233472      # shared memory of an SM (228 KB)
 K5_SMEM_CTA = 1024       # of which the system reserves per CTA
@@ -171,9 +176,10 @@ class K5Plan:
     `mt` rows of x. Shared memory holds x at `x_off` (rows `xstride` bytes
     apart) and `smem` bytes in all.
 
-    CUDA-core route (mt <= 3): `per_sm` CTAs an SM; a CTA's rows are cut
+    CUDA-core route (mt <= 4): `per_sm` CTAs an SM; a CTA's rows are cut
     into units of 32 lanes x 2 vectors of 16 bytes (int8) or 32 x 1 (int4);
-    their sums sit at `s_off` until a row's add in order.
+    their sums sit at `s_off` until a row's add in order. With f32 x it
+    takes every M, in `m_tiles` tiles of up to 4 rows.
     Tensor-core route (mt = 8): one CTA an SM streams its rows in stages of
     16 rows x one `kseg`-byte segment of each row, through a ring of
     `stages` slots of 16 rows `rstride` bytes apart at `ring_off`, behind
@@ -226,26 +232,31 @@ class K5Plan:
         return cta * base + min(cta, extra), base + (cta < extra)
 
 
-def k5_plan(M: int, N: int, K: int, group: int, sms: int) -> K5Plan:
+def k5_plan(M: int, N: int, K: int, group: int, sms: int,
+            f32: bool = False) -> K5Plan:
     """K5's launch for x [M, K] against N weight rows (group = 0: int8 rows
     of K bytes; else int4 rows of K/2 bytes with a scale per `group` k) on
-    a card of `sms` SMs. Raises ValueError where the layout does not fit."""
+    a card of `sms` SMs. f32: x is f32 (rows of 4 K bytes, read twice as
+    many bytes as bf16's and staged as they are), which takes the CUDA-core
+    route at every M in tiles of up to K5_F32_MT rows. Raises ValueError
+    where the layout does not fit."""
     rowbytes = K // 2 if group else K
-    if M <= K5_ROWS_MAX_M:
-        per_sm = K5_ROW_CTAS[M - 1]
+    if f32 or M <= K5_ROWS_MAX_M:
+        mt = min(M, K5_F32_MT) if f32 else M
+        per_sm = K5_ROW_CTAS[mt - 1]
         ctas = min(N, sms * per_sm)
         max_rows = -(-N // ctas)
         # x in f32, in blocks of 32 chunks of 16 bytes (512 k int8, 1024 k
         # int4), then the units' sums; `per_sm` CTAs an SM side by side (1
         # KB of each SM's shared memory is the system's a CTA)
         xstride = 4 * _round_up(K, 32 * (32 if group else 16))
-        s_off = M * xstride
-        smem = s_off + max_rows * -(-rowbytes // K5_UNIT[bool(group)]) * M * 4
+        s_off = mt * xstride
+        smem = s_off + max_rows * -(-rowbytes // K5_UNIT[bool(group)]) * mt * 4
         if smem > K5_SMEM_SM // per_sm - K5_SMEM_CTA:
             raise ValueError(f"k5_plan: M={M} K={K} N={N} needs {smem} bytes "
                              "of shared memory")
-        return K5Plan(M, N, K, group, ctas, M, 1, 0, 0, 0, 0, xstride, 0,
-                      s_off, 0, 0, smem, per_sm)
+        return K5Plan(M, N, K, group, ctas, mt, -(-M // mt), 0, 0, 0, 0,
+                      xstride, 0, s_off, 0, 0, smem, per_sm)
     ctas = min(N, sms)
     max_rows = -(-N // ctas)
     kseg = min(rowbytes, K5_SEGMENT)
@@ -274,8 +285,9 @@ def k5_plan(M: int, N: int, K: int, group: int, sms: int) -> K5Plan:
 # ---------------------------------------------------------------------------
 # K5 launchers
 # ---------------------------------------------------------------------------
-def _gemv_fn(kind: str):
-    fn = getattr(_cuda.load("dequant_gemv").lib, f"vgt_dequant_gemv_{kind}")
+def _gemv_fn(kind: str, f32: bool = False):
+    fn = getattr(_cuda.load("dequant_gemv").lib,
+                 f"vgt_dequant_gemv_{kind}{'_f32' if f32 else ''}")
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         group = [I] if kind == "int4" else []
@@ -286,24 +298,27 @@ def _gemv_fn(kind: str):
 
 def _launch_gemv(kind, x2, w, scale, N, group, plan=None):
     """plan: `k5_plan`'s for these shapes unless given (the card tests hand
-    in altered plans, which the C entry must refuse)."""
+    in altered plans, which the C entry must refuse). f32 x takes the f32
+    entry."""
     M, K = x2.shape
+    f32 = x2.dtype == torch.float32
     if plan is None:
-        plan = k5_plan(M, N, K, group, _cuda.sm_count(x2.device.index))
+        plan = k5_plan(M, N, K, group, _cuda.sm_count(x2.device.index), f32)
     fields = (ctypes.c_int * len(plan.fields()))(*plan.fields())
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     tail = [group] if kind == "int4" else []
-    err = _gemv_fn(kind)(x2.data_ptr(), x2.stride(0), w.data_ptr(),
+    err = _gemv_fn(kind, f32)(x2.data_ptr(), x2.stride(0), w.data_ptr(),
                          scale.data_ptr(), out.data_ptr(), out.stride(0),
                          M, N, K, *tail, fields, len(fields),
                          _cuda.stream_ptr(x2))
     _cuda.check_launch(err, f"dequant_gemv_{kind}")
-    LAUNCHES[kind] += 1
+    LAUNCHES[f"gemv_{kind}:f32" if f32 else kind] += 1
     return out
 
 
 def _check_gemv(x2, w, scale, row_bytes: int, what: str):
-    _cuda.check_operand(x2, f"{what}: x", torch.bfloat16)
+    _cuda.check_operand(x2, f"{what}: x", torch.float32
+                        if x2.dtype == torch.float32 else torch.bfloat16)
     for name, t, dt in (("weight", w, torch.int8), ("scale", scale,
                                                     torch.float32)):
         if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
@@ -315,10 +330,11 @@ def _check_gemv(x2, w, scale, row_bytes: int, what: str):
 
 
 def dequant_gemv_int8(x2, w_q, scale):
-    """Launch K5's int8 entry. x2: [M, K] bf16; w_q: [>= N, K] int8 with
-    K % 16 == 0; scale: [N] f32 -> [M, N] bf16. Every M is taken (tiles of
-    8 rows from M = 4 on). Raises unless the operands are CUDA tensors of
-    these types.
+    """Launch K5's int8 entry. x2: [M, K] bf16 or f32; w_q: [>= N, K] int8
+    with K % 16 == 0; scale: [N] f32 -> [M, N] of x2's dtype. Every M is
+    taken (bf16: tiles of 8 rows from M = 4 on; f32: the f32 entry, tiles
+    of up to 4 rows on the CUDA cores). Raises unless the operands are CUDA
+    tensors of these types.
 
     K5 is a programmatic dependent launch: it starts while the kernel
     before it on the stream drains and reads the weights and scales before
@@ -337,10 +353,11 @@ def dequant_gemv_int8(x2, w_q, scale):
 
 
 def dequant_gemv_int4(x2, packed, scales, group: int = 128):
-    """Launch K5's int4 entry. x2: [M, K] bf16; packed: [N, K/2] int8 with
-    K % 32 == 0; scales: [N, K/group] f32 with group % 32 == 0 -> [M, N]
-    bf16. The weights' contract is `dequant_gemv_int8`'s: no kernel still
-    running on the stream writes packed or scales."""
+    """Launch K5's int4 entry. x2: [M, K] bf16 or f32 (the f32 entry, as
+    `dequant_gemv_int8`); packed: [N, K/2] int8 with K % 32 == 0; scales:
+    [N, K/group] f32 with group % 32 == 0 -> [M, N] of x2's dtype. The
+    weights' contract is `dequant_gemv_int8`'s: no kernel still running on
+    the stream writes packed or scales."""
     M, K = x2.shape
     N = packed.shape[0]
     if packed.shape != (N, K // 2) or group % 32 or K % group \
