@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the videoglamm_torch port once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,sam1,train,cli,parity,f32,f32q,towers]
+    python3 chip_smoke.py [--phases all|kernels,experiments,serve,predictors,sam1,train,cli,parity,f32,f32q,towers,parallel]
 
 Run from the root of a checkout. `--phases` (default all, as the contract
 runs it) picks phases 3 (kernels), the experiment harnesses, 4-5 (serve and
 check), 6 (predictors), 7 (sam1), 8-10 (train), 11 (cli), 12 (parity), 13
-(f32), 14 (f32q) and 15 (towers) to run; the build always runs.
+(f32), 14 (f32q), 15 (towers) and 16 (parallel) to run; the build always
+runs.
 Phases, each fatal on failure:
 
 1. device: needs CUDA; prints the card's name and power limit
@@ -278,7 +279,24 @@ Phases, each fatal on failure:
    recompute); then one forward and backward through the towers of the
    bf16 flagship (1 video, 1 row; InternVideo2 block 0, CLIP layer 0,
    Hiera blocks 0 and 23 and the projectors train), its seconds and peak
-   memory.
+   memory;
+16. parallel: the sharded train step over `torch.distributed`. (a) A
+   process group of one rank over NCCL: the bf16 flagship built once takes
+   3 optimizer steps of 2 micro-steps through `make_train_step`, then,
+   from the same start, 3 through `make_sharded_train_step` on the mesh
+   (1, 1): metrics, trainable parameters and moments bit-equal, frozen
+   leaves untouched, the same launches (both runs under
+   `torch.use_deterministic_algorithms`: the step's index backwards
+   accumulate with atomics otherwise), the two step times, peak memory,
+   no collective issued. (b) Two processes on the one card over gloo
+   (which takes CUDA tensors: probed first) on the narrow model at meshes
+   (2, 1) and (1, 2), 2 steps each in f32 and bf16, against the
+   one-process step on the card: losses within 1e-5 relative in f32 and
+   TOL_TRAIN_LOSS in bf16, the AdamW moments gathered through the
+   checkpoint within 1e-4 (f32) and TOL_TRAIN_GRAD_ALL (bf16) relative
+   L2; collectives a step and step times. (c) One bf16 flagship request
+   before and after `shard_params` on the mesh (1, 1): the same tokens,
+   bit-equal masks, the same launches.
 
 Prints one {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, without
@@ -290,6 +308,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -5917,8 +5936,335 @@ def phase_towers(cfg, seed: int):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the sharded train step over torch.distributed: one NCCL rank at flagship
+# width, two gloo ranks on the one card at narrow width, serving over a mesh
+# ---------------------------------------------------------------------------
+PARALLEL_STEPS = 3          # optimizer steps of each flagship run
+PARALLEL_SMALL_STEPS = 2    # steps of each narrow run over gloo
+TOL_PAR_F32_LOSS = 1e-5     # relative, f32 losses: the same sums, split
+TOL_PAR_F32_MOMENTS = 1e-4  # relative L2, f32 moments after 2 steps
+PARALLEL_MESHES = ((2, 1), (1, 2))
+PARALLEL_TIMEOUT = 300      # seconds for the two gloo processes together
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def parallel_tcfg(grad_accum: int):
+    from videoglamm_torch.config import TrainConfig
+    return TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                       grad_accum_steps=grad_accum)
+
+
+def phase_parallel(cfg, seed: int, smi: str) -> dict:
+    """(a), (b) and (c) of phase 16; returns the launches of the sharded
+    flagship run."""
+    import torch
+    import torch.distributed as dist
+    from videoglamm_torch.parallel import initialize_distributed
+
+    t0 = time.perf_counter()
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"parallel: backend {dist.get_backend()}")
+        counts = parallel_flagship_world1(cfg, seed, smi)
+        torch.cuda.empty_cache()
+        parallel_serve(cfg, smi)
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    parallel_gloo(seed, smi)
+    log(f"  parallel phase: {time.perf_counter() - t0:.1f} s wall [{smi}]")
+    return counts
+
+
+def parallel_flagship_world1(cfg, seed: int, smi: str) -> dict:
+    """(a): make_train_step and make_sharded_train_step on the mesh (1, 1)
+    from the same start on the same flagship model, bit for bit."""
+    import warnings
+    import torch
+    from videoglamm_torch.parallel import collectives, create_mesh
+    from videoglamm_torch.training import (build_training, create_train_state,
+                                           make_sharded_train_step)
+
+    tr = build_training(cfg, parallel_tcfg(GRAD_ACCUM), device="cuda",
+                        dtype=torch.bfloat16,
+                        init=lambda m: seeded_init(
+                            m, torch.Generator(device="cuda").manual_seed(0)))
+    micro = [make_train_batch(cfg, seed + i) for i in range(GRAD_ACCUM)]
+    batch = {k: torch.stack([m[k] for m in micro]) for k in micro[0]}
+    params = dict(tr.model.named_parameters())
+    trainable = list(tr.tx.trainable)
+    start = {n: params[n].detach().clone() for n in trainable}
+    versions = {n: p._version for n, p in params.items() if n not in start}
+    n_micro = PARALLEL_STEPS * GRAD_ACCUM
+
+    def run(step, state, what):
+        reset_counts()
+        collectives.reset_count()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, walls = [], []
+        for _ in range(PARALLEL_STEPS):
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            metrics.append({k: float(v) for k, v in m.items()})
+        counts = read_counts()
+        for name, n in counts.items():
+            per = EXPECTED_PER_MICRO_STEP.get(name)
+            if (per is None and n == 0) or (per is not None and n != per * n_micro):
+                raise AssertionError(f"parallel, {what}: {name} launched {n} "
+                                     f"times in {n_micro} micro-steps")
+        coll = dict(collectives.COUNT)
+        log(f"  {what}: step walls " + ", ".join(f"{w:.3f}" for w in walls)
+            + f" s, losses " + ", ".join(f"{m['loss']:.6f}" for m in metrics)
+            + f", peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"collectives issued {json.dumps(coll)} [{smi}]")
+        return state, metrics, walls, counts, coll
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            plain, m_plain, w_plain, c_plain, _ = run(
+                tr.train_step, tr.state, "make_train_step, flagship bf16, "
+                f"{PARALLEL_STEPS} steps of {GRAD_ACCUM} micro-steps")
+            end = {n: params[n].detach().clone() for n in trainable}
+            with torch.no_grad():
+                for n in trainable:
+                    params[n].copy_(start[n])
+            mesh = create_mesh()
+            step, state, split = make_sharded_train_step(
+                tr.model, tr.tx, mesh, create_train_state(tr.model, tr.tx),
+                grad_accum=GRAD_ACCUM)
+            if split(batch) is not batch or state.sharding.model:
+                raise AssertionError("parallel: the mesh (1, 1) split something")
+            sharded, m_sh, w_sh, c_sh, coll = run(
+                step, state, f"make_sharded_train_step on {mesh!r} over NCCL")
+        finally:
+            torch.use_deterministic_algorithms(False)
+    notes = sorted({str(w.message).splitlines()[0][:120] for w in caught
+                    if "determinis" in str(w.message)})
+    if notes:
+        log("  deterministic-algorithm warnings: " + " | ".join(notes))
+    differ = [n for n in trainable if not torch.equal(params[n], end[n])]
+    moments = [n for n in trainable for k in ("mu", "nu")
+               if not torch.equal(plain.opt_state[k][n], sharded.opt_state[k][n])]
+    touched = [n for n, v in versions.items() if params[n]._version != v]
+    if m_plain != m_sh or differ or moments or touched or c_plain != c_sh \
+            or any(coll.values()):
+        raise AssertionError(
+            f"parallel (a): the mesh (1, 1) step is not make_train_step's: "
+            f"metrics equal {m_plain == m_sh}, parameters differing "
+            f"{differ[:4]}, moments differing {moments[:4]}, frozen leaves "
+            f"written {touched[:4]}, launches equal {c_plain == c_sh}, "
+            f"collectives {coll}")
+    log(f"  parallel (a): {PARALLEL_STEPS} steps on the mesh (1, 1) over NCCL "
+        f"equal make_train_step's bit for bit ({len(trainable)} trainable "
+        f"leaves and their moments, 5 metrics a step; {len(versions)} frozen "
+        f"leaves never written; the same launches); median step "
+        f"{statistics.median(w_sh):.3f} s sharded vs "
+        f"{statistics.median(w_plain):.3f} s plain [{smi}]")
+    del tr, plain, sharded, state, start, end, batch, micro, params
+    return c_sh
+
+
+def parallel_serve(cfg, smi: str):
+    """(c): one bf16 flagship request before and after `shard_params` on
+    the mesh (1, 1)."""
+    import torch
+    from videoglamm_torch.parallel import create_mesh, shard_params
+
+    gi = build(cfg, "none", "bf16", "bf16 LLM (serving over a mesh)")
+    frames, context, frames_sam, ids, lens = make_request(cfg, 100)
+    outs, counts = [], []
+    for sharded in (False, True):
+        if sharded:
+            shard_params(gi.model, create_mesh())
+        reset_counts()
+        t = time.perf_counter()
+        outs.append(gi(frames, context, frames_sam, ids, lens))
+        torch.cuda.synchronize()
+        counts.append(read_counts())
+        log(f"  serve {'after' if sharded else 'before'} shard_params: "
+            f"{time.perf_counter() - t:.2f} s [{smi}]")
+    a, b = outs
+    if not (torch.equal(a.tokens, b.tokens) and torch.equal(a.lengths, b.lengths)
+            and torch.equal(a.pred_masks, b.pred_masks)
+            and counts[0] == counts[1]):
+        raise AssertionError("parallel (c): serving through shard_params on "
+                             "the mesh (1, 1) changed the request's result")
+    log(f"  parallel (c): tokens and lengths equal, masks bit-equal "
+        f"{tuple(b.pred_masks.shape)}, the same launches")
+    del gi
+
+
+def _small_train_run(cfg, dtype, seed: int, mesh, ckpt_dir: str):
+    """PARALLEL_SMALL_STEPS sharded steps (the one-process step where mesh
+    is None) of the narrow model; the state is checkpointed whole into
+    ckpt_dir. Returns (metrics, step walls, collectives a step, split)."""
+    import torch
+    from videoglamm_torch.io.checkpoint import CheckpointManager
+    from videoglamm_torch.parallel import collectives
+    from videoglamm_torch.training import build_training, make_sharded_train_step
+
+    tr = build_training(cfg, parallel_tcfg(1), device="cuda", dtype=dtype,
+                        init=lambda m: seeded_init(
+                            m, torch.Generator(device="cuda").manual_seed(0)))
+    batch = make_train_batch(cfg, seed, dtype=dtype, rows=2, videos=2)
+    step, state, local = tr.train_step, tr.state, batch
+    if mesh is not None:
+        step, state, split = make_sharded_train_step(tr.model, tr.tx, mesh,
+                                                     tr.state)
+        local = split(batch)
+    collectives.reset_count()
+    metrics, walls = [], []
+    for _ in range(PARALLEL_SMALL_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+    coll = {k: v / PARALLEL_SMALL_STEPS for k, v in collectives.COUNT.items()}
+    CheckpointManager(ckpt_dir).save(PARALLEL_SMALL_STEPS, state)
+    return metrics, walls, coll, "ce_norm" in local
+
+
+def parallel_worker(argv) -> int:
+    """One of the two gloo ranks of (b): `chip_smoke.py --parallel-worker
+    RANK ADDR DIR SEED`. Probes gloo on CUDA tensors first and writes what
+    it found; then runs both meshes in f32 and bf16."""
+    import torch
+    import torch.distributed as dist
+    from videoglamm_torch.parallel import create_mesh, initialize_distributed
+
+    rank, addr, d, seed = int(argv[0]), argv[1], argv[2], int(argv[3])
+    torch.backends.cuda.matmul.allow_tf32 = False     # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(addr, 2, rank, backend="gloo", device="cuda")
+    try:
+        x = torch.arange(4.0, device="cuda") + rank
+        dist.all_reduce(x)
+        out = torch.empty(8, device="cuda", dtype=torch.bfloat16)
+        dist.all_gather_into_tensor(out, x.bfloat16())
+        probe = "ok" if float(x.sum()) == 16.0 else f"wrong sum {x.tolist()}"
+    except Exception as e:   # gloo's refusal is the finding; recorded, not hidden
+        probe = f"{type(e).__name__}: {e}"
+    with open(f"{d}/probe{rank}.json", "w") as f:
+        json.dump(probe, f)
+    if probe != "ok":
+        return 3
+    cfg = small_config()
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in PARALLEL_MESHES:
+            mesh = create_mesh(*shape)
+            tag = f"{str(dtype)[6:]}_{shape[0]}x{shape[1]}"
+            res[tag] = _small_train_run(cfg, dtype, seed, mesh,
+                                        f"{d}/ckpt_{tag}")
+            torch.cuda.empty_cache()
+    if rank == 0:
+        with open(f"{d}/results.json", "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _moments(ckpt_dir: str):
+    import torch
+    from videoglamm_torch.io.checkpoint import CheckpointManager
+    path = os.path.join(ckpt_dir, str(PARALLEL_SMALL_STEPS), "state.pt")
+    if not os.path.exists(path):
+        raise AssertionError(f"parallel (b): no checkpoint at {path}")
+    st = torch.load(path, map_location="cpu", weights_only=True)
+    return torch.cat([st["opt_state"][k][n].float().reshape(-1)
+                      for k in ("mu", "nu") for n in sorted(st["opt_state"][k])])
+
+
+def parallel_gloo(seed: int, smi: str):
+    """(b): the narrow model's one-process step on the card, then two
+    processes over gloo at (2, 1) and (1, 2), f32 and bf16."""
+    import tempfile
+    import torch
+
+    cfg = small_config()
+    with tempfile.TemporaryDirectory() as d:
+        ref = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype)[6:]
+            ref[tag] = _small_train_run(cfg, dtype, seed, None, f"{d}/ref_{tag}")
+            log(f"  narrow model, one process, {tag}: step walls "
+                + ", ".join(f"{w * 1e3:.1f}" for w in ref[tag][1])
+                + " ms, losses " + ", ".join(f"{m['loss']:.6f}" for m in ref[tag][0]))
+        torch.cuda.empty_cache()
+        addr = f"127.0.0.1:{free_port()}"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-worker",
+             str(r), addr, d, str(seed)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=PARALLEL_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        probes = [json.load(open(f"{d}/probe{r}.json"))
+                  if os.path.exists(f"{d}/probe{r}.json") else None
+                  for r in range(2)]
+        if probes != ["ok", "ok"] and all(p is not None for p in probes):
+            log(f"  parallel (b): NOT POSSIBLE: gloo refused CUDA tensors: "
+                f"{probes}")
+            return
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"parallel (b): rank {r} exit "
+                                     f"{p.returncode}:\n{out[-4000:]}")
+        res = json.load(open(f"{d}/results.json"))
+        log(f"  parallel (b): two gloo processes on the one card, gloo takes "
+            f"CUDA tensors (all_reduce, all_gather_into_tensor probed); "
+            f"{wall:.1f} s for both ranks' start, build and runs [{smi}]")
+        for tag, (metrics, walls, coll, split) in sorted(res.items()):
+            dt = tag.split("_")[0]
+            want = ref[dt][0]
+            tol_loss = TOL_PAR_F32_LOSS if dt == "float32" else TOL_TRAIN_LOSS
+            tol_m = TOL_PAR_F32_MOMENTS if dt == "float32" else TOL_TRAIN_GRAD_ALL
+            worst = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                        for g, w in zip(metrics, want) for k in w)
+            m_err = rel_l2(_moments(f"{d}/ckpt_{tag}"), _moments(f"{d}/ref_{dt}"))
+            log(f"  {tag}: split by videos {split}, step walls "
+                + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+                + " ms (one process "
+                + ", ".join(f"{w * 1e3:.1f}" for w in ref[dt][1]) + "; the "
+                "first step of each run builds and JITs), "
+                f"collectives a step {json.dumps(coll)}; losses against one "
+                f"process: worst relative {worst:.3e} (tol {tol_loss:g}); "
+                f"AdamW moments gathered through the checkpoint: relative L2 "
+                f"{m_err:.3e} (tol {tol_m:g}) [{smi}]")
+            if not (worst <= tol_loss and m_err <= tol_m
+                    and split == tag.endswith("2x1")):
+                raise AssertionError(f"parallel (b) {tag}: disagrees with the "
+                                     "one-process step")
+
+
 PHASES = ("kernels", "experiments", "serve", "predictors", "sam1", "train",
-          "cli", "parity", "f32", "f32q", "towers")
+          "cli", "parity", "f32", "f32q", "towers", "parallel")
 SOURCES = {
     "attention_fwd": ("cuda", "videoglamm_torch/csrc/attention_fwd.cu"),
     "gemm_epilogue": ("cuda", "videoglamm_torch/csrc/gemm_epilogue.cu"),
@@ -5984,6 +6330,8 @@ REPLACES = {
 
 def main() -> int:
     import argparse
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        return parallel_worker(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the synthetic training batch")
@@ -6242,6 +6590,13 @@ def main() -> int:
                   "the bf16 flagship's towers")
             towers_counts = phase_towers(cfg, args.seed)
             torch.cuda.empty_cache()
+
+        if "parallel" in chosen:
+            phase("[parallel] the sharded train step: the flagship on the mesh "
+                  "(1, 1) over NCCL against make_train_step, serving through "
+                  "shard_params, two gloo processes at (2, 1) and (1, 2)")
+            parallel_counts = phase_parallel(cfg, args.seed, smi)
+            torch.cuda.empty_cache()
     except Exception:
         traceback.print_exc()
         log("FAIL")
@@ -6321,6 +6676,10 @@ def main() -> int:
         f32q_counts = f32q_parity_counts = {}
     if "towers" not in chosen:
         towers_counts = {}
+    # launches_parallel: the flagship's 3 sharded optimizer steps of 2
+    # micro-steps on the mesh (1, 1)
+    if "parallel" not in chosen:
+        parallel_counts = {}
     if "experiments" in chosen:
         for key in experiment_counts:
             if key.startswith("decode_fused") or key == "flash_bshd":
@@ -6344,7 +6703,9 @@ def main() -> int:
                             launches_f32_train=f32_train_counts.get(counter),
                             launches_f32q=f32q_counts.get(counter),
                             launches_f32q_parity=f32q_parity_counts.get(counter),
-                            launches_towers=towers_counts.get(counter), **row))
+                            launches_towers=towers_counts.get(counter),
+                            launches_parallel=parallel_counts.get(counter),
+                            **row))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     result = {"ok": True, "device": {

@@ -2054,3 +2054,146 @@ def test_f32_hiera_unhoisted_matches_hoisted(dev):
     assert attn.LAUNCHES["stage_bf16"] == before.get("stage_bf16", 0)
     for a, b in zip(plain, hoisted):
         _close_l2(a, b, 1e-5, "unhoisted vs hoisted f32 Hiera")
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step (videoglamm_torch.parallel) on the card: one NCCL
+# rank, and the gather-at-use Function over two gloo ranks on CUDA tensors
+# ---------------------------------------------------------------------------
+def _narrow_cfg():
+    """Flagship image sizes and sequence lengths, narrow shallow towers and
+    LLM (chip_smoke.py's small_config)."""
+    import dataclasses
+    from videoglamm_torch.config import HieraConfig, VideoGLaMMConfig
+    f = VideoGLaMMConfig.flagship()
+    R = dataclasses.replace
+    return R(f,
+             llm=R(f.llm, hidden_size=128, intermediate_size=256, num_layers=2,
+                   num_heads=2, num_kv_heads=2, head_dim=64),
+             clip=R(f.clip, hidden_size=128, num_layers=3, num_heads=2,
+                    intermediate_size=256),
+             internvideo=R(f.internvideo, embed_dim=176, depth=3, num_heads=2),
+             sam2=R(f.sam2, d_model=32, hiera=HieraConfig(
+                 embed_dim=16, num_heads=1, stages=(1, 2, 3, 1),
+                 global_att_blocks=(5,))),
+             out_dim=32)
+
+
+def _narrow_batch(cfg, dev, dtype):
+    from videoglamm_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    g = torch.Generator().manual_seed(7)
+    T, S, R = cfg.num_frames, 40, 2
+    frames = torch.randn(2, T, 224, 224, 3, generator=g)
+    context = torch.randn(2, T, 336, 336, 3, generator=g)
+    sam = torch.randn(2, 2, 1024, 1024, 3, generator=g)
+    ids = torch.randint(1, 32000, (R, S), generator=g)
+    ids[:, 2] = IMAGE_TOKEN_INDEX
+    ids[:, 20] = cfg.seg_token_idx
+    labels = ids.clone()
+    labels[labels < 0] = IGNORE_INDEX
+    gt = torch.full((R, cfg.max_seg_tokens, 2, 256, 256), 255.0)
+    gt[:, 0] = (torch.rand(R, 2, 256, 256, generator=g) > 0.5).float()
+    b = dict(frames=frames.to(dtype), context_images=context.to(dtype),
+             frames_sam=sam.to(dtype), input_ids=ids,
+             text_lens=torch.tensor([S, S - 5]), labels=labels,
+             video_idx=torch.arange(R), gt_masks=gt)
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def test_sharded_step_on_one_nccl_rank_is_make_train_step(dev):
+    """A process group of one rank over NCCL, the mesh (1, 1): two steps of
+    `make_sharded_train_step` equal `make_train_step`'s from the same start
+    on the same model bit for bit, under deterministic algorithms (the
+    step's index backwards accumulate with atomics otherwise)."""
+    import torch.distributed as dist
+    from videoglamm_torch.config import TrainConfig
+    from videoglamm_torch.parallel import create_mesh, initialize_distributed
+    from videoglamm_torch.training import (build_training, create_train_state,
+                                           make_sharded_train_step)
+    cfg = _narrow_cfg()
+    torch.manual_seed(0)
+    tr = build_training(cfg, TrainConfig(lr=1e-3, warmup_steps=1,
+                                         total_steps=10, grad_accum_steps=1),
+                        device="cuda", dtype=torch.bfloat16)
+    batch = _narrow_batch(cfg, dev, torch.bfloat16)
+    params = dict(tr.model.named_parameters())
+    start = {n: params[n].detach().clone() for n in tr.tx.trainable}
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        assert dist.get_backend() == "nccl"
+        state, want = tr.state, []
+        for _ in range(2):
+            state, m = tr.train_step(state, batch)
+            want.append(m)
+        end = {n: params[n].detach().clone() for n in start}
+        with torch.no_grad():
+            for n in start:
+                params[n].copy_(start[n])
+        step, sstate, split = make_sharded_train_step(
+            tr.model, tr.tx, create_mesh(), create_train_state(tr.model, tr.tx))
+        for i in range(2):
+            sstate, m = step(sstate, split(batch))
+            assert all(torch.equal(m[k], want[i][k]) for k in m), i
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    for n in start:
+        assert torch.equal(params[n], end[n]), n
+
+
+GATHER_WORKER = r"""
+import sys, torch
+from videoglamm_torch.parallel import initialize_distributed, create_mesh
+from videoglamm_torch.parallel.collectives import gather_shard
+from videoglamm_torch.parallel.partitioning import Sharding
+rank, addr, dev = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+initialize_distributed(addr, 2, rank, backend="gloo", device=dev)
+axis = create_mesh(data=1, model=2).axis("model")
+g = torch.Generator(device=dev).manual_seed(0)
+full = torch.randn(3 * 64, 48, device=dev, generator=g)    # q, k, v rows
+x = torch.randn(40, 48, device=dev, generator=g)
+dy = torch.randn(40, 3 * 64, device=dev, generator=g)
+for sh in (Sharding(0, (64, 64, 64), axis), Sharding(1, (48,), axis)):
+    shard = torch.nn.Parameter(sh.take(full))
+    w = gather_shard(shard, sh)
+    assert w.device.type == dev and torch.equal(w, full), "gathered weight"
+    ((x @ w.t()) * dy).sum().backward()
+    ref = full.clone().requires_grad_(True)
+    ((x @ ref.t()) * dy).sum().backward()
+    assert torch.equal(shard.grad, sh.take(ref.grad)), "gradient shard"
+print(f"rank {rank} ok", flush=True)
+"""
+
+
+def test_gather_at_use_over_two_gloo_ranks_on_cuda(dev):
+    """Two processes on the card over gloo (which takes CUDA tensors):
+    `gather_shard` of a qkv-segmented and of a plain column split gives the
+    full weight, and its backward this rank's part of the full gradient."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    addr = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, "-c", GATHER_WORKER, str(r),
+                               addr, "cuda"], cwd=root, env=dict(os.environ,
+                                                         PYTHONPATH=root),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"rank {r} ok" in out, out[-3000:]

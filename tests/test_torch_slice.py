@@ -166,7 +166,8 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     segmenter on a tiny SAM-2; import the last data modules; build an f32
     model for training and take a forward and backward through its towers
     (`freeze_towers=False`) inside `full_precision`; serve an f32 model
-    with int4 weights and the int8 cache. `transformers` is blocked too."""
+    with int4 weights and the int8 cache; import `parallel` and take one
+    sharded step on the one-process mesh. `transformers` is blocked too."""
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'videoglamm_tpu', 'transformers'):\n"
@@ -325,6 +326,19 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "out.loss.backward()\n"
         "g = trn.model.visual_model.image_encoder.trunk.blocks[0].attn.qkv.weight.grad\n"
         "assert g is not None and torch.isfinite(g).all()\n"
+        "from videoglamm_torch.parallel import (mesh as pmesh, partitioning,\n"
+        "    distributed, collectives, create_mesh, global_device_mesh,\n"
+        "    initialize_distributed, is_main_process, shard_params)\n"
+        "from videoglamm_torch.training import (make_sharded_train_step,\n"
+        "    opt_state_partition_spec)\n"
+        "initialize_distributed()\n"
+        "assert is_main_process() and global_device_mesh().shape == {'data': 1, 'model': 1}\n"
+        "trn = build_training(cfg, TrainConfig(warmup_steps=0), device='cpu',\n"
+        "                     dtype=torch.float32)\n"
+        "step, st, split = make_sharded_train_step(trn.model, trn.tx,\n"
+        "    create_mesh(), trn.state)\n"
+        "st, mt = step(st, split(prefetch.to_device(batch, 'cpu')))\n"
+        "assert st.step == 1 and torch.isfinite(mt['loss'])\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'videoglamm_tpu')\n"
         "               and v is not None\n"
         "               for k, v in sys.modules.items())\n"

@@ -8,16 +8,21 @@ inference weights grafted into a model with LoRA on the LLM's q and v) ->
 
 The model runs on the card unless `--device cpu` asks for the CPU;
 `--precision f32` trains in full f32 there (the f32 routes of K1, K2 and
-K6). Flags the port cannot serve yet raise: `--model_parallel` above 1
-(the sharded step) and `--quant` other than none (quantised weights do not
-train). Without one of these the JAX CLI's flags mean what they mean
-there.
+K6). The step is `make_sharded_train_step` over the (data, model) mesh of
+every process (`--model_parallel` ranks on the model axis; a world that it
+does not divide raises the mesh's ValueError); one process is the mesh
+(1, 1), the single-card step bit for bit. Each rank builds the same global
+batch from the same seed and keeps its part: the host loader runs on every
+rank. `--quant` other than none raises (quantised weights do not train).
+Otherwise the JAX CLI's flags mean what they mean there.
 
 Usage:
   python -m videoglamm_torch.cli.train --checkpoint CKPT --tokenizer TOK \\
       --gcg_json .../train.json --gcg_frames .../frames \\
       [--refer_vos_root ROOT] [--reason_seg_root ROOT] \\
       --ckpt_dir ./ckpts --log_dir ./runs
+  torchrun --nproc_per_node N -m videoglamm_torch.cli.train \\
+      --model_parallel M ...     (N cards, M of them on the model axis)
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ from ..data.datasets import (A2DSentencesDataset, DatasetSpec, GCGVideoDataset,
                              ReasonSegDataset, ReferSentencesTrainDataset,
                              ReferVOSDataset, SampleBuilder, VQADataset)
 from ..data.prefetch import device_copier, prefetch_to_device
-from ..training import build_training
+from ..parallel import global_device_mesh, initialize_distributed
+from ..training import build_training, make_sharded_train_step
 from ..training.trainer import Trainer, validate_mevis, validate_reasonseg
 from .common import add_model_args, check_card, load_model, load_tokenizer
 
@@ -144,14 +150,12 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = torch.device(args.device)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--model_parallel {args.model_parallel}: the sharded train step "
-            "is not ported yet; train on one device (--model_parallel 1)")
     if args.quant != "none":
         raise NotImplementedError(
             f"--quant {args.quant}: quantised LLM weights do not train; "
             "fine-tune from float weights (--quant none)")
+    initialize_distributed(device=args.device)
+    mesh = global_device_mesh(args.model_parallel)
     check_card(device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
 
@@ -218,10 +222,12 @@ def main(argv=None):
                        if args.val_reason_seg_root else None),
             n_samples=args.val_samples)
 
+    step, state, batch_split = make_sharded_train_step(
+        tr.model, tr.tx, mesh, tr.state, grad_accum=args.grad_accum)
     batches = prefetch_to_device(
         accum_batches(hybrid, args.batch_size, args.max_text_len,
                       args.grad_accum), copy, prefetch=2)
-    trainer = Trainer(tr.train_step, tr.state, batches,
+    trainer = Trainer(step, state, batches, to_device=batch_split,
                       steps_per_epoch=args.steps_per_epoch,
                       epochs=args.epochs, log_dir=args.log_dir,
                       ckpt_dir=args.ckpt_dir, val_fn=val_fn)

@@ -70,7 +70,8 @@ def prefill(llm, visual_prefix, input_ids, text_lens, max_new_tokens: int,
     embeds = llm.embed(input_ids)
     sp = splice_visual_prefix(embeds, input_ids, visual_prefix, text_lens)
     cfg = llm.cfg
-    cache = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads,
+    nkv = getattr(llm, "cache_kv_heads", cfg.num_kv_heads)  # a rank's heads
+    cache = kvcache.init_cache(cfg.num_layers, B, nkv,
                                S_prefill + max_new_tokens + slack, cfg.head_dim,
                                embeds.dtype, embeds.device, quant_kv)
     hidden_pre, cache = llm.forward_hidden(sp.embeds, sp.positions,

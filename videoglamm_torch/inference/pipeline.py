@@ -15,7 +15,14 @@ interactive video predictor (`models/sam2/`); `build_sam1` builds SAM-1
 (ViT-H, with or without the ITM tracker) for its predictor, its generator
 (`models/sam1_predictor.py`) and `SAM1.track_frames`. A reference-layout
 checkpoint directory loads through `io/reference.load_reference_dir`,
-which ends in `build_inference`."""
+which ends in `build_inference`.
+
+Over a mesh (`parallel.shard_params(model, mesh)` on the served model):
+the LLM's layers are tensor-parallel over `model` (each rank's cache holds
+its heads) and the other split weights are gathered at use; over `data`
+each rank serves its rows of the request, and the tokens, lengths, [SEG]
+slots and masks are all-gathered, so every rank returns the whole
+result."""
 from __future__ import annotations
 
 from typing import Callable, Mapping, NamedTuple, Optional
@@ -28,6 +35,8 @@ from ..models.phi3 import quantize_llm
 from ..models.sam1 import SAM1
 from ..models.sam2.sam2_base import SAM2Base
 from ..models.videoglamm import SegExtraction, VideoGLaMM
+from ..parallel import collectives
+from ..parallel.mesh import DATA_AXIS
 from ..ops.preprocess import (preprocess_clip_stream, preprocess_iv_stream,
                               preprocess_sam_stream, sample_frame_indices)
 from ..timing import StageClock
@@ -117,9 +126,18 @@ class GroundedInference:
         other, where the JAX pipeline maps its tracker over them
         (pipeline.py:94-97). An f32 model runs with TF32 off
         (`full_precision`)."""
+        data = _data_axis(self.model, input_ids.shape[0])
+        if data is not None:       # this rank's rows, then everyone's
+            n = input_ids.shape[0] // data.size
+            frames, context_images, frames_sam, input_ids, text_lens = (
+                t[data.index * n:(data.index + 1) * n] for t in
+                (frames, context_images, frames_sam, input_ids, text_lens))
         with full_precision(self.f32):
-            return self._run(frames, context_images, frames_sam, input_ids,
-                             text_lens, timings, use_video_branch, generator)
+            res = self._run(frames, context_images, frames_sam, input_ids,
+                            text_lens, timings, use_video_branch, generator)
+        if data is None:
+            return res
+        return InferenceResult(*(_gather_rows(t, data) for t in res))
 
     def _run(self, frames, context_images, frames_sam, input_ids, text_lens,
              timings, use_video_branch, generator) -> InferenceResult:
@@ -171,6 +189,23 @@ class GroundedInference:
         clock("preprocess")
         return self(*streams, input_ids, text_lens, timings=timings,
                     use_video_branch=use_video_branch, generator=generator)
+
+
+def _data_axis(model, rows: int):
+    """The data axis a request's rows are split over: None on one rank,
+    and where the rows do not divide (every rank then serves them all)."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return None
+    data = mesh.axis(DATA_AXIS)
+    return data if data.size > 1 and rows % data.size == 0 else None
+
+
+def _gather_rows(t, data):
+    every = collectives.all_gather(t.to(torch.uint8) if t.dtype == torch.bool
+                                   else t, data)
+    every = every.reshape(-1, *t.shape[1:])
+    return every.bool() if t.dtype == torch.bool else every
 
 
 def build_inference(cfg, state_dict: Optional[Mapping] = None, *,

@@ -14,7 +14,15 @@ output (`{q,v}_lora_{a,b}` on `self_attn`, B initialised to zero;
 phi3.py:92-103), `remat` recomputes every decoder layer in the backward
 (`torch.utils.checkpoint`, phi3.py:182-183). The trainable weights (LoRA,
 embed_tokens, lm_head) may stay f32 while the rest is stored in the
-compute dtype: they are cast at use (`linear_cast`, `act_dtype`)."""
+compute dtype: they are cast at use (`linear_cast`, `act_dtype`).
+
+Tensor parallelism (`parallel.partitioning.shard_params`): a layer whose
+`self_attn.tp` / `mlp.tp` is a model axis holds its shards and computes on
+them. The attention takes this rank's heads of q, k and v (LoRA's B rows
+of those heads) and sums o_proj's partial output over the axis; the MLP
+takes this rank's slice of the hidden dim into gate_up_proj and of the
+intermediate dim into down_proj, summing each output. With `vocab_tp` the
+embedding is vocab-parallel and the lm_head column-parallel."""
 from __future__ import annotations
 
 import torch
@@ -25,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import Phi3Config
 from ..ops.attention import dot_product_attention
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..parallel.collectives import copy_to, gather_last, reduce_from
 from . import kvcache
 from .common import QDense, QDense4, RMSNorm, linear_cast
 
@@ -51,6 +60,8 @@ def _proj(in_features: int, out_features: int, quant: str):
 
 
 class Phi3Attention(nn.Module):
+    tp = None      # the model axis of tensor parallelism (shard_params)
+
     def __init__(self, cfg: Phi3Config, quant: str = "none",
                  lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
@@ -68,12 +79,20 @@ class Phi3Attention(nn.Module):
                 setattr(self, f"{nm}_lora_b", b)
 
     def lora_delta(self, h, nm: str):
-        """h @ A @ B * alpha / rank for nm in ("q", "v") (phi3.py:92-99)."""
+        """h @ A @ B * alpha / rank for nm in ("q", "v") (phi3.py:92-99);
+        under tensor parallelism only B's rows of this rank's heads."""
         a = linear_cast(h, getattr(self, f"{nm}_lora_a"))
-        return linear_cast(a, getattr(self, f"{nm}_lora_b")) * self.lora_scale
+        b = getattr(self, f"{nm}_lora_b")
+        if self.tp is None:
+            return linear_cast(a, b) * self.lora_scale
+        rows = b.weight.shape[0] // self.tp.size
+        w = b.weight.narrow(0, self.tp.index * rows, rows)
+        return F.linear(a, w.to(a.dtype)) * self.lora_scale
 
 
 class Phi3MLP(nn.Module):
+    tp = None      # the model axis of tensor parallelism (shard_params)
+
     def __init__(self, cfg: Phi3Config, quant: str = "none"):
         super().__init__()
         self.gate_up_proj = _proj(cfg.hidden_size, 2 * cfg.intermediate_size,
@@ -81,8 +100,21 @@ class Phi3MLP(nn.Module):
         self.down_proj = _proj(cfg.intermediate_size, cfg.hidden_size, quant)
 
     def forward(self, x):
-        gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
-        return self.down_proj(F.silu(gate) * up)
+        t = self.tp
+        if t is None:
+            gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
+            return self.down_proj(F.silu(gate) * up)
+        # both projections are split along their input dim (the partition
+        # rules' spec): this rank's slice in, the partial outputs summed
+        gate, up = reduce_from(self.gate_up_proj(_slice_in(x, t)), t).chunk(2, -1)
+        return reduce_from(self.down_proj(_slice_in(F.silu(gate) * up, t)), t)
+
+
+def _slice_in(x, t):
+    """This rank's slice of the last dim of a replicated activation; the
+    gradient of the whole is summed over the axis."""
+    n = x.shape[-1] // t.size
+    return copy_to(x, t).narrow(-1, t.index * n, n)
 
 
 class Phi3DecoderLayer(nn.Module):
@@ -106,6 +138,10 @@ class Phi3DecoderLayer(nn.Module):
         B, S, _ = x.shape
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         h = self.input_layernorm(x)
+        tp = self.self_attn.tp
+        if tp is not None:        # this rank's heads of q, k and v
+            nh, nkv = nh // tp.size, nkv // tp.size
+            h = copy_to(h, tp)
         qkv = self.self_attn.qkv_proj(h)
         q, k, v = qkv.split([nh * hd, nkv * hd, nkv * hd], dim=-1)
         if self.self_attn.lora_scale:
@@ -138,7 +174,8 @@ class Phi3DecoderLayer(nn.Module):
                                   q_start=positions[:, 0], k_scale=k_scale,
                                   v_scale=v_scale, layer=layer_idx,
                                   exact=self.exact_f32)
-        x = x + self.self_attn.o_proj(o.transpose(1, 2).reshape(B, S, nh * hd))
+        o = self.self_attn.o_proj(o.transpose(1, 2).reshape(B, S, nh * hd))
+        x = x + (o if tp is None else reduce_from(o, tp))
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -182,7 +219,12 @@ class Phi3ForCausalLM(nn.Module):
     `lora_rank` and `lora_alpha` are the training options; LoRA does not
     combine with a quantised LLM. `act_dtype`: the dtype the embeddings are
     cast to where the embedding table is an f32 master (None = the
-    table's own)."""
+    table's own). `vocab_tp` (shard_params): the model axis over which
+    the embedding and the lm_head are split by vocabulary rows;
+    `cache_kv_heads`: the KV heads a cache holds (this rank's under tensor
+    parallelism)."""
+
+    vocab_tp = None
 
     def __init__(self, cfg: Phi3Config, extra_vocab: int = 0,
                  quant_int8: bool = False, quant_int4: bool = False,
@@ -198,11 +240,21 @@ class Phi3ForCausalLM(nn.Module):
                                lora_alpha)
         self.lm_head = _proj(cfg.hidden_size, vocab, self.quant)
         self.act_dtype = None
+        self.cache_kv_heads = cfg.num_kv_heads
 
     def embed(self, input_ids):
         """Negative placeholder ids (IMAGE_TOKEN_INDEX) are clamped: their
         rows get replaced by visual features."""
-        e = self.model.embed_tokens(input_ids.clamp(min=0))
+        ids = input_ids.clamp(min=0)
+        t = self.vocab_tp
+        if t is None:
+            e = self.model.embed_tokens(ids)
+        else:       # this rank's rows of the table, the lookups summed
+            n = self.model.embed_tokens.weight.shape[0]
+            local = ids - t.index * n
+            mine = (local >= 0) & (local < n)
+            e = self.model.embed_tokens(torch.where(mine, local, 0))
+            e = reduce_from(torch.where(mine[..., None], e, 0.0), t)
         return e if self.act_dtype is None else e.to(self.act_dtype)
 
     def forward(self, embeds, positions, kv_lens, cache=None):
@@ -218,7 +270,10 @@ class Phi3ForCausalLM(nn.Module):
     def head(self, hidden):
         if self.quant != "none":
             return self.lm_head(hidden)
-        return linear_cast(hidden, self.lm_head)
+        t = self.vocab_tp
+        if t is None:
+            return linear_cast(hidden, self.lm_head)
+        return gather_last(linear_cast(copy_to(hidden, t), self.lm_head), t)
 
 
 _QUANT_PROJS = ("self_attn.qkv_proj", "self_attn.o_proj", "mlp.gate_up_proj",

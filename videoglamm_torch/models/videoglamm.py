@@ -59,9 +59,11 @@ class VideoGLaMMOutput(NamedTuple):
     pred_masks: Optional[torch.Tensor] = None   # [R, max_seg, T_sam, h, w]
 
 
-def ce_loss_fn(logits, labels):
+def ce_loss_fn(logits, labels, count=None):
     """Causal LM loss: shift, ignore IGNORE_INDEX, mean over the valid
-    tokens, in f32 (videoglamm.py:64-74)."""
+    tokens, in f32 (videoglamm.py:64-74). count: the divisor in place of
+    the valid tokens' count (a data-parallel rank's share of a batch is
+    divided by the whole batch's count, `ce_target_count`)."""
     logits = logits[:, :-1].float()
     targets = labels[:, 1:]
     valid = targets != IGNORE_INDEX
@@ -69,7 +71,20 @@ def ce_loss_fn(logits, labels):
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp(min=1)
+    if count is None:
+        count = valid.sum().clamp(min=1)
+    return nll.sum() / count
+
+
+def ce_target_count(input_ids, text_lens, labels):
+    """The number of tokens `ce_loss_fn` averages over once the visual
+    prefix is spliced in: it does not depend on the prefix's length, so a
+    one-token prefix of width 1 stands in for it."""
+    B = input_ids.shape[0]
+    zeros = torch.zeros(B, input_ids.shape[1], 1)
+    sp = splice_visual_prefix(zeros, input_ids.cpu(), torch.zeros(B, 1, 1),
+                              text_lens.cpu(), labels.cpu())
+    return int((sp.labels[:, 1:] != IGNORE_INDEX).sum().clamp(min=1))
 
 
 def sigmoid_ce_loss(pred, gt):
@@ -276,7 +291,8 @@ class VideoGLaMM(nn.Module):
 
     def forward(self, frames, context_images, frames_sam, input_ids, text_lens,
                 labels, video_idx, gt_masks, freeze_towers: bool = True,
-                return_pred_masks: bool = False) -> VideoGLaMMOutput:
+                return_pred_masks: bool = False, ce_norm=None,
+                mask_norm=None) -> VideoGLaMMOutput:
         """Training forward (videoglamm.py:293-355).
 
         frames [Bv, T, 224, 224, 3]; context_images [Bv, T, 336, 336, 3];
@@ -294,7 +310,12 @@ class VideoGLaMM(nn.Module):
         kernels carry the JAX package's backward rules: K1 in BSHD and
         window modes and K7 / K8 recompute through their plain twins, the
         Hiera window block recomputes through `_fused_block_ref`, K1 flash
-        takes K6, and K3 recomputes through its twin."""
+        takes K6, and K3 recomputes through its twin.
+
+        ce_norm, mask_norm: the divisors of the CE loss (valid tokens) and
+        of the mask losses (R * max_seg * T_sam) in place of this batch's
+        own; a data-parallel rank passes the whole batch's, so that the
+        ranks' losses add up to the whole batch's loss."""
         cfg = self.cfg
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not freeze_towers):
@@ -303,7 +324,7 @@ class VideoGLaMM(nn.Module):
 
         logits, hidden, sp = self.lm_forward(visual, input_ids, text_lens,
                                              labels, video_idx)
-        ce = ce_loss_fn(logits, sp.labels)
+        ce = ce_loss_fn(logits, sp.labels, ce_norm)
 
         seg = self.extract_seg(hidden, sp)
         pred = self.decode_masks(sam_feats, seg, video_idx, training=True)
@@ -316,7 +337,7 @@ class VideoGLaMM(nn.Module):
             pred = resize_bilinear(p, (h, w))[..., 0].reshape(R, ms, T, h, w)
 
         # every padded slot counts in num_masks, as in the reference
-        num_masks = R * ms * T
+        num_masks = R * ms * T if mask_norm is None else mask_norm
         bce = sigmoid_ce_loss(pred, gt_masks).sum() / (num_masks + 1e-8)
         dce = dice_loss(pred, gt_masks).sum() / (num_masks + 1e-8)
 

@@ -12,9 +12,15 @@ The loop also records every step in `history`, with the seconds it waited
 on `next(batches)`, and every checkpoint's seconds in `ckpt_seconds`, so a
 caller can see whether the loader sets the pace. The logged scalars are
 the JAX trainer's.
+
+Over several processes (a sharded step) every rank runs the loop, the
+checkpoint's gathers and the validation forwards, whose collectives must
+line up; only the main process logs, prints and writes files.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import time
@@ -24,6 +30,7 @@ import numpy as np
 
 from ..evals.metrics import AverageMeter, intersection_and_union
 from ..io.checkpoint import CheckpointManager
+from ..parallel.distributed import is_main_process
 
 
 class ScalarLogger:
@@ -61,7 +68,8 @@ class Trainer:
         self.batches = batches
         self.steps_per_epoch = steps_per_epoch
         self.epochs = epochs
-        self.logger = ScalarLogger(log_dir)
+        self.main = is_main_process()
+        self.logger = ScalarLogger(log_dir) if self.main else None
         self.ckpt = CheckpointManager(ckpt_dir)
         self.log_every = log_every
         self.to_device = to_device or (lambda b: b)
@@ -78,7 +86,8 @@ class Trainer:
             return False
         self.state = self.ckpt.restore(self.state)
         self.start_epoch = int(step) // self.steps_per_epoch
-        print(f"resumed from step {step}, epoch {self.start_epoch}")
+        if self.main:
+            print(f"resumed from step {step}, epoch {self.start_epoch}")
         return True
 
     def train(self):
@@ -103,7 +112,7 @@ class Trainer:
                 global_step += 1
                 self.history.append(dict(step=global_step, data_s=data_s,
                                          step_s=dt, **values))
-                if (it + 1) % self.log_every == 0:
+                if self.main and (it + 1) % self.log_every == 0:
                     for k, m in meters.items():
                         self.logger.log(f"train/{k}", m.avg, global_step)
                     print(f"epoch {epoch} step {it + 1}/"
@@ -115,7 +124,11 @@ class Trainer:
                            metadata={"epoch": epoch})
             self.ckpt_seconds.append(time.perf_counter() - t0)
             if self.val_fn is not None:
-                self.val_fn(self.state, epoch, self.logger)
+                # every rank runs the forwards; the main one reports
+                quiet = contextlib.nullcontext() if self.main else \
+                    contextlib.redirect_stdout(io.StringIO())
+                with quiet:
+                    self.val_fn(self.state, epoch, self.logger)
         return self.state
 
 
