@@ -16,9 +16,9 @@ Phases, each fatal on failure:
    attention_fwd with its f32 staging pass, K2 gemm_epilogue, K4
    decode_attention_q8, K5 dequant_gemv, K6 flash_bwd, K7
    window_attention, K8 smallwin_attention, K9 decode_fused, and the
-   full-precision f32 routes: attention_f32 for K1 and K6, gemm_f32 for
-   K2; K1, K2, K6
-   and K7 over csrc/sm90_common.cuh, the Hopper helpers, K1 and K7 also
+   full-precision f32 routes: attention_f32 for K1 and K6 (3xTF32 on
+   wgmma), gemm_f32 for K2; K1, K2, K6, K7
+   and attention_f32 over csrc/sm90_common.cuh, the Hopper helpers, K1 and K7 also
    over csrc/attn_sm90.cuh) from the checkout with one nvcc process each,
    all started together, and JIT-compiles K3 (the Triton row norm),
    printing build seconds, the -Xptxas -v lines (registers and spills of
@@ -418,7 +418,10 @@ HARNESS_REPS = 8        # timed passes of each harness variant
 HBM_BYTES_S = 3.35e12   # H100 SXM: device memory rate
 PEAK_OPS = {"bf16": 989e12,    # dense tensor-core rate
             "int8": 1979e12,   # dense tensor-core rate, s8 x s8 -> s32
-            "f32": 67e12}      # outside the tensor cores
+            # f32-accurate products: three TF32 products on the tensor cores
+            # (495 TFLOP/s dense TF32), the least time the card can take
+            # for f32 work at f32 accuracy (the CUDA cores' FFMA: 67)
+            "f32": 495e12 / 3}
 
 
 def log(*a):
@@ -5491,20 +5494,26 @@ def phase_f32q_kernels(K: Kernels, cfg):
         ring4 = [(p4, s4)] + [(p4.clone(), s4.clone())
                               for _ in range(2 * ring - 1)]
         r8, r4 = itertools.count(), itertools.count()
+        q8n, s8f = q8[:Nd], s8.float()
         for M in K5_F32_ROWS:
             x = randn(M, Kd)
             io = 4 * M * (Kd + Nd)
             tiles = -(-M // Q.K5_F32_MT)
             main = what == "gate_up_proj" and M in (1, 64)
-            for kind, nb, kern, plain, timed in (
+            # library: torch's weight-only int8 product takes f32 x and f32
+            # scales on the card; its int4 one refuses f32 x ("Expected
+            # A.dtype() == at::kBFloat16"), so int4 f32 has none
+            for kind, nb, kern, plain, timed, lib in (
                     ("int8", Nd * Kd + 4 * Nd + io,
                      lambda: Q.dequant_matmul(x, q8, s8),
                      lambda: Q._dequant_matmul_plain(x, q8, s8),
-                     lambda: Q.dequant_matmul(x, ring8[next(r8) % len(ring8)], s8)),
+                     lambda: Q.dequant_matmul(x, ring8[next(r8) % len(ring8)], s8),
+                     lambda: torch._weight_int8pack_mm(x, q8n, s8f)),
                     ("int4", Nd * Kd // 2 + 4 * Nd * Kd // 128 + io,
                      lambda: Q.dequant4_matmul(x, p4, s4, 128),
                      lambda: Q._dequant4_matmul_plain(x, p4, s4, 128),
-                     lambda: Q.dequant4_matmul(x, *ring4[next(r4) % len(ring4)], 128))):
+                     lambda: Q.dequant4_matmul(x, *ring4[next(r4) % len(ring4)], 128),
+                     None)):
                 key = (f"dequant_gemv_f32[{kind}]" + ("" if M == 1 else f"@M={M}")
                        if main else None)
                 ms = K.compare(key, f"K5 f32 {kind} {what} M={M} [{Nd},{Kd}] "
@@ -5512,12 +5521,12 @@ def phase_f32q_kernels(K: Kernels, cfg):
                                "the weights)", kern, plain, TOL_F32_ROUTE,
                                tol_l2=TOL_F32_SERVE, nbytes=nb,
                                ops=2 * M * Nd * Kd, rate="f32", graphed=True,
-                               timed_fn=timed)
+                               timed_fn=timed, library_fn=lib)
                 t = sums.setdefault((kind, M), [0.0, 0.0])
                 t[0] += ms
                 t[1] += max(nb / HBM_BYTES_S, 2 * M * Nd * Kd / PEAK_OPS["f32"]) * 1e3
             del x
-        del ring8, ring4, q8, p4, s4
+        del ring8, ring4, q8, q8n, s8f, p4, s4
         torch.cuda.empty_cache()
     for (kind, M), (ms, bound) in sorted(sums.items()):
         log(f"  K5 f32 {kind} M={M}, sum of the five Phi-3 products: {ms:.4f} ms "

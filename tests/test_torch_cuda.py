@@ -1784,10 +1784,11 @@ def test_step_timer_waits_for_a_cuda_tensor(dev):
 
 
 # ---------------------------------------------------------------------------
-# the full-precision f32 routes (K1 "simt_f32", K2 and K6 in f32) against
-# their f32 twins with TF32 off: the same f32 products summed in another
-# order, so relative L2 within 1e-5 (1e-7 to 2e-6 measured at the path
-# shapes; a bf16 or TF32 rounding of an operand gives 1e-3)
+# the full-precision f32 routes (K1 "simt_f32" and K6 in f32: 3xTF32 on
+# wgmma; K2 in f32 FFMA) against their f32 twins with TF32 off: f32-accurate
+# products summed in another order, so relative L2 within 1e-5 (1e-7 to
+# 3e-6 measured at the path shapes; a bf16 or single TF32 rounding of an
+# operand gives 1e-4 to 1e-3, tests/test_torch_tf32x3.py)
 # ---------------------------------------------------------------------------
 TOL_F32 = 1e-5
 
@@ -1798,7 +1799,11 @@ TOL_F32 = 1e-5
     (2, 2, 400, 400, 72, False, None, 0),          # flash (Hiera globals)
     (2, 1, 300, 300, 256, False, None, 0),         # flash_d256
     (3, 4, 256, 256, 64, False, None, 16),         # a window of 16 tokens
-    (2, 2, 192, 192, 88, False, None, 64)])        # a window of 64 tokens
+    (2, 2, 192, 192, 88, False, None, 64),         # a window of 64 tokens
+    (2, 1, 200, 300, 256, False, (300, 270), 0),   # kv_len inside a 32-key tile
+    (2, 1, 300, 400, 256, True, (400, 333), 0),    # causal at head dim 256
+    (2, 2, 130, 130, 32, True, (130, 77), 0),      # head dim 32
+    (2, 2, 130, 170, 40, False, (170, 99), 0)])    # head dim 40 (padded to 64)
 def test_k1_f32_route_matches_plain(dev, B, H, Sq, Sk, D, causal, kv, win):
     rng = np.random.default_rng(41)
     q, k, v = (_randn(rng, (B, H, S, D), dev, dtype=torch.float32)
@@ -1858,6 +1863,107 @@ def test_k6_f32_route_matches_plain(dev, B, H, S, D, causal, kv):
                                  D ** -0.5)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         _close_l2(a, w, TOL_F32, f"K6 f32 {name}")
+
+
+@pytest.mark.parametrize("D", [96, 256])
+def test_f32_routes_keep_nan_in_the_key_slack_out(dev, D):
+    """NaN in k and v past kv_len (a cache's slack): K1's f32 route and,
+    up to head dim 128, K6's read those keys as zeros: finite outputs
+    within TOL_F32 of the twins on clean operands, zero dk and dv there."""
+    rng = np.random.default_rng(45)
+    B, H, S = 2, 2, 200
+    kv = (200, 133)
+    q, k, v, g = (_randn(rng, (B, H, S, D), dev, dtype=torch.float32)
+                  for _ in range(4))
+    kvl = torch.tensor(kv, dtype=torch.int32, device=dev)
+    qs = torch.zeros(B, dtype=torch.int32, device=dev)
+    clean_k, clean_v = k.clone(), v.clone()
+    for b, n in enumerate(kv):
+        k[b, :, n:] = float("nan")
+        v[b, :, n:] = float("nan")
+        clean_k[b, :, n:] = 0
+        clean_v[b, :, n:] = 0
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, S, device=dev)
+    attn.attention_fwd_kernel(q, k, v, out, causal=True, sm_scale=D ** -0.5,
+                              mode="test", kv_lens=kvl, q_start=qs, lse=lse,
+                              exact=True)
+    ref, ref_lse = attn._flash_fwd_plain(q, clean_k, clean_v, kvl, qs, True,
+                                         D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _close_l2(out, ref, TOL_F32, f"K1 f32 NaN slack D={D}")
+    if D > 128:
+        return
+    got = attn.flash_bwd_kernel(q, k, v, ref, ref_lse, g, causal=True,
+                                sm_scale=D ** -0.5, kv_lens=kvl, q_start=qs)
+    want = attn._flash_bwd_plain(q, clean_k, clean_v, ref, ref_lse, g, kvl, qs,
+                                 True, D ** -0.5)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        _close_l2(a, w, TOL_F32, f"K6 f32 NaN slack {name}")
+    assert not got[1][1, :, kv[1]:].any() and not got[2][1, :, kv[1]:].any()
+
+
+@pytest.mark.parametrize("layout", ["bshd", "fused qkv", "fused qkv, win 64"])
+def test_k1_f32_route_reads_bshd_and_fused_qkv_views_in_place(dev, layout):
+    """An f32 model's CLIP ([B,S,H,D]) and InternVideo2 (fused qkv
+    [B,S,3*H*hd]) self-attention: K1's f32 route over the views' strides,
+    no copy, within TOL_F32 of the twin."""
+    rng = np.random.default_rng(46)
+    B, S, H, hd = 2, 200, 3, 88
+    before = attn.LAUNCHES["route:simt_f32"]
+    if layout == "bshd":
+        q, k, v = (_randn(rng, (B, S, H, hd), dev, dtype=torch.float32)
+                   for _ in range(3))
+        got = attn.attention_bshd(q, k, v, exact=True)
+        ref = attn._attention_plain_bshd(q, k, v, hd ** -0.5)
+    else:
+        win = 64 if "win" in layout else 0
+        qkv = _randn(rng, (B, S, 3 * H * hd), dev, dtype=torch.float32)
+        got = attn.attention_packed_qkv_padded(qkv, H, hd, win=win, exact=True)
+        x = qkv.view(B, S, 3, H, hd)
+        ref = attn._attention_plain_bshd(x[:, :, 0], x[:, :, 1], x[:, :, 2],
+                                         hd ** -0.5, win).reshape(B, S, H * hd)
+    torch.cuda.synchronize()
+    assert attn.LAUNCHES["route:simt_f32"] == before + 1
+    _close_l2(got, ref, TOL_F32, f"K1 f32 {layout}")
+
+
+def test_f32_plans_are_the_kernels(dev):
+    """`k1_f32_plan` and `k6_f32_plan` give the tiles and shared memory
+    that csrc/attention_f32.cu was built with, at every padded head dim."""
+    import ctypes
+    from videoglamm_torch.ops import _cuda
+    fn = _cuda.load("attention_f32").lib.vgt_attention_f32_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for dp in attn.K1_DEPTHS:
+        out = (ctypes.c_int * 3)()
+        assert fn(dp, 1, out) == 0
+        plan = attn.k1_f32_plan(dp)
+        assert tuple(out) == (plan["query_rows"], plan["key_tile"], plan["smem"])
+        if dp <= 128:
+            assert fn(dp, 0, out) == 0
+            plan = attn.k6_f32_plan(dp)
+            assert tuple(out) == (plan["rows"], plan["tile"], plan["smem"])
+    assert fn(256, 0, (ctypes.c_int * 3)()) == -1
+
+
+def test_f32_attention_compiles_to_tf32_hgmma(dev):
+    """The f32 forward and both backward kernels issue warpgroup MMAs on
+    TF32 operands (HGMMA ... TF32) at every padded head dim, and no
+    mma.sync (HMMA)."""
+    from videoglamm_torch.ops import _cuda
+    funcs = _sass_functions(_cuda.load("attention_f32").path)
+    fwd = {n: s for n, s in funcs.items() if "attn_fwd_tf32" in n}
+    bwd = {n: s for n, s in funcs.items() if "attn_dq_tf32" in n or "attn_dkv_tf32" in n}
+    assert len(fwd) == len(attn.K1_DEPTHS) and len(bwd) == 2 * len(attn.K6_DEPTHS)
+    for n, s in {**fwd, **bwd}.items():
+        mma = [line for line in s.splitlines() if "HGMMA" in line]
+        assert mma and all("TF32" in line for line in mma), n
+        assert "HMMA" not in s, n
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -14,9 +14,10 @@ where a hand-written staging pass (`stage_bf16`, counted as "stage_bf16")
 first writes contiguous bf16 copies of q, k and v, rounded to nearest even,
 and the body stores O in f32; and "simt_f32" for the f32 operands of a
 model whose compute dtype is f32, a full-precision body of its own
-(`csrc/attention_f32.cu`: f32 FFMA on the CUDA cores, every mode K1 serves,
-head dims up to 256). The model passes that choice down explicitly
-(`exact=True`). The wrapper computes the TMA plan (`k1_tma_plan`) of the
+(`csrc/attention_f32.cu`: every product 3xTF32 on wgmma, each f32 operand
+split into a TF32 big part and a TF32 remainder, f32 accuracy on the tensor
+cores; every mode K1 serves, head dims up to 256, tiles by `k1_f32_plan`).
+The model passes that choice down explicitly (`exact=True`). The wrapper computes the TMA plan (`k1_tma_plan`) of the
 wgmma routes and refuses a view that TMA cannot take.
 
 K7 (`csrc/window_attention.cu`) is the whole-row-softmax kernel for medium
@@ -27,8 +28,8 @@ from q k^T alone, then exp(s - m) / l rounded to bf16 into p v, so no
 accumulator is rescaled. On a grid too small for 128-query tiles it takes
 64-query tiles (`k7_plan`). f32 operands in a bf16 model take the same
 staging pass; an f32 model's (`exact`) take K7's full-precision route,
-which is K1's "simt_f32" body (`csrc/attention_f32.cu`) launched from K7's
-wrapper as non-causal full self-attention: an online softmax and the TPU
+which is K1's "simt_f32" body (`csrc/attention_f32.cu`, 3xTF32 on wgmma)
+launched from K7's wrapper as non-causal full self-attention: an online softmax and the TPU
 kernel's two passes agree to f32 rounding. `dot_product_attention` takes it
 where the JAX package takes `_window_attention` (attention.py:1308-1310).
 
@@ -63,7 +64,8 @@ the Pallas kernels `_flash_bwd_dq_kernel` (attention.py:302) and
 and a dk/dv kernel on the same Hopper design as K1's wgmma route (TMA into
 an mbarrier ring, a producer warpgroup, two consumer warpgroups on wgmma);
 the wrapper checks its TMA plan (`k6_tma_plan`). f32 operands take K6's
-f32 route in `csrc/attention_f32.cu` (the same three passes in f32 FFMA,
+f32 route in `csrc/attention_f32.cu` (a dq kernel that also takes delta,
+then a dk/dv kernel, every product 3xTF32 on wgmma, tiles by `k6_f32_plan`;
 counted as "flash_bwd:simt_f32" too), its only way in for f32.
 `flash_attention` is a `torch.autograd.Function` when a gradient is asked
 for: the forward has K1 write the row log-sum-exp, the backward launches
@@ -324,9 +326,10 @@ def _check_qkvo(what: str, q, k, v, out, max_d: int):
 def k1_route(dtype, D: int, exact: bool = False) -> str:
     """The way into K1 for a launch on operands of `dtype`:
     "wgmma" for bf16 operands (csrc/attention_fwd.cu); for f32 operands,
-    "simt_f32" when `exact` (csrc/attention_f32.cu: f32 products, f32
-    accumulation) and "wgmma_f32" otherwise (the staging pass to bf16
-    first, O stored in f32).
+    "simt_f32" when `exact` (csrc/attention_f32.cu: f32-accurate products
+    as three TF32 products on wgmma, f32 accumulation; the name is the
+    route's, kept for its counters) and "wgmma_f32" otherwise (the staging
+    pass to bf16 first, O stored in f32).
 
     The rule: only a model whose compute dtype is f32 takes "simt_f32". Its
     modules carry `exact_f32 = True` (`models.common.set_exact_f32`, called
@@ -343,7 +346,8 @@ def k1_route(dtype, D: int, exact: bool = False) -> str:
 def k8_route(dtype, exact: bool = False) -> str:
     """The way into K8 for qkv of `dtype`: "mma" for bf16 (its own body,
     csrc/smallwin_attention.cu) and, for f32 qkv, "simt_f32" when `exact`
-    (the rule of `k1_route`: only an f32 model takes it). K8 has no staged
+    (K1's 3xTF32 body of csrc/attention_f32.cu in its block-diagonal mode;
+    the rule of `k1_route`: only an f32 model takes it). K8 has no staged
     route: f32 qkv in a bf16 model raises ValueError. K7 routes as K1
     (`k1_route`)."""
     if dtype != torch.float32:
@@ -462,6 +466,76 @@ def k6_tma_plan(q, k, v, out, dout) -> dict:
     return dict(depth=depth, chunks=-(-depth // 64), maps=maps)
 
 
+_F32 = _cuda.constants("attention_f32")
+F32_SMEM = _F32["SMEM_MAX"]               # a CTA's dynamic shared memory at most
+
+
+def _f32_depth(D: int, who: str, depths) -> Tuple[int, int]:
+    """(padded head dim, K-major plane columns: the depth rounded to a
+    128-byte swizzle chunk of 32 f32) of the 3xTF32 kernels."""
+    if D <= 0 or D % 8 or D > depths[-1]:
+        raise ValueError(f"{who}: head dim {D} unsupported (needs D % 8 == 0 "
+                         f"and D <= {depths[-1]})")
+    dp = next(d for d in depths if d >= D)
+    return dp, -(-dp // 32) * 32
+
+
+def k1_f32_plan(D: int) -> dict:
+    """The tile plan of the forward of csrc/attention_f32.cu (K1's, K7's
+    and K8's route "simt_f32") at head dim D: the padded depth, the columns
+    of its K-major TF32 planes, the query rows of a CTA (two warpgroups of
+    64; at 256 both on 64 rows), the keys of a streamed tile, the raw-tile
+    stages (one: the next tile's copies run under the products), the
+    threads and the dynamic shared memory: Q's big and small planes (query
+    rows x columns), one plane pair of a streamed tile (K, or V transposed)
+    and the raw f32 tile, plus 1024 bytes of alignment slack. The rows and
+    keys are the source's FWD_BM_* / FWD_BN_*. Raises ValueError on a head
+    dim the kernel does not build or a plan that does not fit a CTA."""
+    dp, cols = _f32_depth(D, "k1_f32_plan", K1_DEPTHS)
+    rows, keys = _F32[f"FWD_BM_{dp}"], _F32[f"FWD_BN_{dp}"]
+    smem = 4 * cols * (2 * rows + 3 * keys) + _F32["SMEM_ALIGN"]
+    if smem > F32_SMEM:
+        raise ValueError(f"k1_f32_plan: {smem} bytes of shared memory at depth "
+                         f"{dp}, above {F32_SMEM}")
+    return dict(depth=dp, cols=cols, query_rows=rows, key_tile=keys, stages=1,
+                threads=256, smem=smem)
+
+
+def k1_f32_splits(B: int, H: int, Sq: int, Sk: int, D: int, sms: int) -> int:
+    """How many CTAs share the key tiles of one query tile in the f32
+    forward: 1, or, on a grid of query tiles that fills less than half of
+    the card's `sms` SMs (K7's memory self-attention [4,1,1024,256]: 64 CTAs
+    of 64 rows), up to 4, each keeping at least 8 key tiles. The splits
+    write normalised partial outputs and LSEs to scratch that a second
+    launch folds."""
+    plan = k1_f32_plan(D)
+    ctas = -(-Sq // plan["query_rows"]) * B * H
+    if 2 * ctas > sms:
+        return 1
+    return max(1, min(4, sms // ctas, -(-Sk // plan["key_tile"]) // 8))
+
+
+def k6_f32_plan(D: int) -> dict:
+    """The tile plan of the backward of csrc/attention_f32.cu (K6's f32
+    route) at head dim D: the padded depth, the plane columns, the 64 rows
+    a CTA of each kernel owns (queries in the dq kernel, keys in the dk/dv
+    kernel), the keys or queries of a streamed tile (BWD_BN_*), the
+    raw-tile stages (one), the threads (two warpgroups load and split, one
+    runs the products) and the dynamic shared memory of either kernel:
+    two fixed plane pairs of 64 rows, two plane pairs of a streamed tile,
+    the raw tile, the tile's lse and delta, and the alignment slack.
+    Raises ValueError on a head dim above 128 or a plan that does not
+    fit."""
+    dp, cols = _f32_depth(D, "k6_f32_plan", K6_DEPTHS)
+    tile = _F32[f"BWD_BN_{dp}"]
+    smem = 4 * cols * (4 * 64 + 5 * tile) + 8 * max(tile, 64) + _F32["SMEM_ALIGN"]
+    if smem > F32_SMEM:
+        raise ValueError(f"k6_f32_plan: {smem} bytes of shared memory at depth "
+                         f"{dp}, above {F32_SMEM}")
+    return dict(depth=dp, cols=cols, rows=64, tile=tile, stages=1, threads=256,
+                smem=smem)
+
+
 def _as_int32(t, B: int, device):
     if t is None:
         return None
@@ -520,21 +594,41 @@ def _f32_fwd_fn():
     return fn
 
 
+def _f32_fwd_split_fn():
+    fn = _cuda.load("attention_f32").lib.vgt_attention_fwd_f32_split
+    if fn.argtypes is None:
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [P, P, P, P] + [L] * 12 + [P, P] + [I] * 7 + [
+            ctypes.c_float, P, I, P, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _simt_f32(q, k, v, out, *, sm_scale: float, what: str, causal=False,
               kv_lens=None, q_start=None, win: int = 0, lse=None):
-    """One launch of the full-precision f32 body (csrc/attention_f32.cu) on
-    [B,H,S,D] views through their (batch, head, token) strides: K1's
-    "simt_f32" route, and K7's and K8's f32 routes. kv_lens / q_start:
-    int32 [B] on the device or None; lse: None or a contiguous f32
-    [B,H,Sq]."""
+    """The full-precision f32 forward (csrc/attention_f32.cu: 3xTF32 on
+    wgmma, tiles by `k1_f32_plan`, checked here) on [B,H,S,D] views through
+    their (batch, head, token) strides: K1's "simt_f32" route, and K7's and
+    K8's f32 routes. One launch, or, where `k1_f32_splits` deals a query
+    tile's keys to several CTAs, that launch into scratch allocated here
+    and a second that folds it. kv_lens / q_start: int32 [B] on the device
+    or None; lse: None or a contiguous f32 [B,H,Sq]."""
     B, H, Sq, D = q.shape
-    err = _f32_fwd_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        kv_lens.data_ptr() if kv_lens is not None else None,
-        q_start.data_ptr() if q_start is not None else None,
-        B, H, Sq, k.shape[2], D, int(causal), int(win), float(sm_scale),
-        lse.data_ptr() if lse is not None else None, _cuda.stream_ptr(q))
+    Sk = k.shape[2]
+    splits = k1_f32_splits(B, H, Sq, Sk, D, _cuda.sm_count(q.device.index or 0))
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            kv_lens.data_ptr() if kv_lens is not None else None,
+            q_start.data_ptr() if q_start is not None else None,
+            B, H, Sq, Sk, D, int(causal), int(win), float(sm_scale),
+            lse.data_ptr() if lse is not None else None]
+    if splits == 1:
+        err = _f32_fwd_fn()(*args, _cuda.stream_ptr(q))
+    else:
+        part_o = torch.empty((splits, B, H, Sq, D), dtype=torch.float32, device=q.device)
+        part_lse = torch.empty((splits, B, H, Sq), dtype=torch.float32, device=q.device)
+        err = _f32_fwd_split_fn()(*args, splits, part_o.data_ptr(), part_lse.data_ptr(),
+                                  _cuda.stream_ptr(q))
     _cuda.check_launch(err, what)
 
 
@@ -551,8 +645,8 @@ def attention_fwd_kernel(q, k, v, out, *, causal: bool, sm_scale: float,
     block-diagonal `win` mode serves D <= 128; and on views that the TMA
     plan refuses (`k1_tma_plan`). f32 operands take the route
     `k1_route(torch.float32, D, exact)` names: "simt_f32" (the
-    full-precision body of csrc/attention_f32.cu, no staging) for a model
-    whose compute dtype is f32, else "wgmma_f32": the staging pass
+    full-precision body of csrc/attention_f32.cu, 3xTF32 on wgmma, no
+    staging; `k1_f32_plan`) for a model whose compute dtype is f32, else "wgmma_f32": the staging pass
     (`stage_bf16`) first, then the body with an f32 output."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
@@ -605,7 +699,7 @@ def window_attention_kernel(q, k, v, *, sm_scale: float, exact: bool = False):
     whole-row softmax. Returns a new contiguous [B,H,S,D] tensor of the
     operands' dtype. f32 operands take the route `k1_route(torch.float32,
     D, exact)` names: "simt_f32" for an f32 model (the full-precision body
-    of csrc/attention_f32.cu, f32 FFMA, nothing staged; counted as
+    of csrc/attention_f32.cu, 3xTF32 on wgmma, nothing staged; counted as
     "window:simt_f32"), else the staging pass (`stage_bf16`) first. Raises
     on other operands, on D % 8 != 0 or D > 256, on S > 1536 (the branch
     `dot_product_attention` sends here) and, on the staged and bf16 routes,
@@ -649,7 +743,8 @@ def smallwin_attention_kernel(qkv, num_heads: int, head_dim: int, *,
     64), hd % 8 == 0, hd <= 128; any window count. Returns [NW,S,H*hd] of
     qkv's dtype. bf16 takes K8's body (csrc/smallwin_attention.cu); f32
     takes K8's full-precision route, and only for an f32 model (`exact`):
-    the "simt_f32" body of csrc/attention_f32.cu over qkv's strides as one
+    the "simt_f32" body of csrc/attention_f32.cu (3xTF32 on wgmma) over
+    qkv's strides as one
     sequence of NW * S tokens with windows of S (its block-diagonal mode),
     counted as "smallwin:simt_f32". Raises on anything else."""
     NW, S, C3 = qkv.shape
@@ -705,8 +800,9 @@ def _flash_bwd_f32_fn():
 def flash_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool, sm_scale: float,
                      kv_lens=None, q_start=None):
     """Launch K6. q, out, dout: [B,H,Sq,D]; k, v: [B,H,Sk,D], bf16 or f32
-    on the card (f32 takes K6's f32 route, csrc/attention_f32.cu, with
-    f32 products); lse: f32 [B,H,Sq] as K1 wrote it. q, k, v, out and dout are read
+    on the card (f32 takes K6's f32 route, csrc/attention_f32.cu: a dq
+    kernel that also writes delta, then a dk/dv kernel, 3xTF32 on wgmma,
+    tiles by `k6_f32_plan`, checked here); lse: f32 [B,H,Sq] as K1 wrote it. q, k, v, out and dout are read
     in place through their (batch, head, token) strides, so the gradient of
     `o.transpose(1, 2).reshape(...)` arrives with no copy; an operand that
     TMA cannot take as it is (`_tma_refusal`: a broadcast gradient, a head
@@ -733,7 +829,9 @@ def flash_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool, sm_scale: float,
            for t in (q, k, v, out, dout)]
     for name, t in zip(("q", "k", "v", "out", "dout"), ops):
         _cuda.check_operand(t, name, dt)
-    if not f32:
+    if f32:
+        k6_f32_plan(D)
+    else:
         k6_tma_plan(*ops)
     ops += [torch.empty(t.shape, dtype=t.dtype, device=t.device)
             for t in (q, k, v)]
