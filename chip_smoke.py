@@ -16,9 +16,9 @@ Phases, each fatal on failure:
    attention_fwd with its f32 staging pass, K2 gemm_epilogue, K4
    decode_attention_q8, K5 dequant_gemv, K6 flash_bwd, K7
    window_attention, K8 smallwin_attention, K9 decode_fused, and the
-   full-precision f32 routes: attention_f32 for K1 and K6 (3xTF32 on
-   wgmma), gemm_f32 for K2; K1, K2, K6, K7
-   and attention_f32 over csrc/sm90_common.cuh, the Hopper helpers, K1 and K7 also
+   full-precision f32 routes: attention_f32 for K1 and K6 and gemm_f32
+   for K2, 3xTF32 on wgmma; K1, K2, K6, K7, attention_f32
+   and gemm_f32 over csrc/sm90_common.cuh, the Hopper helpers, K1 and K7 also
    over csrc/attn_sm90.cuh) from the checkout with one nvcc process each,
    all started together, and JIT-compiles K3 (the Triton row norm),
    printing build seconds, the -Xptxas -v lines (registers and spills of
@@ -241,7 +241,8 @@ Phases, each fatal on failure:
    too), the Hiera globals [8,8,4096,72], the memory self-attention
    [4,1,4096,256], CLIP [16,577,16,64] and InternVideo2 [4,1025,16,88] in
    BSHD mode and the window mode at Hiera-L's four stages over 8 frames;
-   K2's f32 route at the 16 products of those stages; K6's f32 route at
+   K2's f32 route at the 16 products of those stages (with the plan each
+   took, `k2_f32_plan`); K6's f32 route at
    [2,32,3456,96] causal and [8,8,4096,72]. Then the flagship in f32
    through `build_inference(dtype=torch.float32)`: 2 framewise requests
    and 1 on the video branch from raw frames, run under torch's default
@@ -250,7 +251,8 @@ Phases, each fatal on failure:
    launch; finite masks. Then 3 optimizer steps of 2 micro-steps of the
    f32 flagship through `build_training(dtype=torch.float32)` (finite,
    falling loss; frozen leaves bit-equal; K6 f32 32 times a micro-step;
-   peak memory), and a narrow f32 model on the card against its CPU f32
+   peak memory) and one more step under the profiler (wall, busy share,
+   the top device operations), and a narrow f32 model on the card against its CPU f32
    twin within relative L2 1e-4: teacher-forced logits, mask logits, one
    training micro-step's loss and every trainable gradient;
 14. f32q: the f32 routes of K4 (`vgt_decode_attention_q8_f32`), K5 (the
@@ -2273,11 +2275,14 @@ def device_busy(fn, what: str, smi: str = "", top: int = 6):
     """Run fn once under torch.profiler and log its wall ms, device-busy ms
     and their share, the device launches and the `top` kernels by device
     time. Returns (fn's result, the profiler rows with device time: empty
-    when the profiler saw none)."""
+    when the profiler saw none, logged as a WARNING when fn launched work
+    on the card: the profiler lost the window's device records)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from videoglamm_torch.utils.profiling import device_records_lost, port_launches
     tag = f" [{smi}]" if smi else ""
     torch.cuda.synchronize()
+    launched = port_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
@@ -2286,8 +2291,11 @@ def device_busy(fn, what: str, smi: str = "", top: int = 6):
     rows = [e for e in prof.key_averages()
             if _device_us(e) > 0 and "cuda" in str(e.device_type).lower()]
     if not rows:
-        log(f"  {what} under the profiler: {wall_ms:.1f} ms; device time not "
-            f"measured (the profiler saw none){tag}")
+        lost = device_records_lost(prof, port_launches() - launched)
+        log(f"  {'WARNING: ' if lost else ''}{what} under the profiler: "
+            f"{wall_ms:.1f} ms; device time not measured (the profiler saw none"
+            f"{', though the window launched work on the card' if lost else ''})"
+            f"{tag}")
         return out, rows
     busy_ms = sum(_device_us(e) for e in rows) / 1e3
     best = sorted(rows, key=_device_us, reverse=True)[:top]
@@ -5054,6 +5062,11 @@ def phase_f32_kernels(K: Kernels, cfg):
             x = a if Kd == C else randn(M, Kd)
             w, b = randn(N, Kd) * Kd ** -0.5, 0.1 * randn(N)
             r = randn(M, N) if res else None
+            plan = FB.k2_f32_plan(M, N, Kd)
+            log(f"  K2 f32 stage {stage} {prod}: plan " + ", ".join(
+                f"{k} {plan[k]}" for k in ("bm", "bn", "bk", "kblock", "stages",
+                                           "split_stages", "tiles", "chunks",
+                                           "smem")))
             K.compare(f"gemm_epilogue_f32@stage {stage} {prod}",
                       f"K2 f32 Hiera stage {stage} {prod} [{M},{Kd}] x [{N},{Kd}]"
                       f"{' + GELU' if gelu else ''}{' + residual' if res else ''}",
@@ -5275,6 +5288,8 @@ def phase_f32_train(cfg, seed: int):
         raise AssertionError(f"f32 train: frozen parameters changed: {changed[:4]}")
     log(f"  f32 train: losses {', '.join(f'{x:.5f}' for x in losses)}: last "
         "below first; all frozen leaves bit-equal to their start")
+    # one more step under the profiler: where the f32 step's device time goes
+    device_busy(lambda: tr.train_step(state, batch), "f32 train step", top=16)
     del tr, state, params, frozen0, batch
     torch.cuda.empty_cache()
     return counts

@@ -64,6 +64,7 @@ from videoglamm_torch.io import reference
 from videoglamm_torch.io.from_jax import port_config
 from videoglamm_torch.models.phi3 import quantize_llm
 from videoglamm_torch.models.videoglamm import VideoGLaMM
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TCFG = port_config(CFG)
 TOL_STREAMS = 1e-5          # tests/test_torch_preprocess.py's bound

@@ -54,6 +54,7 @@ from videoglamm_torch.cli import train as tcli
 from videoglamm_torch.io import checkpoint, reference
 from videoglamm_torch.io.from_jax import port_config, videoglamm_state_dict
 from videoglamm_torch.models.videoglamm import VideoGLaMM
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TCFG = port_config(CFG)
 LORA_RANK = 2

@@ -36,6 +36,7 @@ from videoglamm_torch.data import datasets as tds
 from videoglamm_torch.data import prefetch as tprefetch
 from videoglamm_torch.data import video_reader as tvr
 from videoglamm_torch.io.from_jax import port_config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TCFG = port_config(CFG)
 

@@ -37,6 +37,7 @@ from videoglamm_torch.data import datasets as tds
 from videoglamm_torch.data import refer_api as trefer
 from videoglamm_torch.data.datasets import sem_seg as tsem
 from videoglamm_torch.data.datasets import video_gcg_extra as tvge
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _save_img(path, arr):

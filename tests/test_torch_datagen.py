@@ -39,6 +39,7 @@ from videoglamm_torch.datagen import mask_extract as tme
 from videoglamm_torch.inference.pipeline import build_sam2
 from videoglamm_torch.io import from_jax
 from videoglamm_torch.ops.resize import resize_bilinear
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL_BAND = 1e-5
 

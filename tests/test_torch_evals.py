@@ -26,6 +26,7 @@ from videoglamm_torch import evals as tev
 from videoglamm_torch.data import anet_entities as tanet
 from videoglamm_torch.evals import caption_metrics as tcap
 from videoglamm_torch.evals import clair as tclair
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CAPTION_TOL = 1e-12
 THRESH_TOL = 1e-5

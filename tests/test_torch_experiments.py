@@ -46,6 +46,7 @@ from videoglamm_torch.experiments import flash_bshd as fbshd
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 import decode_mlp_experiment as jdm  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROWS = (1, 4, 8)
 K, I, N = 256, 2048, 512

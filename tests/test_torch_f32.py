@@ -36,6 +36,7 @@ from videoglamm_torch.models.common import full_precision, set_exact_f32
 from videoglamm_torch.models.sam2 import hiera, transformer
 from videoglamm_torch.ops import attention as A
 from videoglamm_torch.ops import fused_block as FB
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = VideoGLaMMConfig.tiny(num_frames=4)
 F32, BF16 = torch.float32, torch.bfloat16

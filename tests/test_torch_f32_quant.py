@@ -56,6 +56,7 @@ from videoglamm_torch.models.sam2.hiera import Hiera
 from videoglamm_torch.models.sam2.sam2_base import SAM2Base
 from videoglamm_torch.ops import attention as tattn
 from videoglamm_torch.ops import quant as tq
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32, BF16 = torch.float32, torch.bfloat16
 TOL_ORDER = 2e-6

@@ -36,6 +36,7 @@ from videoglamm_torch.inference import generate as tgen
 from videoglamm_torch.inference.pipeline import GroundedInference, build_inference
 from videoglamm_torch.io.from_jax import phi3_state_dict, port_config
 from videoglamm_torch.models.phi3 import Phi3ForCausalLM
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = VideoGLaMMConfig.tiny(num_frames=4)
 B, S_TEXT, V = 2, 10, 12

@@ -34,6 +34,7 @@ from videoglamm_tpu.models.sam2.sam2_base import SAM2Base as JSAM2Base
 from videoglamm_torch.io import from_jax
 from videoglamm_torch.models.sam2 import interactive as tint
 from videoglamm_torch.models.sam2.sam2_base import SAM2Base
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCFG = SAM2Config.tiny()
 S = SCFG.image_size                   # 128

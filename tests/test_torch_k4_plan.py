@@ -25,6 +25,7 @@ from videoglamm_torch.config import VideoGLaMMConfig
 from videoglamm_torch.ops import attention as tattn
 from videoglamm_tpu.models import kvcache as jkv
 from videoglamm_tpu.ops.attention import _attention_xla
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 2e-5
 SMS = 132                                   # an H100's SMs

@@ -19,6 +19,7 @@ import torch
 from videoglamm_tpu.ops import quant as jq
 from videoglamm_torch.ops import norms
 from videoglamm_torch.ops import quant as tq
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 2e-5
 BYTES = torch.arange(256, dtype=torch.int32)         # every byte value

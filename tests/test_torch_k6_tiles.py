@@ -29,6 +29,7 @@ import torch
 
 from videoglamm_tpu.ops.attention import _attention_xla
 from videoglamm_torch.ops import attention as A
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROWS, TILE = A.K6_ROWS, A.K6_TILE
 LOG2E = 1.4426950408889634

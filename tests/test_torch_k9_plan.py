@@ -24,6 +24,7 @@ from videoglamm_torch.experiments import decode_mlp as dm
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 import decode_mlp_experiment as jdm  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 2e-5
 SMS = 132                                   # an H100's SMs

@@ -38,6 +38,7 @@ from videoglamm_torch.models import llama as tllama
 from videoglamm_torch.models.videoglamm import VideoGLaMM
 from videoglamm_torch.ops.rope import llama31_rope_cos_sin, rope_cos_sin
 from videoglamm_torch.training import build_training
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LCFG = jconfig.LlamaConfig.tiny()
 TOL = 1e-4

@@ -34,6 +34,7 @@ from videoglamm_torch.models.phi3 import Phi3ForCausalLM, init_kv_cache
 from videoglamm_torch.models.sam2.fpn import SAM2ImageEncoder
 from videoglamm_torch.models.sam2.mask_decoder import MaskDecoder
 from videoglamm_torch.models.sam2.prompt_encoder import PromptEncoder
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 

@@ -28,6 +28,7 @@ from videoglamm_torch.ops import attention as tattn
 from videoglamm_torch.ops import fused_block as tfb
 from videoglamm_torch.ops import norms as tnorms
 from videoglamm_torch.ops import rope as trope
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5
 

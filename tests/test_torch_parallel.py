@@ -63,6 +63,7 @@ from videoglamm_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Axis
 from videoglamm_torch.training import (build_training, create_train_state,
                                        make_sharded_train_step,
                                        opt_state_partition_spec, split_batch)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PCFG = port_config(CFG)
 GROUP_TIMEOUT = 120

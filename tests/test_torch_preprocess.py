@@ -18,6 +18,7 @@ from videoglamm_torch.config import VideoGLaMMConfig
 from videoglamm_torch.inference.pipeline import prepare_vision_inputs
 from videoglamm_torch.ops import preprocess as tpre
 from videoglamm_torch.ops import resize as tresize
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 CLIPS = {"portrait": (2, 53, 37), "landscape": (2, 37, 53),

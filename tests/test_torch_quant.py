@@ -45,6 +45,7 @@ from videoglamm_torch.models.common import QDense, QDense4
 from videoglamm_torch.models.phi3 import Phi3ForCausalLM, quantize_llm
 from videoglamm_torch.ops import attention as tattn
 from videoglamm_torch.ops import quant as tq
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 2e-5
 

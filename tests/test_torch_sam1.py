@@ -39,6 +39,7 @@ from videoglamm_torch import config as tconfig
 from videoglamm_torch.io import from_jax
 from videoglamm_torch.models import sam1 as tsam1
 from videoglamm_torch.models import sam1_predictor as tpred
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL_REL = 1e-5
 TOL = 1e-5

@@ -50,6 +50,7 @@ from videoglamm_torch.models.sam2.prompt_encoder import PromptEncoder
 from videoglamm_torch.models.sam2.sam2_base import SAM2Base
 from videoglamm_torch.ops import connected_components as tcc
 from videoglamm_torch.ops import resize as tresize
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # the package's ops/__init__ re-exports the function under the module's name
 jcc = importlib.import_module("videoglamm_tpu.ops.connected_components")

@@ -35,6 +35,7 @@ from videoglamm_torch.inference.pipeline import (GroundedInference,
                                                  extract_seg_from_generation)
 from videoglamm_torch.io.from_jax import port_config, videoglamm_state_dict
 from videoglamm_torch.models.videoglamm import VideoGLaMM
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = VideoGLaMMConfig.tiny(num_frames=4)
 SEG = CFG.seg_token_idx
@@ -167,7 +168,8 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     model for training and take a forward and backward through its towers
     (`freeze_towers=False`) inside `full_precision`; serve an f32 model
     with int4 weights and the int8 cache; import `parallel` and take one
-    sharded step on the one-process mesh. `transformers` is blocked too."""
+    sharded step on the one-process mesh; then import every module of the
+    package (`pkgutil.walk_packages`). `transformers` is blocked too."""
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'videoglamm_tpu', 'transformers'):\n"
@@ -339,6 +341,12 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         "    create_mesh(), trn.state)\n"
         "st, mt = step(st, split(prefetch.to_device(batch, 'cpu')))\n"
         "assert st.step == 1 and torch.isfinite(mt['loss'])\n"
+        "import importlib, pkgutil\n"
+        "mods = [i.name for i in pkgutil.walk_packages(videoglamm_torch.__path__,\n"
+        "                                               'videoglamm_torch.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'videoglamm_torch.ops.tf32x3' in mods and len(mods) > 100\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'videoglamm_tpu')\n"
         "               and v is not None\n"
         "               for k, v in sys.modules.items())\n"

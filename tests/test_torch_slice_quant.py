@@ -51,6 +51,7 @@ from videoglamm_torch.inference.pipeline import (build_inference,
                                                  prepare_vision_inputs)
 from videoglamm_torch.io.from_jax import port_config, videoglamm_state_dict
 from videoglamm_torch.models.common import QDense
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = VideoGLaMMConfig.tiny(num_frames=4)
 SEG = CFG.seg_token_idx

@@ -11,6 +11,7 @@ import torch
 
 from videoglamm_torch.ops import attention as tattn
 from videoglamm_torch.ops import fused_block as tfb
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BF = torch.bfloat16
 

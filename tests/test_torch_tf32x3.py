@@ -24,6 +24,7 @@ import torch
 from videoglamm_tpu.ops.attention import _attention_xla
 from videoglamm_torch.ops import attention as A
 from videoglamm_torch.ops import tf32x3 as T
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL_F32 = 1e-5        # the card's tolerance of the f32 routes (relative L2)
 TOL_LSE = 2e-5        # chip_smoke's TOL_F32_LSE (max |d|)

@@ -28,6 +28,7 @@ from videoglamm_tpu.models import VideoGLaMM as JVideoGLaMM
 from videoglamm_torch.io.from_jax import port_config, videoglamm_state_dict
 from videoglamm_torch.ops import fused_block as FB
 from videoglamm_torch.training import build_training
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LORA_RANK = 2
 TOL_GRAD = 2e-4

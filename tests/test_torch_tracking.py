@@ -45,6 +45,7 @@ from videoglamm_torch.models.sam2.sam2_base import SAM2Base
 from videoglamm_torch.models.sam2.transformer import RoPEAttention
 from videoglamm_torch.models.videoglamm import TRACKER_MODULES, VideoGLaMM
 from videoglamm_torch.ops import rope as trope
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCFG = SAM2Config.tiny()
 E = SCFG.low_res_size                 # 8

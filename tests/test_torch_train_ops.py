@@ -40,6 +40,7 @@ from videoglamm_torch.ops import norms as N
 from videoglamm_torch.ops.resize import resize_bilinear
 from videoglamm_torch.ops.rope import apply_rope, rope_cos_sin
 from videoglamm_torch.training.train_step import AdamW, lr_schedule
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL_ATTN = 2e-4
 

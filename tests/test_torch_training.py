@@ -53,6 +53,7 @@ from videoglamm_torch.models.videoglamm import VideoGLaMM
 from videoglamm_torch.training import (build_training, make_train_step,
                                        trainable_mask)
 from videoglamm_torch.training import trainer as ttrainer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LORA_RANK = 2
 METRICS = ("loss", "ce_loss", "mask_bce_loss", "mask_dice_loss", "mask_loss")

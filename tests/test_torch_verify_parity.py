@@ -50,6 +50,7 @@ from videoglamm_torch.inference.pipeline import (build_inference,
 from videoglamm_torch.io import from_jax
 from videoglamm_torch.io import reference as ref_io
 from videoglamm_torch.models.videoglamm import VideoGLaMM
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = VideoGLaMMConfig.tiny(num_frames=4)
 TCFG = from_jax.port_config(CFG)

@@ -39,6 +39,7 @@ from videoglamm_tpu.ops.attention import (_attention_xla, _smallwin_xla,
 from videoglamm_torch.io import from_jax
 from videoglamm_torch.models.sam2.hiera import Hiera
 from videoglamm_torch.ops import attention as tattn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 2e-5
 

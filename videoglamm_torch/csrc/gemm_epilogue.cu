@@ -264,7 +264,8 @@ cudaError_t launch(const void* a, long long lda, const void* w, const void* res,
 
 // Plain C entry (bound with ctypes). Returns a cudaError_t code, 0 = ok.
 // act: 0 = none, 1 = tanh GELU. Requires K % 8 == 0, N % 8 == 0, lda, ldr
-// and ldo multiples of 8, 16-byte aligned pointers (checked in Python).
+// and ldo multiples of 8 (any for one row), 16-byte aligned pointers
+// (checked in Python).
 extern "C" int vgt_gemm_epilogue(
     const void* a, long long lda, const void* w, const void* bias,
     const void* res, long long ldr, void* out, long long ldo,
@@ -273,6 +274,8 @@ extern "C" int vgt_gemm_epilogue(
   Params p;
   p.bias = static_cast<const __nv_bfloat16*>(bias);
   p.M = M; p.N = N; p.K = K; p.act = act; p.has_res = res != nullptr;
+  // a single row's stride is never read: a one-row view may have any
+  if (M == 1) { lda = K; ldr = N; ldo = N; }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = use_device_of(a);
   if (e == cudaSuccess)

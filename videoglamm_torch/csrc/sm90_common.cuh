@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
 // (attention_fwd.cu's wgmma route, gemm_epilogue.cu, flash_bwd.cu,
 // dequant_gemv.cu, decode_attention_q8.cu, decode_fused.cu,
-// attention_f32.cu): shared-memory matrix descriptors and `wgmma.mma_async`
-// wrappers (bf16, and TF32 with the 3xTF32 split), programmatic dependent
+// attention_f32.cu, gemm_f32.cu): shared-memory matrix descriptors and
+// `wgmma.mma_async` wrappers (bf16, and TF32 with the 3xTF32 split), programmatic dependent
 // launch, mbarrier helpers, TMA tensor loads and
 // stores, 1-D bulk copies, proxy fences, named barriers, register
 // reallocation, the int8 / int4 -> float conversions of K4 and K5, and the
@@ -33,6 +33,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // 0 is __syncthreads)
 __device__ __forceinline__ void named_bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// arrive on hardware barrier `id` without waiting (its other `n` - 32k
+// threads sync on it)
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 template <int N> __device__ __forceinline__ void reg_alloc() {
@@ -321,8 +327,9 @@ template <> struct Wgmma<144> {
 
 
 // ---------------------------------------------------------------------------
-// TF32 on wgmma (csrc/attention_f32.cu): f32-accurate products as three
-// TF32 products ("3xTF32", as CUTLASS's OpMultiplyAddFastF32). An f32 x is
+// TF32 on wgmma (csrc/attention_f32.cu, csrc/gemm_f32.cu): f32-accurate
+// products as three TF32 products ("3xTF32", as CUTLASS's
+// OpMultiplyAddFastF32). An f32 x is
 // split into big = rna_tf32(x) and small = rna_tf32(x - big), whose sum
 // keeps 22 bits of x's 24; a . b is then a_big b_small + a_small b_big +
 // a_big b_big, each product exact in the f32 accumulator, the two cross
@@ -441,6 +448,21 @@ template <> struct WgmmaTf32<128> {
   }
 };
 
+template <> struct WgmmaTf32<144> {
+  static constexpr int kAcc = 72;
+  // A from registers (the m16n8k8 tf32 fragment a warp), B K-major in
+  // shared memory
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71}, {%72, %73, %74, %75}, %76, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
 // ---------------------------------------------------------------------------
 // integer codes -> float without I2F (K5, and K4's images): a code lands
 // in the low mantissa bits of a power of two, and one exact subtraction
@@ -542,17 +564,19 @@ inline cudaError_t use_device_of(const void* p) {
   return e != cudaSuccess ? e : cudaSetDevice(a.device);
 }
 
-// A bf16 tensor map of `rank` dims, innermost first: dims[i] elements,
-// byte strides of dims 1.. in strides[0 .. rank-2] (multiples of 16), a box
-// of box[i] elements. Reads past the dims fill zeros, stores past them are
-// dropped. Returns false if the map is refused.
+// A tensor map of `rank` dims, innermost first (bf16 elements unless `dt`
+// says otherwise): dims[i] elements, byte strides of dims 1.. in
+// strides[0 .. rank-2] (multiples of 16), a box of box[i] elements. Reads
+// past the dims fill zeros, stores past them are dropped. Returns false if
+// the map is refused.
 inline bool encode_map(CUtensorMap* map, const void* base, int rank,
                        const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box, bool swizzle128) {
+                       const cuuint32_t* box, bool swizzle128,
+                       CUtensorMapDataType dt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  return fn(map, dt, rank,
             const_cast<void*>(base), dims, strides, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE,
             swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,

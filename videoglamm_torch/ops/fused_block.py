@@ -12,8 +12,10 @@ in its body runs in one of them:
 K2 (`csrc/gemm_epilogue.cu`) is a bf16 GEMM with the bias / GELU / residual
 epilogue fused (TMA, wgmma, a persistent grid). Its f32 route
 (`csrc/gemm_f32.cu`, counted as "gemm:simt_f32") computes the same function
-with f32 products on the CUDA cores and the erf GELU; `gemm_epilogue`
-dispatches by dtype. Windows shorter than K1's 128-row query tile are packed
+at f32 accuracy with the erf GELU: the same shape of kernel, its products
+as three TF32 products on wgmma (3xTF32) over 144-column tiles, tiled by
+`k2_f32_plan`; `gemm_epilogue` dispatches by dtype. Windows shorter than
+K1's 128-row query tile are packed
 into one (eight of 16 tokens, two of 64) with a block-diagonal `win` mask
 (`window_fold`). Fusing the chain into one launch, so that the activation
 is read once as on the TPU, is queued in ROADMAP.md.
@@ -103,6 +105,45 @@ def _fused_block_ref(x, p, num_heads: int, eps: float = 1e-6):
 # ---------------------------------------------------------------------------
 # K2: GEMM + fused epilogue
 # ---------------------------------------------------------------------------
+_K2F = _cuda.constants("gemm_f32")
+
+
+def k2_f32_plan(M: int, N: int, K: int) -> dict:
+    """The tile plan of K2's f32 route (csrc/gemm_f32.cu) for out[M,N] =
+    a[M,K] @ w[N,K]^T: rows and columns of a tile (BM, BN), the K-chunk of
+    a ring stage (BK), the K columns a fresh accumulator sums (KBLOCK), the
+    ring depths of the A / W chunks and of W's split small planes, the
+    threads, the tiles and the dynamic shared memory (the ring, the small
+    planes, two warpgroups' [64, BN] output staging, the mbarriers and 1024
+    bytes of alignment slack). The constants are the source's `constexpr
+    int` lines. Raises ValueError for what the kernel does not build: K or
+    N not a positive multiple of 8, M not positive, coordinates or tiles
+    past int32, or a plan that does not fit a CTA."""
+    c = _K2F
+    if M <= 0 or N <= 0 or K <= 0 or K % 8 or N % 8:
+        raise ValueError(f"k2_f32_plan: M={M} must be positive and K={K}, "
+                         f"N={N} positive multiples of 8")
+    if max(M, N, K) >= 2 ** 31:
+        raise ValueError(f"k2_f32_plan: {(M, N, K)} past the tensor map's "
+                         "int32 coordinates")
+    bm, bn, bk = c["BM"], c["BN"], c["BK"]
+    tiles = -(-M // bm) * -(-N // bn)
+    if tiles >= 2 ** 31:
+        raise ValueError(f"k2_f32_plan: {tiles} tiles")
+    ring = c["STAGES"] * (bm + bn) * bk * 4
+    small = c["SPLIT_STAGES"] * bn * bk * 4
+    out = 2 * 64 * bn * 4
+    bars = 8 * (3 * c["STAGES"] + c["SPLIT_STAGES"] + 2)
+    smem = ring + small + out + bars + c["SMEM_ALIGN"]
+    if smem > c["SMEM_MAX"]:
+        raise ValueError(f"k2_f32_plan: {smem} bytes of shared memory, above "
+                         f"{c['SMEM_MAX']}")
+    return dict(bm=bm, bn=bn, bk=bk, kblock=c["KBLOCK"], stages=c["STAGES"],
+                split_stages=c["SPLIT_STAGES"], threads=c["NTHREADS"],
+                tiles=tiles, col_tiles=-(-N // bn), chunks=-(-K // bk),
+                smem=smem)
+
+
 def _gemm_fn(name: str = "gemm_epilogue", entry: str = "vgt_gemm_epilogue"):
     fn = getattr(_cuda.load(name).lib, entry)
     if fn.argtypes is None:
@@ -117,8 +158,9 @@ def gemm_epilogue(a, w, bias=None, *, gelu: bool = False, residual=None):
     (nn.Linear layout); bias: [N]; residual: [M,N]. A CPU tensor takes the
     plain twin; a CUDA tensor launches K2 or raises. bf16 operands take the
     wgmma kernel (GELU in the tanh form, the rule for bf16); f32 operands
-    take the f32 route `csrc/gemm_f32.cu` (f32 FFMA, the erf GELU of
-    `_erf_as`), K2's only way in for f32."""
+    take the f32 route `csrc/gemm_f32.cu` (3xTF32 on wgmma, the erf GELU
+    of `_erf_as`; `k2_f32_plan` is checked first), K2's only way in for
+    f32."""
     if a.device.type == "cpu":
         return _gemm_plain(a, w, bias, gelu=gelu, residual=residual)
     M, K = a.shape
@@ -142,6 +184,8 @@ def gemm_epilogue(a, w, bias=None, *, gelu: bool = False, residual=None):
         if residual.shape != (M, N):
             raise ValueError("gemm_epilogue: residual must be [M, N]")
     f32 = dt == torch.float32
+    if f32:
+        k2_f32_plan(M, N, K)
     fn = _gemm_fn("gemm_f32", "vgt_gemm_f32") if f32 else _gemm_fn()
     out = torch.empty((M, N), dtype=dt, device=a.device)
     err = fn(

@@ -1,6 +1,7 @@
-"""The arithmetic of the f32 attention kernels (`csrc/attention_f32.cu`) in
-plain torch, for the CPU tests (`tests/test_torch_tf32x3.py`); no model
-calls it.
+"""The arithmetic of the port's 3xTF32 kernels (the f32 attention of
+`csrc/attention_f32.cu` and K2's f32 GEMM of `csrc/gemm_f32.cu`) in plain
+torch, for the CPU tests (`tests/test_torch_tf32x3.py`,
+`tests/test_torch_k2_tf32x3.py`); no model calls it.
 
 The kernels run every product as three TF32 products on wgmma ("3xTF32"):
 an f32 x is split into big = rna_tf32(x) (round to nearest, ties away, to
@@ -8,14 +9,16 @@ TF32's 10 stored mantissa bits) and small = rna_tf32(x - big); then a . b =
 a_big b_small + a_small b_big + a_big b_big, the cross terms first, each
 TF32 product exact in the f32 accumulator. `matmul_3xtf32` emulates that
 on f32 tensors, `matmul_tf32` the single TF32 product that 3xTF32 exists to
-avoid, and `attention_fwd` / `attention_bwd` the kernels' forward and
-backward with either.
+avoid, `attention_fwd` / `attention_bwd` the attention kernels' forward and
+backward with either, and `gemm_3xtf32` K2's f32 GEMM with its epilogue.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from .fused_block import _K2F, _gelu
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
@@ -106,3 +109,33 @@ def attention_bwd(q, k, v, out, lse, dout, *, sm_scale: float,
     ds = p * (dp - delta) * sm_scale
     return (matmul(ds, k), matmul(ds.transpose(-1, -2), q),
             matmul(p.transpose(-1, -2), dout))
+
+
+def gemm_3xtf32(a: torch.Tensor, w: torch.Tensor, bias=None, *,
+                gelu: bool = False, residual=None) -> torch.Tensor:
+    """K2's f32 route (csrc/gemm_f32.cu) on f32 tensors: act(a @ w^T +
+    bias) (+ residual). a: [M,K], w: [N,K], K a multiple of 8. Both
+    operands split once; each k-block of the source's KBLOCK columns is
+    summed apart, big.small + small.big first, then + big.big
+    (inside a block in matmul's order, where the kernel adds k8 step after
+    k8 step on the tensor core), and added to the running sum in f32; then
+    + bias, the erf GELU (`_erf_as`), and residual + y."""
+    a, w = a.float(), w.float()
+    K = a.shape[1]
+    if K % 8:
+        raise ValueError(f"gemm_3xtf32: K={K} must be a multiple of 8")
+    ab, as_ = split_tf32(a)
+    wb, ws = split_tf32(w)
+    kblock = _K2F["KBLOCK"]
+    run = torch.zeros(a.shape[0], w.shape[0])
+    for k0 in range(0, K, kblock):
+        s = slice(k0, k0 + kblock)
+        run = run + ((ab[:, s] @ ws[:, s].T + as_[:, s] @ wb[:, s].T)
+                     + ab[:, s] @ wb[:, s].T)
+    if bias is not None:
+        run = run + bias.float()
+    if gelu:
+        run = _gelu(run)
+    if residual is not None:
+        run = residual.float() + run
+    return run

@@ -1,2 +1,2 @@
-from .profiling import (device_memory_report, profile_trace, StepTimer,
-                        annotate)
+from .profiling import (DeviceRecordsLost, device_memory_report, profile_trace,
+                        StepTimer, annotate)

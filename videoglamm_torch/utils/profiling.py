@@ -10,6 +10,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -18,20 +19,61 @@ import torch
 TRACE_FILE = "trace.json"
 
 
+class DeviceRecordsLost(RuntimeWarning):
+    """A profiled window launched work on the card, and the profiler handed
+    back no device record (kernel, copy or fill) for it."""
+
+
+# host-side CUDA calls that put work on the card
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchCooperativeKernel",
+                 "cudaGraphLaunch", "cudaMemcpy", "cudaMemset")
+
+
+def port_launches() -> int:
+    """A sum that grows with every launch of the port's kernels: the
+    wrappers' counters, which count only launches on the card."""
+    from ..experiments import decode_mlp
+    from ..ops import attention, fused_block, norms, quant
+    return sum(sum(c.values()) for c in (attention.LAUNCHES, fused_block.LAUNCHES,
+                                         norms.LAUNCHES, quant.LAUNCHES,
+                                         decode_mlp.LAUNCHES))
+
+
+def device_records_lost(prof, port_launched: int = 0) -> bool:
+    """Whether a finished `torch.profiler.profile` window launched work on
+    the card (`port_launched` of the port's kernels, or a CUDA launch, copy
+    or fill call among its host events) and yet holds no device record."""
+    rows = prof.key_averages()
+    if any(e.device_type == torch.autograd.DeviceType.CUDA for e in rows):
+        return False
+    return port_launched > 0 or any(e.key.startswith(_LAUNCH_CALLS) for e in rows)
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """Profile the CPU and, when a card is present, CUDA activity of the
     block; on exit write `log_dir/trace.json` (Chrome trace format, for
     chrome://tracing or Perfetto). Yields the `torch.profiler.profile`,
-    whose `key_averages()` sums the events by name."""
+    whose `key_averages()` sums the events by name. Warns
+    `DeviceRecordsLost` when the block launched work on the card and the
+    trace holds no device record of it: the profiler now and then drops
+    every device record of a window, late in a long-lived process."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    launched = port_launches()
     with profile(activities=acts) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+    path = os.path.join(log_dir, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    launched = port_launches() - launched
+    if device_records_lost(prof, launched):
+        warnings.warn(f"profile_trace: the block launched work on the card "
+                      f"(the port's launch counters moved by {launched}), and "
+                      f"{path} holds no device record of it", DeviceRecordsLost,
+                      stacklevel=3)
 
 
 @contextlib.contextmanager
