@@ -87,7 +87,13 @@ Phases, each fatal on failure:
    b. the main path, the int8 LLM with the int8 KV cache from RAW uint8
       [1,16,480,854,3] frames (3 requests), then its decode step timed and
       profiled alone, with K4's and K5's shares of the device time (one K4
-      device kernel a K4 call, or the run fails),
+      device kernel a K4 call, or the run fails); then one batch-4 request
+      (four seeded clips [4,16,480,854,3], prompts of 64, 40, 52 and 28
+      tokens: the launches of one request, K4 and K5 at 4 rows), each row
+      held to its clip served alone, teacher-forced over the row's own
+      served tokens (16 logits, relative L2 within 0.1; token agreement
+      printed), and the batch teacher-forced with the served cache length
+      giving every served token,
    c. the video branch on the main path's model: 2 requests from raw
       frames with `use_video_branch=True`, all 16 frames to SAM, the 4
       [SEG] slots tracked through them by the SAM-2 memory tracker (K1 at
@@ -261,10 +267,18 @@ Phases, each fatal on failure:
    and max-norm ratio within 2e-6, each timed beside its bound, its twin
    and, for K7 and K8, SDPA in f32: K4 at Phi-3 over 32 stacked layers and
    at Llama-3.1-8B's GQA (two calls bit-equal), K5 int8 and int4 at the
-   five Phi-3 decode products for 1, 2, 3, 4, 8 and 64 rows, K7 at
-   [4,1,1024,256], K8 at the unhoisted Hiera-L's three small-window shapes.
-   Then the f32 flagship with int8 weights and the int8 cache (2 framewise
-   requests; its Hiera-L unhoisted against hoisted in f32), with int4
+   five Phi-3 decode products for 1, 2, 3, 4, 8 and 64 rows (the CUDA
+   cores below the crossover, 2 rows for gate_up and lm_head, 4 for qkv,
+   5 for o_proj and down_proj, the
+   tensor cores from it over x's three bf16 planes,
+   bound: bytes, or three bf16 products at 989 TFLOP/s; beside it the
+   other route forced through its plan past one row: the earlier design
+   and the crossover), K7 at [4,1,1024,256], K8 at the unhoisted Hiera-L's three
+   small-window shapes.
+   Then the f32 flagship with int8 weights and the int8 cache (1 framewise
+   request; its Hiera-L unhoisted against hoisted in f32; a batch-4
+   request as in 4b, its rows held to their clips alone within 1e-4, at
+   most 1e-5 of their int8 cache codes one step apart), with int4
    weights (1 request) and at SAM image size 512 on the video branch (1
    request), each by the bf16 formula on the f32 routes (K4, K5 and K7
    never on their bf16 counters, nothing staged); a narrow f32 model with
@@ -1787,10 +1801,13 @@ def phase_serve(gi, cfg, mode: str, requests, raw: bool, track: bool = False,
         if timings_out is not None:
             timings_out.append(timings)
         masks = out.pred_masks
+        B = req[0].shape[0]                  # clips a request
         log(f"  {mode} request {i}: wall {wall:.3f} s, "
             + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
-            + f", {cfg.num_frames / wall:.3f} frames/s, tokens "
-            f"{int(out.lengths[0])}/{MAX_NEW}, [SEG] {int(out.seg_valid.sum())}, "
+            + f", {B * cfg.num_frames / wall:.3f} frames/s ({B} x "
+            f"{cfg.num_frames}), tokens "
+            f"{'/'.join(str(int(n)) for n in out.lengths)} of {MAX_NEW}, "
+            f"[SEG] {int(out.seg_valid.sum())}, "
             f"masks {tuple(masks.shape)} finite={bool(torch.isfinite(masks).all())}")
     counts = read_counts()
     log(f"  {mode}: peak device memory "
@@ -1810,6 +1827,128 @@ def phase_serve(gi, cfg, mode: str, requests, raw: bool, track: bool = False,
             raise AssertionError(f"{name}: {n} launches on the {mode} path, "
                                  f"expected {per} per request x {len(requests)}")
     return results, counts
+
+
+# batch 4 (bench.py's BENCH_BATCH=4, "batch 4 fits 16GB HBM"): four seeded
+# clips and four prompts of different text lengths in one request; every
+# row is held to its clip served alone at batch 1, teacher-forced over the
+# batch row's own served tokens
+BATCH_TEXT_LENS = (64, 40, 52, 28)
+BATCH_TF_STEPS = 16
+TOL_BATCH_BF16 = TOL_LLM_TF_Q   # relative L2 of a row's decode logits, bf16
+                                # with int8 weights and cache: a row alone
+                                # takes other GEMM shapes (the towers, the
+                                # prefill) and K5's one-row route, rounded
+                                # in bf16 elsewhere; the bound the cached
+                                # decode holds against the uncached forward
+TOL_BATCH_F32 = 1e-4            # the same in f32 (the f32 control): the same
+                                # f32 function in another order
+                                # (tests/test_torch_f32_batch.py's), with
+TOL_BATCH_F32_FLIPS = 1e-5      # at most this share of the row's int8 cache
+                                # codes one step from the lone row's: a
+                                # last-bit difference before round() moves
+                                # a code by one (64 to 97 codes a row
+                                # measured); a row that lost precision
+                                # moves far more, and fails here
+
+
+def make_batch_request(cfg, seed: int):
+    """Four raw clips [4,16,480,854,3] uint8 (`make_raw_request`'s, seeds
+    seed..seed+3) and prompts of BATCH_TEXT_LENS tokens, zero-padded."""
+    import torch
+    reqs = [make_raw_request(cfg, seed + b) for b in range(len(BATCH_TEXT_LENS))]
+    raw = torch.cat([r[0] for r in reqs])
+    ids = torch.zeros(len(reqs), max(BATCH_TEXT_LENS), dtype=torch.long,
+                      device="cuda")
+    for b, n in enumerate(BATCH_TEXT_LENS):
+        ids[b, :n] = reqs[b][1][0, :n]
+    lens = torch.tensor(BATCH_TEXT_LENS, dtype=torch.long, device="cuda")
+    return raw, ids, lens
+
+
+def phase_batch(gi, cfg, mode: str, seed: int, tol: float, what: str,
+                max_flips=None):
+    """One batch-4 request through `serve_raw` (launches by `mode`'s
+    per-request counts: the towers, prefill and decode launch once for the
+    batch), then:
+    - the batch again, teacher-forced over its served tokens with the
+      served cache length: its argmax must give every served token of every
+      row (the request itself held);
+    - each row against its clip alone: the prefill's logits and
+      BATCH_TF_STEPS cached decode steps fed the batch row's own served
+      tokens, relative L2 within `tol`; with `max_flips` (f32) at most that
+      share of the row's int8 cache codes may differ from the lone row's,
+      each by one. The token agreement of the lone row's argmax with the
+      served tokens is printed, not held."""
+    import torch
+    from videoglamm_torch.inference.generate import decode_step, prefill
+    from videoglamm_torch.inference.pipeline import prepare_vision_inputs
+    from videoglamm_torch.models.common import full_precision
+
+    raw, ids, lens = make_batch_request(cfg, seed)
+    results, _ = phase_serve(gi, cfg, mode, [(raw, ids, lens)], raw=True)
+    check_outputs(cfg, results, what)
+    tokens, served = results[0].tokens, results[0].lengths
+    del results
+    model, n = gi.model, BATCH_TF_STEPS
+    dtype = model.llm.model.embed_tokens.weight.dtype
+
+    def forced_logits(frames, context, ids_, lens_, tok, max_new):
+        visual = model.encode_visual_prefix(frames, context)
+        _, cache, sp, last = prefill(model.llm, visual, ids_, lens_, max_new,
+                                     quant_kv=model.quant_kv_int8)
+        out = [last.float()]
+        for j in range(n - 1):
+            out.append(decode_step(model.llm, cache, tok[:, j],
+                                   sp.attn_lens + j)[0].float())
+        return torch.stack(out, dim=1), cache, sp.attn_lens   # [B, n, V]
+
+    with torch.no_grad(), full_precision(gi.f32):
+        frames, context, _ = prepare_vision_inputs(raw, cfg, num_sam_frames=T_SAM,
+                                                   dtype=dtype)
+        batch, bcache, blens = forced_logits(frames, context, ids, lens, tokens,
+                                             gi.max_new_tokens)
+        live = torch.arange(n, device=tokens.device)[None] < served[:, None]
+        hit = (batch.argmax(-1) == tokens[:, :n]) | ~live
+        same = hit.float().mean().item()
+        worst = 0.0
+        for b, L in enumerate(BATCH_TEXT_LENS):
+            alone, acache, alens = forced_logits(
+                frames[b:b + 1], context[b:b + 1], ids[b:b + 1, :L],
+                lens[b:b + 1], tokens[b:b + 1], n)
+            alone = alone[0]
+            if int(alens[0]) != int(blens[b]):
+                raise AssertionError(f"{what} row {b}: prompt length "
+                                     f"{int(blens[b])} in the batch, "
+                                     f"{int(alens[0])} alone")
+            # the positions the row wrote: its prompt and n - 1 decode steps
+            P = int(blens[b]) + n - 1
+            flips, step, codes = 0, 0, 0
+            for key in ("k", "v"):
+                d = (bcache[key][:, b, :P].int() - acache[key][:, 0, :P].int()).abs()
+                flips += int((d > 0).sum())
+                step = max(step, int(d.max()))
+                codes += d.numel()
+            rel = rel_l2(batch[b], alone)
+            agree = (alone.argmax(-1) == tokens[b, :n]).float().mean().item()
+            log(f"  {what} row {b} ({L} text tokens) against its clip alone, "
+                f"{n} teacher-forced logits: rel L2 {rel:.3e} (tol {tol:g}); "
+                f"{flips} of {codes} int8 cache codes differ ({flips / codes:.2e}"
+                f"{'' if max_flips is None else f', held at {max_flips:g}'}), "
+                f"by {step} at most; token agreement {agree:.3f} (reported)")
+            if max_flips is not None and (step > 1 or flips > max_flips * codes):
+                raise AssertionError(f"{what} row {b}: its int8 cache codes "
+                                     "differ from its clip alone's beyond last bits")
+            if not rel <= tol:
+                raise AssertionError(f"{what} row {b}: disagrees with its clip "
+                                     f"alone, rel L2 {rel:.3e} > {tol:g}")
+            worst = max(worst, rel)
+    log(f"  {what}: the batch's teacher-forced argmax reproduces its served "
+        f"tokens {same:.3f} (held at 1; rows of {served.tolist()} served "
+        f"tokens); worst row rel L2 {worst:.3e}")
+    if same != 1.0:
+        raise AssertionError(f"{what}: the batch teacher-forced does not give "
+                             "its served tokens")
 
 
 def check_reference_round_trip(gi, cfg, request):
@@ -1851,14 +1990,14 @@ def check_outputs(cfg, results, what: str, t_sam: int = T_SAM):
     import torch
     E4 = 4 * cfg.sam2.low_res_size
     for i, out in enumerate(results):
-        shape = (1, cfg.max_seg_tokens, t_sam, E4, E4)
+        shape = (out.tokens.shape[0], cfg.max_seg_tokens, t_sam, E4, E4)
         if tuple(out.pred_masks.shape) != shape:
             raise AssertionError(f"{what} request {i}: masks "
                                  f"{tuple(out.pred_masks.shape)}")
         if not torch.isfinite(out.pred_masks).all():
             raise AssertionError(f"{what} request {i}: non-finite mask logits")
-        invalid = ~out.seg_valid[0]
-        if not (out.pred_masks[0][invalid] <= -1e3).all():
+        invalid = ~out.seg_valid
+        if not (out.pred_masks[invalid] <= -1e3).all():
             raise AssertionError(f"{what} request {i}: invalid [SEG] slots "
                                  "not masked")
         vocab = cfg.llm_config.vocab_size + 1
@@ -5433,7 +5572,7 @@ TOL_F32_QUANT_LOOSE = 2e-2  # a narrow f32 model with the int8 cache, card vs
                         # CPU, once a code of the two caches differs: a
                         # last-bit difference before round() moves a code by
                         # one, its row by amax/127 (tests/test_torch_slice_quant.py)
-N_F32Q_REQUESTS = 2     # framewise f32 requests with int8 weights and cache
+N_F32Q_REQUESTS = 1     # framewise f32 requests with int8 weights and cache
 K5_F32_ROWS = (1, 2, 3, 4, 8, 64)
 PHI3_PRODUCTS = (("qkv_proj", 3072, 9216), ("o_proj", 3072, 3072),
                  ("gate_up_proj", 3072, 16384), ("down_proj", 8192, 3072),
@@ -5445,12 +5584,14 @@ def phase_f32q_kernels(K: Kernels, cfg):
     off at the f32 model's path shapes, relative L2 within TOL_F32_SERVE
     (max-norm ratio within TOL_F32_ROUTE),
     each timed beside its bound and its twin (K7 and K8 also beside SDPA in
-    f32; K4 and K5 have no one-call library counterpart): K4 at Phi-3 over
-    a stacked 32-layer cache (698 MB, past L2) and at Llama-3.1-8B's GQA,
-    equal bits on a repeat; K5 int8 and int4 at the five Phi-3 decode
-    products for 1, 2, 3, 4, 8 and 64 rows (timed over weight copies past
-    L2); K7 at the memory self-attention [4,1,1024,256]; K8 at the
-    unhoisted Hiera-L's three small-window shapes over 8 frames."""
+    f32, K5 int8 beside `torch._weight_int8pack_mm`; K4 has no one-call
+    library counterpart): K4 at Phi-3 over a stacked 32-layer cache (698 MB,
+    past L2) and at Llama-3.1-8B's GQA, equal bits on a repeat; K5 int8 and
+    int4 at the five Phi-3 decode products for 1, 2, 3, 4, 8 and 64 rows
+    (timed over weight copies past L2), past one row the route that the
+    plan does not take forced beside the one it takes (the crossover); K7 at the memory self-attention
+    [4,1,1024,256]; K8 at the unhoisted Hiera-L's three small-window shapes
+    over 8 frames."""
     import torch
     import torch.nn.functional as F
     from videoglamm_torch.ops import attention as A
@@ -5496,8 +5637,13 @@ def phase_f32q_kernels(K: Kernels, cfg):
                 "layer 2, kv_len 3400")
     torch.cuda.empty_cache()
 
-    # K5: f32 x at every row count on the CUDA cores, tiles of 4 rows
+    # K5: f32 x, one row on the CUDA cores, from `k5_f32_tc_min_m` rows on the
+    # tensor cores (x split into three bf16 planes, one pass over the
+    # weights a 64 rows); at every row count past one the other route is
+    # timed beside it, forced through its plan: the crossover, and the
+    # earlier design's times (the CUDA-core route: every M in tiles of 4 rows)
     sums = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for what, Kd, Nd in PHI3_PRODUCTS:
         wf = randn(Nd, Kd) * Kd ** -0.5
         q8, s8 = Q.quantize_int8(wf)
@@ -5513,39 +5659,65 @@ def phase_f32q_kernels(K: Kernels, cfg):
         for M in K5_F32_ROWS:
             x = randn(M, Kd)
             io = 4 * M * (Kd + Nd)
-            tiles = -(-M // Q.K5_F32_MT)
-            main = what == "gate_up_proj" and M in (1, 64)
+            main = what == "gate_up_proj"
             # library: torch's weight-only int8 product takes f32 x and f32
             # scales on the card; its int4 one refuses f32 x ("Expected
             # A.dtype() == at::kBFloat16"), so int4 f32 has none
-            for kind, nb, kern, plain, timed, lib in (
+            for kind, nb, kern, plain, timed, lib, group in (
                     ("int8", Nd * Kd + 4 * Nd + io,
                      lambda: Q.dequant_matmul(x, q8, s8),
                      lambda: Q._dequant_matmul_plain(x, q8, s8),
                      lambda: Q.dequant_matmul(x, ring8[next(r8) % len(ring8)], s8),
-                     lambda: torch._weight_int8pack_mm(x, q8n, s8f)),
+                     lambda: torch._weight_int8pack_mm(x, q8n, s8f), 0),
                     ("int4", Nd * Kd // 2 + 4 * Nd * Kd // 128 + io,
                      lambda: Q.dequant4_matmul(x, p4, s4, 128),
                      lambda: Q._dequant4_matmul_plain(x, p4, s4, 128),
                      lambda: Q.dequant4_matmul(x, *ring4[next(r4) % len(ring4)], 128),
-                     None)):
+                     None, 128)):
+                plan = Q.k5_plan(M, Nd, Kd, group, sms, f32=True)
+                route = "tensor cores" if plan.tc else "CUDA cores"
                 key = (f"dequant_gemv_f32[{kind}]" + ("" if M == 1 else f"@M={M}")
                        if main else None)
+                # the bound: bytes, or 3 bf16 products of exact operands
+                # (x's planes times the codes) at the bf16 tensor rate
                 ms = K.compare(key, f"K5 f32 {kind} {what} M={M} [{Nd},{Kd}] "
-                               f"({tiles} pass{'es' if tiles > 1 else ''} over "
-                               "the weights)", kern, plain, TOL_F32_ROUTE,
+                               f"({route}, {plan.m_tiles} pass"
+                               f"{'es' if plan.m_tiles > 1 else ''} over the "
+                               "weights)", kern, plain, TOL_F32_ROUTE,
                                tol_l2=TOL_F32_SERVE, nbytes=nb,
-                               ops=2 * M * Nd * Kd, rate="f32", graphed=True,
+                               ops=3 * 2 * M * Nd * Kd, rate="bf16", graphed=True,
                                timed_fn=timed, library_fn=lib)
-                t = sums.setdefault((kind, M), [0.0, 0.0])
+                t = sums.setdefault((kind, M), [0.0, 0.0, 0.0, 0.0])
                 t[0] += ms
-                t[1] += max(nb / HBM_BYTES_S, 2 * M * Nd * Kd / PEAK_OPS["f32"]) * 1e3
+                t[1] += max(nb / HBM_BYTES_S, 3 * 2 * M * Nd * Kd / PEAK_OPS["bf16"]) * 1e3
+                if M > 1:
+                    # the other route, forced through its plan
+                    other = Q.k5_plan(M, Nd, Kd, group, sms, f32=True, tc=not plan.tc)
+                    if kind == "int8":
+                        forced = lambda: Q._launch_gemv(
+                            kind, x, ring8[next(r8) % len(ring8)], s8, Nd, 0, other)
+                    else:
+                        forced = lambda: Q._launch_gemv(
+                            kind, x, *ring4[next(r4) % len(ring4)], Nd, 128, other)
+                    oroute = "tensor cores" if other.tc else "CUDA cores"
+                    err = rel_l2(forced(), plain())
+                    if not err <= TOL_F32_SERVE:
+                        raise AssertionError(f"K5 f32 {kind} {what} M={M} on the "
+                                             f"{oroute}: relative L2 {err:.3e}")
+                    other_ms = time_ms(forced, graphed=True)
+                    t[2] += other_ms if plan.tc else ms      # the CUDA cores
+                    t[3] += ms if plan.tc else other_ms      # the tensor cores
+                    log(f"    the {oroute} forced at M={M} ({other.m_tiles} pass"
+                        f"{'es' if other.m_tiles > 1 else ''}): {other_ms:.4f} ms, "
+                        f"{other_ms / ms:.2f}x the {route}' time")
             del x
         del ring8, ring4, q8, q8n, s8f, p4, s4
         torch.cuda.empty_cache()
-    for (kind, M), (ms, bound) in sorted(sums.items()):
+    for (kind, M), (ms, bound, cuda_ms, tc_ms) in sorted(sums.items()):
         log(f"  K5 f32 {kind} M={M}, sum of the five Phi-3 products: {ms:.4f} ms "
-            f"back to back, bound {bound:.4f} ms ({bound / ms:.1%} of it)")
+            f"back to back, bound {bound:.4f} ms ({bound / ms:.1%} of it)"
+            + (f"; every product on the CUDA cores {cuda_ms:.4f} ms, on the "
+               f"tensor cores {tc_ms:.4f} ms" if M > 1 else ""))
 
     # K7: the memory self-attention at the 32x32 grid
     q, k, v = (randn(4, 1, 1024, 256) for _ in range(3))
@@ -5591,6 +5763,7 @@ def phase_f32q_serve(cfg):
     and unhoisted runs."""
     import torch
     from videoglamm_torch.inference.pipeline import build_inference
+    from videoglamm_torch.ops import quant as Q
 
     def f32_model(c, quant, what):
         t0 = time.perf_counter()
@@ -5617,6 +5790,18 @@ def phase_f32q_serve(cfg):
     hoist_counts = phase_unhoisted_hiera(
         gi.model.visual_model.image_encoder.trunk, dtype=torch.float32,
         tol=TOL_F32_HOIST)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B = len(BATCH_TEXT_LENS)
+    routes = {what: Q.k5_plan(B, N, K, 0, sms, f32=True).tc
+              for what, K, N in PHI3_PRODUCTS}
+    log(f"  batch 4 on the f32 int8 model: four clips, prompts of "
+        f"{'/'.join(map(str, BATCH_TEXT_LENS))} tokens; K5 at {B} rows on the "
+        "f32 tensor-core route: " + ", ".join(f"{w} {t}" for w, t in routes.items()))
+    if routes != {w: B >= Q.k5_f32_tc_min_m(N, sms) for w, _, N in PHI3_PRODUCTS} \
+            or not routes["gate_up_proj"]:
+        raise AssertionError(f"f32 batch 4: K5's routes {routes}")
+    phase_batch(gi, cfg, "f32_int8", 600, TOL_BATCH_F32,
+                "f32 batch 4, int8 + int8 KV", max_flips=TOL_BATCH_F32_FLIPS)
     del gi
     torch.cuda.empty_cache()
 
@@ -6452,6 +6637,13 @@ def main() -> int:
             step_ms = measure_decode(gi.model, frames, context, ids, lens,
                                      "int8 + int8 KV")
             del results
+
+            phase("[serve] batch 4 on the main path's model: four clips "
+                  f"[4,{cfg.num_frames},{RAW_H},{RAW_W},3], prompts of "
+                  f"{'/'.join(map(str, BATCH_TEXT_LENS))} tokens, each row held "
+                  "to its clip alone")
+            phase_batch(gi, cfg, "int8", 500, TOL_BATCH_BF16,
+                        "batch 4, int8 + int8 KV")
 
             phase(f"[serve] speculative decoding on the main path's model, "
                 f"draft_k={DRAFT_K}, raw frames")

@@ -1556,17 +1556,24 @@ def test_k5_compiles_without_i2f(dev):
     """K5's int -> float steps are magic-number integer logic and FADDs (or
     bf16 subtractions): no I2F anywhere in its kernels, at every
     instantiation (int8 / int4 x one to three rows on the CUDA cores with
-    bf16 x, one to four with f32 x / the tensor-core route), and only the
-    tensor-core route issues mma (HMMA)."""
+    bf16 x, one to four with f32 x / the bf16 tensor-core route / the f32
+    tensor-core route at its five plane widths). The bf16 tensor-core route
+    issues mma.sync (HMMA), the f32 one warpgroup MMAs (HGMMA), the
+    CUDA-core route neither."""
     from videoglamm_torch.ops import _cuda
     k5 = _sass_functions(_cuda.load("dequant_gemv").path)
     rows = {n: s for n, s in k5.items() if "gemv_rows_kernel" in n}
     mma = {n: s for n, s in k5.items() if "gemv_mma_kernel" in n}
-    assert len(rows) == 14 and len(mma) == 2
+    tc = {n: s for n, s in k5.items() if "gemv_f32_tc_kernel" in n}
+    assert len(rows) == 14 and len(mma) == 2 and len(tc) == 10
+    for n, s in k5.items():
+        assert "I2F" not in s, n
     for n, s in rows.items():
-        assert "I2F" not in s and "HMMA" not in s, n
+        assert "HMMA" not in s and "HGMMA" not in s, n
     for n, s in mma.items():
-        assert "I2F" not in s and "HMMA" in s, n
+        assert "HMMA" in s, n
+    for n, s in tc.items():
+        assert "HGMMA" in s, n
 
 
 # ---------------------------------------------------------------------------
@@ -2207,22 +2214,29 @@ def test_k4_f32_route_matches_plain(dev, B, Hq, Hkv, C, hd, L, layer, kv):
             assert not got[b].abs().max().item()
 
 
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 64, 255])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 13, 64, 65, 255])
 @pytest.mark.parametrize("K,N", K5_SHAPES)
 @pytest.mark.parametrize("int4", [False, True])
 def test_k5_f32_route_matches_plain(dev, M, K, N, int4):
     """f32 x through the dispatchers below the W8A8 gate (int4: up to its
-    matvec gate, 64): one launch counted as "gemv_int8:f32" or
-    "gemv_int4:f32", f32 y, equal bits on a repeat."""
+    matvec gate, 64): one launch a call counted as "gemv_int8:f32" or
+    "gemv_int4:f32", on the tensor cores from the crossover (x split
+    into three bf16 planes, 65 and 255 rows in passes of 64), f32 y, equal
+    bits on a repeat."""
     if int4 and M > quant.MATVEC4_MAX_M:
         pytest.skip("int4 above its matvec gate dequantises for a matmul")
     rng = np.random.default_rng(52)
     x, w = _k5_operands(rng, dev, M, K, N, int4)
     x = x.float()
     kind = "gemv_int4:f32" if int4 else "gemv_int8:f32"
+    plan = quant.k5_plan(M, N, K, 128 if int4 else 0, _sms(dev), f32=True)
+    assert plan.tc == (M >= quant.k5_f32_tc_min_m(N, _sms(dev)))
+    assert plan.mt == (min(M, quant.K5_TC_MT) if plan.tc else min(M, quant.K5_F32_MT))
+    assert plan.m_tiles == -(-M // plan.mt)
     before = dict(quant.LAUNCHES)
     got = (quant.dequant4_matmul(x, *w, 128) if int4
            else quant.dequant_matmul(x, *w))
+    assert quant.LAUNCHES[kind] == before.get(kind, 0) + 1
     again = _k5(x, w, int4)
     assert quant.LAUNCHES[kind] == before.get(kind, 0) + 2
     assert quant.LAUNCHES["int8"] == before.get("int8", 0)
@@ -2232,6 +2246,89 @@ def test_k5_f32_route_matches_plain(dev, M, K, N, int4):
     assert got.dtype == torch.float32 and torch.equal(got, again)
     _close_l2(got, ref, TOL_F32_SERVE, f"K5 f32 {'int4' if int4 else 'int8'} "
               f"M={M} K={K} N={N}")
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("M", [2, 3, 4, 5])
+@pytest.mark.parametrize("int4", [False, True])
+def test_k5_f32_both_routes_match_plain_at_the_crossover(dev, M, int4):
+    """Either f32 route, forced through its plan, at the row counts where
+    the crossover is chosen (chip_smoke.py times both there)."""
+    rng = np.random.default_rng(56)
+    K, N = 3072, 9216
+    x, w = _k5_operands(rng, dev, M, K, N, int4)
+    x = x.float()
+    kind, group = ("int4", 128) if int4 else ("int8", 0)
+    ref = _k5_plain(x, w, int4)
+    for tc in (False, True):
+        plan = quant.k5_plan(M, N, K, group, _sms(dev), f32=True, tc=tc)
+        assert plan.tc == tc
+        got = quant._launch_gemv(kind, x, w[0], w[1], N, group, plan)
+        torch.cuda.synchronize()
+        _close_l2(got, ref, TOL_F32_SERVE, f"K5 f32 {kind} M={M} tc={tc}")
+
+
+@pytest.mark.parametrize("int4", [False, True])
+def test_k5_f32_captures_into_a_cuda_graph(dev, int4):
+    """The f32 tensor-core route (4 rows of 9216 channels) and the one-row
+    route captured in one graph and replayed on new x."""
+    rng = np.random.default_rng(57)
+    x, w = _k5_operands(rng, dev, 4, 3072, 9216, int4)
+    assert quant.k5_plan(4, 9216, 3072, 128 if int4 else 0, _sms(dev), f32=True).tc
+    x = x.float()
+    x1 = x[:1].clone()
+    want, want1 = _k5(x, w, int4), _k5(x[-1:].clone(), w, int4)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, y1 = _k5(x, w, int4), _k5(x1, w, int4)
+    x.copy_(x.flip(0))
+    x1.copy_(x[:1])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, want.flip(0)) and torch.equal(y1, want1)
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("M,N", [(4, 9216), (64, 9216), (8, 3072)])
+def test_k5_f32_entry_refuses_a_plan_its_kernel_does_not_fit(dev, int4, M, N):
+    """The f32 entry holds the tensor-core plan's regions (the planes, x's
+    f32 slice and the weight rows of a slot, the ring, the scales, the
+    warpgroups' k-split sums) and its choices against the kernel's own
+    constants: a plan changed on one side raises and launches nothing."""
+    import dataclasses
+    rng = np.random.default_rng(58)
+    K = 3072
+    x, w = _k5_operands(rng, dev, M, K, N, int4)
+    x = x.float()
+    kind, group = ("int4", 128) if int4 else ("int8", 0)
+    plan = quant.k5_plan(M, N, K, group, _sms(dev), f32=True)
+    assert plan.tc and plan.ksplit == (N == 3072)
+    got = quant._launch_gemv(kind, x, w[0], w[1], N, group, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _k5(x, w, int4))
+    bad = [dict(slot=plan.slot - 1024),                      # a slot's regions
+           dict(xw=8 if plan.xw != 8 else 16),               # the planes' width
+           dict(x_off=plan.x_off - 16),                      # x's f32 slice
+           dict(rstride=plan.rstride + 16),                  # the bank rule
+           dict(ksplit=1 - plan.ksplit),                     # rows a stage
+           dict(s_off=plan.s_off - plan.slot),               # the ring
+           dict(smem=plan.smem - 1024),                      # the k-split sums, slack
+           dict(stages=9)]
+    if int4:
+        bad.append(dict(red_off=plan.s_off + 16))            # the CTA's scales
+    if plan.ksplit:
+        bad.append(dict(stages=plan.stages - 1))             # an odd ring
+    name = f"gemv_{kind}:f32"
+    before = quant.LAUNCHES[name]
+    for change in bad:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            quant._launch_gemv(kind, x, w[0], w[1], N, group,
+                               dataclasses.replace(plan, **change))
+    assert quant.LAUNCHES[name] == before
 
 
 @pytest.mark.parametrize("B,H,S,D", [(4, 1, 1024, 256),   # memory self-attention

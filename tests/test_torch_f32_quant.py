@@ -17,9 +17,11 @@ phase). Here:
   as the card's dispatcher sends it; the unhoisted Hiera, marked f32,
   against the JAX module's XLA small-window path, with every small window
   through `attention_packed_qkv_smallwin` with exact=True;
-- K4's f32 walk and K5's f32 sums, emulated in f32 from the plans, against
-  the JAX XLA references at 2e-6 of the output scale (the same f32
-  products summed in another order; a bf16 rounding anywhere gives 1e-3);
+- K4's f32 walk and K5's f32 sums (the CUDA-core route's, and the
+  tensor-core route's over x's three bf16 planes), emulated in f32 from the
+  plans, against the JAX XLA references at 2e-6 of the output scale (the
+  same f32 products summed in another order; a bf16 rounding anywhere gives
+  1e-3), and K5's f32 plans;
 - the plain twins compute in f32: none rounds to bf16;
 - the route rule: an f32 model names the "simt_f32" routes of K7 and K8,
   a bf16 model keeps its own.
@@ -35,7 +37,7 @@ import torch
 
 from test_torch_k4_plan import ATTN_CASES, _case, _emulate, _flat
 from test_torch_k5_plan import SHAPES as K5_SHAPES
-from test_torch_k5_plan import _k5_int4_order, _k5_int8_order
+from test_torch_k5_plan import _k5_f32_tc_order, _k5_int4_order, _k5_int8_order
 from test_torch_models import seeded_params
 from test_torch_slice_quant import CFG as SLICE_CFG
 from test_torch_slice_quant import check_slice_against_jax, float_params  # noqa: F401
@@ -223,47 +225,87 @@ def test_k4_f32_walk_matches_the_xla_reference(name):
 
 @pytest.mark.parametrize("N,K", K5_SHAPES)
 def test_k5_f32_sums_match_jax(N, K):
-    """K5's f32 route is its CUDA-core route with f32 x: the int8 and int4
-    summation orders in f32 against `_dequant_matmul_ref` and the int4
-    dequantise-then-dot, at the five Phi-3 decode products (64 of their
-    rows) and the odd case."""
-    N = min(N, 64)
+    """K5's f32 routes in their summation orders against
+    `_dequant_matmul_ref` and the int4 dequantise-then-dot, at the five
+    Phi-3 decode products (64 of their rows, in the order of the plan of
+    all N) and the odd case: one row on the CUDA cores (its int8 and int4
+    orders with f32 x); 4, 13 and 64 rows on the tensor cores (x's three
+    bf16 planes, a fresh sum a stage, int4 stages scaled once, the k split
+    of small-N plans)."""
+    n = min(N, 64)
     rng = np.random.default_rng(K + N)
-    x = rng.standard_normal((4, K)).astype(np.float32)
-    w = (rng.standard_normal((N, K)) * K ** -0.5).astype(np.float32)
+    x4 = rng.standard_normal((4, K)).astype(np.float32)
+    w = (rng.standard_normal((n, K)) * K ** -0.5).astype(np.float32)
     qj, sj = jq.quantize_int8(jnp.asarray(w.T))
-    ref8 = np.asarray(jq._dequant_matmul_ref(jnp.asarray(x), qj, sj))
-    q, s = tq.quantize_int8(torch.from_numpy(w))
-    got8 = _k5_int8_order(torch.from_numpy(x), q, s, mma=False).numpy()
     pj, s4j = jq.quantize_int4(jnp.asarray(w.T), 128)
-    ref4 = np.asarray(jnp.dot(jnp.asarray(x),
-                              jq._dequant4_weights(pj, s4j, 128, jnp.float32)))
+    q, s = tq.quantize_int8(torch.from_numpy(w))
     p, s4 = tq.quantize_int4(torch.from_numpy(w), 128)
-    got4 = _k5_int4_order(torch.from_numpy(x), p, s4, 128).numpy()
-    for what, got, ref in (("int8", got8, ref8), ("int4", got4, ref4)):
-        scale = max(1.0, np.abs(ref).max())
-        assert np.abs(got - ref).max() <= TOL_ORDER * scale, what
-        assert _rel_l2(got, ref) <= TOL_ORDER, what
+    w4j = jq._dequant4_weights(pj, s4j, 128, jnp.float32)
+    for M in (1, 4, 13, 64):
+        x = x4[:M] if M <= 4 else rng.standard_normal((M, K)).astype(np.float32)
+        ref8 = np.asarray(jq._dequant_matmul_ref(jnp.asarray(x), qj, sj))
+        ref4 = np.asarray(jnp.dot(jnp.asarray(x), w4j))
+        xt = torch.from_numpy(x)
+        p8, p4 = (tq.k5_plan(M, N, K, g, SMS, f32=True) for g in (0, 128))
+        assert p8.tc == p4.tc == (M >= tq.k5_f32_tc_min_m(N, SMS))
+        orders = []
+        if p8.tc:
+            orders.append((_k5_f32_tc_order(xt, q, s, 0, p8).numpy(),
+                           _k5_f32_tc_order(xt, p, s4, 128, p4).numpy()))
+        if M <= 4:          # the CUDA-core route's order (asked for at 4 rows)
+            orders.append((_k5_int8_order(xt, q, s, mma=False).numpy(),
+                           _k5_int4_order(xt, p, s4, 128).numpy()))
+        for got8, got4 in orders:
+            for what, got, ref in (("int8", got8, ref8), ("int4", got4, ref4)):
+                scale = max(1.0, np.abs(ref).max())
+                assert np.abs(got - ref).max() <= TOL_ORDER * scale, (what, M)
+                assert _rel_l2(got, ref) <= TOL_ORDER, (what, M)
 
 
 @pytest.mark.parametrize("N,K", K5_SHAPES)
 def test_k5_f32_plan_tiles_every_row_on_the_cuda_cores(N, K):
-    """With f32 x, `k5_plan` takes the CUDA-core route at every M below the
-    W8A8 gate: tiles of up to 4 rows on grid.y covering M, x of a tile and
-    the units' sums within the shared memory of `per_sm` CTAs an SM; at 1
-    to 3 rows the plan is the bf16 one."""
+    """With f32 x below the crossover (`k5_f32_tc_min_m`), and wherever the CUDA-core
+    route is asked for (the card's crossover timings), `k5_plan` tiles
+    every row on the CUDA cores: tiles of up to 4 rows on grid.y covering
+    M, x of a tile and the units' sums within the shared memory of
+    `per_sm` CTAs an SM; at 1 to 3 rows the plan is the bf16 one."""
     for group in (0, 128):
         for M in list(range(1, 10)) + [63, 64, 65, 255]:
-            p = tq.k5_plan(M, N, K, group, SMS, f32=True)
-            assert not p.mma and p.mt == min(M, tq.K5_F32_MT)
+            p = tq.k5_plan(M, N, K, group, SMS, f32=True,
+                           tc=None if M < tq.k5_f32_tc_min_m(N, SMS) else False)
+            assert not p.mma and not p.tc and p.mt == min(M, tq.K5_F32_MT)
             assert p.m_tiles * p.mt >= M > (p.m_tiles - 1) * p.mt
             assert p.per_sm == (2 if M == 1 else 1)
             assert p.smem <= tq.K5_SMEM_SM // p.per_sm - tq.K5_SMEM_CTA
             assert p.s_off >= p.mt * p.xstride
             f = p.fields()
-            assert f[1] == p.mt and f[2] == p.m_tiles and len(f) == 20
+            assert f[1] == p.mt and f[2] == p.m_tiles and len(f) == 23
             if M <= tq.K5_ROWS_MAX_M:
                 assert p == tq.k5_plan(M, N, K, group, SMS)
+
+
+@pytest.mark.parametrize("N,K", K5_SHAPES)
+def test_k5_f32_plan_takes_the_tensor_cores_from_the_crossover(N, K):
+    """With f32 x from the crossover (`k5_f32_tc_min_m`: 5 rows where an SM
+    would hold at most 64 channels, 2 where more than 96, 4 between: qkv,
+    o_proj and down_proj, gate_up and lm_head), `k5_plan` takes the tensor-core
+    route below the W8A8 gate (int4: to its matvec gate): one
+    pass over the weights for up to 64 rows, ceil(M / 64) above, the planes'
+    width the rows rounded up to 8 (64 above 32), within shared memory."""
+    for group in (0, 128):
+        for M in list(range(1, 10)) + [13, 32, 33, 63, 64, 65, 128, 255]:
+            if group and M > tq.MATVEC4_MAX_M:
+                continue
+            p = tq.k5_plan(M, N, K, group, SMS, f32=True)
+            assert p.tc == (M >= tq.k5_f32_tc_min_m(N, SMS))
+            rows = -(-N // SMS)
+            assert tq.k5_f32_tc_min_m(N, SMS) == (5 if rows <= 64 else 2 if rows > 96 else 4)
+            if not p.tc:
+                continue
+            assert not p.mma and p.m_tiles == -(-M // 64) and p.mt == min(M, 64)
+            assert p.xw == (-(-p.mt // 8) * 8 if p.mt <= 32 else 64)
+            assert p.smem <= tq.K5_SMEM and p.per_sm == 1
+            assert p == tq.k5_plan(M, N, K, group, SMS, f32=True, tc=True)
 
 
 # ---------------------------------------------------------------------------

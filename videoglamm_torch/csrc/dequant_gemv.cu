@@ -67,28 +67,81 @@
 //   `fast_div` multiplies by ceil(2^32 / d) from the plan.
 //
 // f32 activations (an f32 model's decode, the `_f32` entries): x and y are
-// f32, and nothing is rounded to bf16, as the Pallas bodies compute in f32
-// (quant.py:43, :151-155). The tensor-core route would round x to bf16, so
-// f32 runs on the CUDA cores at every M: `gemv_rows_kernel` with x staged
-// from f32 and y stored in f32, its conversions and its int4 order (each
-// 32-k slice scaled once) unchanged, one pass over the weights for every
-// tile of up to F32_MT rows of x (tiles on grid.y). The Pallas kernels take
-// 8-row tiles of x against blocks of weight columns; here a tile is 4 rows
-// (x in f32 for 4 rows of K = 8192 is 128 KB of shared memory), so M = 64
-// reads the weights 16 times.
+// f32, and nothing is rounded, as the Pallas bodies compute in f32
+// (quant.py:43, :151-155). One row of x (and fewer than the crossover,
+// F32_TC_MIN_M and its variants by the output channels an SM holds) runs on
+// the CUDA cores: `gemv_rows_kernel` with x staged from f32 and y stored
+// in f32, its conversions and its int4 order (each 32-k slice scaled once)
+// unchanged (tiles of up to F32_MT rows on grid.y, which read the weights
+// once a tile: the first f32 design took every M so, 16 passes at M = 64).
+// From the crossover, `gemv_f32_tc_kernel` runs on the tensor cores with
+// one pass over the weights for every TC_MT = 64 rows of x:
+// - Exact operands. Every int8 code and int4 nibble is exact in bf16, and
+//   each f32 x splits exactly into three bf16 planes, hi = bf16(x), mid =
+//   bf16(x - hi), lo = bf16(x - hi - mid): 3 x 8 significant bits hold f32's
+//   24, so hi + mid + lo == x for every |x| >= 2^-110 (below that lo falls
+//   among bf16's subnormals: such an x adds less than 1e-33 to a sum). A
+//   plane times a code is exact in the f32 accumulator; only the f32 sums
+//   round. Three bf16 products run at twice the rate of 3xTF32's three.
+// - Swap-AB on wgmma: the weights are A (64 output channels of a warpgroup x
+//   16 k, converted into registers as the bf16 route's mma.sync fragments),
+//   the planes are B, K-major in shared memory with the 128-byte swizzle,
+//   each plane W = 8 ceil(rows / 8) rows wide (W = 64 above 32 rows). Up to
+//   W = TC_PN_MAX_W the three planes stand side by side along N (one
+//   m64n(3W)k16 a k16 step, the planes' sums added in registers); above it
+//   they take three m64n64k16 into one accumulator (a third of the
+//   registers). The k order inside a 16-byte weight chunk is what the
+//   conversions give; the planes are written in the same order.
+// - One producer lane streams the CTA's weight rows (128 a stage, two
+//   consumer warpgroups of 64) by TMA boxes of 64, 32, 16 and 8 rows (four
+//   tensor maps a weight, encoded once and kept; the rows' slice of a stage
+//   in 128-byte halves, swizzled), and x's k-slice in f32 by one box a
+//   stage, into a ring of stages; the first weight stages go out before the
+//   wait for the grid before. Three splitter warps turn each x slice into
+//   its planes once; both warpgroups read them. A stage is 256 k up to W =
+//   16, 128 up to W = 32 and 64 at W = 64 (the planes' shared memory).
+//   Where the card's SMs would hold at most 64 rows each (o_proj and
+//   down_proj of Phi-3), the grid is as few CTAs of up to 64 rows, whose two
+//   warpgroups take alternate stages, added in order at the end: a
+//   warpgroup's products take 64 rows whatever the CTA holds.
+// - Each 128-k block of a stage (64 at W = 64) goes into a fresh
+//   accumulator that is added to the running sum in f32 registers: the
+//   tensor core's f32 accumulation drifts one way along a chain
+//   (csrc/attention_f32.cu). int4: a block lies inside one scale group, and
+//   its sum is multiplied by the group's scale once; int8: the per-channel
+//   scale in the epilogue. No atomics.
+// - What sets the pace (a clock64() probe on the card, not kept): first
+//   the producer lane's TMA issues (8-row boxes: 32 a stage), then the
+//   consumers converting A and issuing wgmma with small N, whose A from
+//   registers costs tens of cycles a product. The crossovers are each
+//   product's two routes timed at 2 to 5 rows (PERF.md): the tensor cores
+//   win from 2 rows where an SM holds more than 96 channels (gate_up,
+//   lm_head), from 4 where it holds 65 to 96 (qkv: the CUDA cores still
+//   lead at 3), from 5 where it holds at most 64 (o_proj, down_proj: the
+//   CUDA-core route takes a second tile of x there).
 //
 // Measured on the card and not kept: the ring of bulk copies feeding the
 // one-row route too, each warp on two rows of a stage (its consumers were
 // bound by shared-memory traffic and latency, and lost to direct loads with
 // more warps); x read unpermuted (4- to 32-way bank conflicts); rows
 // assigned to CTAs strided instead of contiguous (no difference); a CTA's
-// first rows bulk-copied to shared memory before the wait (slower).
+// first rows bulk-copied to shared memory before the wait (slower). For the
+// f32 tensor-core route (experiments/k5_f32_variants.py, PERF.md): one 1-D
+// bulk copy a weight row a stage (the copies' issue set the pace, 4x
+// slower), 8-row TMA boxes only, the three planes as three products along
+// K at every width, 64- or 128-k stages at W = 8, four interleaved
+// accumulator chains a stage, the two warpgroups issuing in turn, and a
+// software pipeline in the consumers (a stage's second half, and the next
+// stage's first, converted while the products before them run: 3-5% slower,
+// and 20% slower where ptxas serialised the wgmma around its branches).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
+#include <unordered_map>
 
 namespace {
 
@@ -96,8 +149,42 @@ namespace {
 #include "mma_common.cuh"
 
 constexpr int GROUP_ROWS = 16;         // rows of a stage
-constexpr int F32_MT = 4;              // rows of x a pass takes with f32 x
+constexpr int F32_MT = 4;              // rows of x a pass takes with f32 x (CUDA cores)
 constexpr int CONS_BAR = 1;            // named barrier of the consumer warps
+// f32 x on the tensor cores from F32_TC_MIN_M rows where the card's SMs
+// would hold more than 64 weight rows each, from F32_TC_MIN_M_MANY_ROWS
+// where more than F32_TC_MANY_ROWS, from F32_TC_MIN_M_FEW_ROWS where at
+// most 64 (a warpgroup's products take 64 rows whatever the CTA holds,
+// while the CUDA-core route's work grows with the rows an SM holds); the
+// crossovers measured on the card (PERF.md), read by `k5_plan`
+constexpr int F32_TC_MIN_M = 4;
+constexpr int F32_TC_MIN_M_MANY_ROWS = 2;
+constexpr int F32_TC_MANY_ROWS = 96;
+constexpr int F32_TC_MIN_M_FEW_ROWS = 5;
+static_assert(2 <= F32_TC_MIN_M_MANY_ROWS && F32_TC_MIN_M_MANY_ROWS <= F32_TC_MIN_M &&
+              F32_TC_MIN_M <= F32_TC_MIN_M_FEW_ROWS && F32_TC_MANY_ROWS > 64,
+              "the tensor-core route takes 2 rows or more");
+constexpr int TC_MT = 64;              // rows of x a pass on the tensor cores
+constexpr int TC_NARROW_MAX = 32;      // planes W = 8 ceil(rows / 8) wide up to
+                                       // this many rows, TC_MT wide above
+constexpr int TC_PN_MAX_W = 32;        // planes side by side along N up to this width
+// k a stage: 256 for planes up to TC_SMALL_MAX wide, 128 up to
+// TC_NARROW_MAX, 64 above (a stage's planes take shared memory as x's rows
+// do); a fresh accumulator sums at most TC_BK of them (int4: inside one
+// scale group)
+constexpr int TC_SMALL_MAX = 16;
+constexpr int TC_KS_SMALL = 256;
+constexpr int TC_KS_NARROW = 128;
+constexpr int TC_KS_WIDE = 64;
+constexpr int TC_BK = 128;
+
+__host__ __device__ constexpr int tc_ks(int W) {
+  return W <= TC_SMALL_MAX ? TC_KS_SMALL : W <= TC_NARROW_MAX ? TC_KS_NARROW : TC_KS_WIDE;
+}
+__host__ __device__ constexpr int tc_bk(int W) {   // k a fresh accumulator sums
+  return tc_ks(W) < TC_BK ? tc_ks(W) : TC_BK;
+}
+__host__ __device__ constexpr int ilog2(int v) { return v > 1 ? 1 + ilog2(v / 2) : 0; }
 
 // the plan's fields, in the order of `k5_plan(...).fields()`
 struct Plan {
@@ -107,8 +194,10 @@ struct Plan {
   int vpr, vpr_mul;                    // 512-byte units a row (CUDA cores)
   int gdiv, gdiv_mul;                  // 32-k slices a scale group (int4)
   int per_sm;                          // CTAs an SM (the kernels' launch bounds)
+  int xw, slot, ksplit;                // f32 tensor cores: plane width W, bytes
+                                       // a ring slot, k-slices split by warpgroup
 };
-constexpr int PLAN_FIELDS = 20;
+constexpr int PLAN_FIELDS = 23;
 
 // Stage x rows m0 .. m0+MT-1 (zeros past M) into shared memory, NT threads;
 // x is XT (bf16, or f32 on the CUDA-core route).
@@ -460,6 +549,325 @@ gemv_mma_kernel(const __nv_bfloat16* __restrict__ x, long long ldx,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 x on the tensor cores (M >= F32_TC_MIN_M): warpgroups 0 and 1 consume,
+// warp 8 streams the weights and x's k-slices, warps 9 to 11 split x into
+// its bf16 planes. A ring slot holds the planes [W rows hi | W mid | W lo] x
+// the stage's k (chunks of 64 k, 128-byte swizzle), then x's slice in f32
+// [mt][ks], then the weight rows `rstride` bytes apart.
+// ---------------------------------------------------------------------------
+// The weights' tensor maps: boxes of 8 << l rows (l = 0..3) x the stage's
+// row bytes (at most 128: a 256-byte slice in two halves), so that a
+// stage's rows, rounded up to 8, take at most four boxes a half (one TMA
+// issue costs the producer lane some 50 cycles)
+struct WeightMaps {
+  CUtensorMap m[4];
+};
+
+constexpr int TC_CONS = 256;           // two consumer warpgroups
+constexpr int TC_SPLIT = 96;           // splitter threads
+constexpr int TC_THREADS = TC_CONS + 32 + TC_SPLIT;
+constexpr int TC_RED_BAR = 1;          // named barriers of the consumers
+constexpr int TC_SCALE_BAR = 2;
+
+// the three bf16 planes of (a, b), each a pair with a in the low half
+// (mma_common.cuh's pack_bf16 rounds to nearest even): h + m + l == x
+// exactly for |x| >= 2^-110
+__device__ __forceinline__ void split3(float a, float b, uint32_t& h, uint32_t& m,
+                                       uint32_t& l) {
+  h = pack_bf16(a, b);
+  const float ra = a - bf16_lo(h), rb = b - bf16_hi(h);
+  m = pack_bf16(ra, rb);
+  l = pack_bf16(ra - bf16_lo(m), rb - bf16_hi(m));
+}
+
+template <bool INT4, int W>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+gemv_f32_tc_kernel(const __grid_constant__ WeightMaps tw,
+                   const __grid_constant__ CUtensorMap tx,
+                   const float* __restrict__ scale,
+                   float* __restrict__ out, long long ldo,
+                   int M, int N, int K, Plan p) {
+  constexpr bool PN = W <= TC_PN_MAX_W;            // planes side by side along N
+  constexpr int NACC = PN ? 3 * W / 2 : W / 2;     // accumulators a thread
+  constexpr int UK = INT4 ? 32 : 16;               // k of a 16-byte weight chunk
+  constexpr int Q = UK / 8;                        // 16-byte plane units a chunk
+  constexpr int KS = tc_ks(W);                     // k a stage
+  constexpr int STEPS = KS / 16;                   // k16 steps of a stage
+  constexpr int BK = tc_bk(W);                     // k a fresh accumulator sums
+  constexpr int NB = KS / BK;                      // blocks a stage
+  constexpr int BSTEPS = BK / 16;
+  constexpr int KSEG = INT4 ? KS / 2 : KS;         // weight bytes of a row a stage
+  constexpr int SPAN = KSEG < 128 ? KSEG : 128;    // bytes of a TMA box row (its swizzle)
+  constexpr int HALVES = KSEG / SPAN;
+  constexpr int PLANE_CHUNK = 3 * W * 128;         // the planes of 64 k
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // aligned to the swizzle's period by an offset from the __shared__ array,
+  // so that the pointers below stay known as shared
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int bx = blockIdx.x;
+  const int r0 = bx * p.base + min(bx, p.extra);
+  const int nrows = p.base + (bx < p.extra ? 1 : 0);
+  if (nrows == 0) return;                // the whole CTA leaves together
+  const int m0 = blockIdx.y * p.mt;
+  const int mrows = min(p.mt, M - m0);
+  constexpr int ks = KS;
+  const int R = p.ksplit ? 64 : 128;               // weight rows a stage
+  const int ngroups = p.ksplit ? 1 : (nrows + 127) >> 7;
+  const int total = ngroups * p.nseg;
+  const int S = p.stages;
+  const int w_off = p.x_off + ((p.mt * ks * 4 + 1023) & ~1023);   // the weights in a slot
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(smem);   // x's slice landed
+  uint64_t* full = xfull + S;            // weights landed and planes written
+  uint64_t* empty = full + S;            // the consumers are done with a slot
+  unsigned char* ring = smem + p.ring_off;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&xfull[s], 1);
+      mbar_init(&full[s], 1 + TC_SPLIT);
+      mbar_init(&empty[s], p.ksplit ? 128 : 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  allow_next_grid();
+
+  if (warp == TC_CONS / 32) {
+    // ---------------- producer (one lane): stage i = grp * nseg + seg in
+    // slot i % S; the stage's rows, rounded up to 8, in TMA boxes of 64, 32,
+    // 16 and 8 rows x SPAN bytes (swizzled over SPAN, whole swizzle periods;
+    // zeros past K and N), x's slice in one box of mt rows x ks f32 (zeros
+    // past M and K)
+    if (lane != 0) return;
+    auto load_w = [&](int slot, int grp, int seg) {
+      const int n8 = (min(R, nrows - grp * R) + 7) >> 3;   // 8-row units
+      mbar_expect_tx(&full[slot], (uint32_t)(n8 * 8 * KSEG));
+      unsigned char* dst = ring + (long long)slot * p.slot + w_off;
+      for (int h = 0; h < HALVES; ++h)
+        for (int l = 3, u = 0; l >= 0; --l)
+          for (; n8 - u >= (1 << l); u += 1 << l)
+            tma_load_2d(dst + (h * R + 8 * u) * SPAN, &tw.m[l], &full[slot],
+                        seg * KSEG + h * SPAN, r0 + grp * R + 8 * u);
+    };
+    // the first lap's weights go out before the wait for the grid before
+    for (int i = 0, grp = 0, seg = 0; i < min(S, total); ++i) {
+      load_w(i, grp, seg);
+      if (++seg == p.nseg) seg = 0, ++grp;
+    }
+    wait_prior_grid();
+    for (int i = 0, slot = 0, lap = 0, grp = 0, seg = 0; i < total; ++i) {
+      if (lap > 0) {
+        mbar_wait(&empty[slot], (lap - 1) & 1);
+        load_w(slot, grp, seg);
+      }
+      mbar_expect_tx(&xfull[slot], (uint32_t)(p.mt * ks * 4));
+      tma_load_2d(ring + (long long)slot * p.slot + p.x_off, &tx, &xfull[slot],
+                  seg * ks, m0);
+      if (++slot == S) slot = 0, ++lap;
+      if (++seg == p.nseg) seg = 0, ++grp;
+    }
+    return;
+  }
+
+  if (warp > TC_CONS / 32) {
+    // ---------------- splitters: x's slice -> three planes, a job being
+    // one row's UK k (Q units of 8 k a plane, in the k order of a weight
+    // chunk's conversion: unit q holds k = Q j + q, j = 0..7)
+    const int st = tid - TC_CONS - 32;
+    constexpr int gshift = ilog2(KS / UK);           // chunks a stage, a power of two
+    static_assert(KS / UK == 1 << gshift, "chunks a stage");
+    for (int i = 0, slot = 0, lap = 0, seg = 0; i < total; ++i) {
+      mbar_wait(&xfull[slot], lap & 1);
+      const unsigned char* xs = ring + (long long)slot * p.slot + p.x_off;
+      unsigned char* pl = ring + (long long)slot * p.slot;
+      // past K (the last stage's tail) TMA filled zeros: zero planes, so
+      // that every stage issues the same products
+      for (int job = st; job < (mrows << gshift); job += TC_SPLIT) {
+        const int m = job >> gshift, G = job & ((1 << gshift) - 1);
+        float f[UK];
+#pragma unroll
+        for (int c = 0; c < UK / 4; ++c)
+          *reinterpret_cast<float4*>(f + 4 * c) =
+              *reinterpret_cast<const float4*>(xs + (m * ks + G * UK + 4 * c) * 4);
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          uint4 h, md, l;
+          split3(f[q], f[Q + q], h.x, md.x, l.x);
+          split3(f[2 * Q + q], f[3 * Q + q], h.y, md.y, l.y);
+          split3(f[4 * Q + q], f[5 * Q + q], h.z, md.z, l.z);
+          split3(f[6 * Q + q], f[7 * Q + q], h.w, md.w, l.w);
+          const int u = Q * G + q;                 // the unit within the stage
+          unsigned char* ck = pl + (u >> 3) * PLANE_CHUNK;
+          const int n0 = m, n1 = W + m, n2 = 2 * W + m;
+          *reinterpret_cast<uint4*>(ck + n0 * 128 + (((u & 7) ^ (n0 & 7)) << 4)) = h;
+          *reinterpret_cast<uint4*>(ck + n1 * 128 + (((u & 7) ^ (n1 & 7)) << 4)) = md;
+          *reinterpret_cast<uint4*>(ck + n2 * 128 + (((u & 7) ^ (n2 & 7)) << 4)) = l;
+        }
+      }
+      fence_proxy_async();                         // the planes -> wgmma
+      mbar_arrive(&full[slot]);
+      if (++slot == S) slot = 0, ++lap;
+      if (++seg == p.nseg) seg = 0;
+    }
+    return;
+  }
+
+  // ---------------- consumers: warpgroup wg, warp wl of it; lane (g, t)
+  // holds rows g and g + 8 of the warp's 16 and, of each 8 columns i,
+  // columns 8i + 2t, +1 (x rows, or plane-major in PN)
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int scols = INT4 ? fast_div(K / 32, p.gdiv, p.gdiv_mul) : 1;  // K / group
+  const float* ss = reinterpret_cast<const float*>(smem + p.s_off);
+  if (INT4) {                            // the CTA's group scales (weights: before the wait)
+    float* dst = reinterpret_cast<float*>(smem + p.s_off);
+    const float* src = scale + (long long)r0 * scols;
+    for (int i = tid; i < nrows * scols; i += TC_CONS) dst[i] = src[i];
+    named_bar_sync(TC_SCALE_BAR, TC_CONS);
+  }
+  wait_prior_grid();                     // out is written after it
+  const int rbase = p.ksplit ? 0 : 64 * wg;        // the warpgroup's rows in a stage
+  float tot[W / 2];
+#pragma unroll
+  for (int j = 0; j < W / 2; ++j) tot[j] = 0.f;
+
+  // y of the rows lrow0 + 16 wl + g (+ 8) from the running sums
+  auto store = [&](int lrow0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lrow = lrow0 + 16 * wl + g + 8 * h;
+      if (lrow >= nrows) continue;
+      const float sc = INT4 ? 1.f : __ldg(scale + r0 + lrow);
+#pragma unroll
+      for (int i = 0; i < W / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = 8 * i + 2 * t + e;
+          if (m < mrows)
+            out[(long long)(m0 + m) * ldo + r0 + lrow] =
+                INT4 ? tot[4 * i + 2 * h + e] : tot[4 * i + 2 * h + e] * sc;
+        }
+    }
+  };
+
+  // with ksplit a warpgroup takes the stages of its own parity; `stages` is
+  // then even, so that a slot serves one warpgroup, which waits on every
+  // phase of the full barriers it reads (skipping a phase, a wait for lap &
+  // 1 would match the phase before it and return before the stage landed)
+  for (int i = 0, slot = 0, lap = 0, grp = 0, seg = 0; i < total; ++i) {
+    if (!p.ksplit || (seg & 1) == wg) {
+      mbar_wait(&full[slot], lap & 1);
+      const int lrow0 = grp * R + rbase;           // the warpgroup's first row
+      if (lrow0 < nrows) {
+        const unsigned char* sl = ring + (long long)slot * p.slot;
+        // rows rr and rr + 8 in each SPAN-byte half of the stage's row
+        // bytes, their 16-byte units swizzled by TMA (unit c of a row at
+        // c ^ the row start's address bits 7 and up)
+        const int rr = rbase + 16 * wl + g;
+        const int sw = ((rr * SPAN) >> 7) & (SPAN / 16 - 1);
+        const unsigned char* wr = sl + w_off + rr * SPAN + 4 * t;
+        const int k0 = seg * ks;
+        // A: the weights of rows g, g + 8, converted to bf16 pairs (zeros
+        // past K)
+        uint32_t a[STEPS][4];
+#pragma unroll
+        for (int c = 0; c < KS / UK; ++c) {
+          constexpr int UH = SPAN / 16;            // units a half
+          const int u = (c / UH) * R * SPAN + (((c % UH) ^ sw) << 4);
+          const uint32_t qa = lds32(wr + u), qb = lds32(wr + 8 * SPAN + u);
+          if (!INT4) {
+            int8_to_bf16x2(qa, a[c][0], a[c][2]);
+            int8_to_bf16x2(qb, a[c][1], a[c][3]);
+          } else {
+            uint32_t pa[4], pb[4];
+            int4_to_bf16x2(qa, pa);
+            int4_to_bf16x2(qb, pb);
+            a[2 * c][0] = pa[0]; a[2 * c][1] = pb[0]; a[2 * c][2] = pa[1]; a[2 * c][3] = pb[1];
+            a[2 * c + 1][0] = pa[2]; a[2 * c + 1][1] = pb[2];
+            a[2 * c + 1][2] = pa[3]; a[2 * c + 1][3] = pb[3];
+          }
+        }
+        // the conversions (register-only) stay ahead of the fence
+#pragma unroll
+        for (int j = 0; j < STEPS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e]) :: "memory");
+        // each block of BSTEPS k16 steps into a fresh accumulator of its own
+        float acc[NB][NACC];
+#pragma unroll
+        for (int bl = 0; bl < NB; ++bl)
+#pragma unroll
+          for (int j = 0; j < NACC; ++j) acc[bl][j] = 0.f;
+#pragma unroll
+        for (int bl = 0; bl < NB; ++bl) fence_regs<NACC>(acc[bl]);
+        wgmma_fence();
+#pragma unroll
+        for (int st = 0; st < BSTEPS; ++st)
+#pragma unroll
+          for (int pl = 0; pl < (PN ? 1 : 3); ++pl)
+#pragma unroll
+            for (int bl = 0; bl < NB; ++bl) {
+              const int j = bl * BSTEPS + st;      // the k16 step
+              const unsigned char* b = sl + (j >> 2) * PLANE_CHUNK + 32 * (j & 3);
+              if constexpr (PN)
+                Wgmma<3 * W>::rs(acc[bl], a[j], desc_sw128(b, 0, 1024), st > 0);
+              else
+                Wgmma<W>::rs(acc[bl], a[j], desc_sw128(b + pl * W * 128, 0, 1024),
+                             st > 0 || pl > 0);
+            }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int bl = 0; bl < NB; ++bl) fence_regs<NACC>(acc[bl]);
+        // the blocks' sums into the running sums in order: the planes
+        // (lo + mid) + hi, times the block's group scale once (int4)
+#pragma unroll
+        for (int bl = 0; bl < NB; ++bl) {
+          float sg[2] = {1.f, 1.f};
+          if (INT4) {
+            const int gcol = fast_div((k0 + bl * BK) / 32, p.gdiv, p.gdiv_mul);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int lrow = lrow0 + 16 * wl + g + 8 * h;
+              sg[h] = lrow < nrows ? ss[lrow * scols + gcol] : 0.f;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < W / 2; ++j) {
+            const float* v3 = acc[bl];
+            const float v = PN ? (v3[j + W] + v3[j + W / 2]) + v3[j] : v3[j];
+            tot[j] = INT4 ? fmaf(v, sg[(j >> 1) & 1], tot[j]) : tot[j] + v;
+          }
+        }
+      }
+      mbar_arrive(&empty[slot]);
+    }
+    if (!p.ksplit && seg == p.nseg - 1) {  // a row group is complete
+      store(grp * R + rbase);
+#pragma unroll
+      for (int j = 0; j < W / 2; ++j) tot[j] = 0.f;
+    }
+    if (++slot == S) slot = 0, ++lap;
+    if (++seg == p.nseg) seg = 0, ++grp;
+  }
+  if (p.ksplit) {                        // warpgroup 0's k-slices + warpgroup 1's
+    float* red = reinterpret_cast<float*>(smem + p.red_off) + (tid & 127) * (W / 2);
+    if (wg == 1) {
+#pragma unroll
+      for (int j = 0; j < W / 2; ++j) red[j] = tot[j];
+    }
+    named_bar_sync(TC_RED_BAR, TC_CONS);
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < W / 2; ++j) tot[j] += red[j];
+      store(0);
+    }
+  }
+}
+
 constexpr int kMaxSmem = 232448;       // dynamic shared memory a block can use
 constexpr int kSmemSM = 233472;        // shared memory of an SM
 constexpr int kSmemCTA = 1024;         // of which the system reserves a CTA
@@ -489,7 +897,102 @@ int launch_k(Kernel kernel, int threads, const void* x, long long ldx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// F32: x and out f32, the CUDA-core route in tiles of up to F32_MT rows
+// The weights as 2-D u8 tensor maps, [N rows, rowbytes], boxes of 8, 16, 32
+// and 64 rows x `kseg` bytes (32, 64 or 128) with the swizzle of that span
+// (each box whole swizzle periods). Encoded once per (base, geometry) and
+// kept: a model's weights are read at every decode step.
+bool weight_maps(WeightMaps* out, const void* base, int N, int rowbytes, int kseg) {
+  struct Key {
+    const void* base;
+    int N, rowbytes, kseg;
+    bool operator==(const Key& o) const {
+      return base == o.base && N == o.N && rowbytes == o.rowbytes && kseg == o.kseg;
+    }
+  };
+  struct Hash {
+    size_t operator()(const Key& k) const {
+      return std::hash<const void*>()(k.base) ^ (static_cast<size_t>(k.N) << 21) ^
+             (static_cast<size_t>(k.rowbytes) << 42) ^ static_cast<size_t>(k.kseg);
+    }
+  };
+  static std::mutex mu;
+  static std::unordered_map<Key, WeightMaps, Hash> maps;
+  const Key key{base, N, rowbytes, kseg};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = maps.find(key);
+  if (it != maps.end()) {
+    *out = it->second;
+    return true;
+  }
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(rowbytes), static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(rowbytes)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUtensorMapSwizzle sw = kseg == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : kseg == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                             : CU_TENSOR_MAP_SWIZZLE_32B;
+  for (int l = 0; l < 4; ++l) {
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(kseg), 8u << l};
+    if (fn(&out->m[l], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+           strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+  }
+  if (maps.size() >= 4096) maps.clear();
+  maps.emplace(key, *out);
+  return true;
+}
+
+template <bool INT4>
+int launch_tc(const void* x, long long ldx, const void* w, const void* scale,
+              void* out, long long ldo, int M, int N, int K, const Plan& p,
+              cudaStream_t st) {
+  cudaError_t e = use_device_of(x);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int ks = INT4 ? 2 * p.kseg : p.kseg;
+  // x as a 2-D f32 map, [M rows ldx apart, K], one box of mt rows x ks a stage
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldx) * 4};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(ks), static_cast<cuuint32_t>(p.mt)};
+  WeightMaps tw;
+  CUtensorMap tx;
+  if (!weight_maps(&tw, w, N, INT4 ? K / 2 : K, p.rstride) ||
+      !encode_map(&tx, x, 2, dims, strides, box, false, CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = gemv_f32_tc_kernel<INT4, TC_MT>;
+  switch (p.xw) {
+    case 8: kernel = gemv_f32_tc_kernel<INT4, 8>; break;
+    case 16: kernel = gemv_f32_tc_kernel<INT4, 16>; break;
+    case 24: kernel = gemv_f32_tc_kernel<INT4, 24>; break;
+    case 32: kernel = gemv_f32_tc_kernel<INT4, 32>; break;
+    default: break;
+  }
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.ctas, p.m_tiles);
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, tw, tx, static_cast<const float*>(scale),
+                         static_cast<float*>(out), ldo, M, N, K, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the planes' width W for `mt` rows of x on the f32 tensor-core route
+__host__ __device__ constexpr int tc_width(int mt) {
+  return mt > TC_NARROW_MAX ? TC_MT : (mt + 7) / 8 * 8;
+}
+
+// F32: x and out f32; the plan's `xw` names the tensor-core route (else the
+// CUDA-core route in tiles of up to F32_MT rows)
 template <bool INT4, bool F32>
 int launch(const void* x, long long ldx, const void* w, const void* scale,
            void* out, long long ldo, int M, int N, int K, int group,
@@ -500,8 +1003,9 @@ int launch(const void* x, long long ldx, const void* w, const void* scale,
   int* dst = reinterpret_cast<int*>(&p);
   for (int i = 0; i < PLAN_FIELDS; ++i) dst[i] = fields[i];
   const int rowbytes = INT4 ? K / 2 : K;
+  const bool tc = F32 && p.xw != 0;
   const bool mma = !F32 && M > 3;
-  const int mt = mma ? 8 : F32 ? (M < F32_MT ? M : F32_MT) : M;
+  const int mt = tc ? (M < TC_MT ? M : TC_MT) : mma ? 8 : F32 ? (M < F32_MT ? M : F32_MT) : M;
   // the plan's invariants that the kernels rely on, each region of shared
   // memory against the constants of the kernel that uses it
   bool bad = K <= 0 || K % (INT4 ? 32 : 16) || (INT4 && (group <= 0 || group % 32 || K % group))
@@ -514,7 +1018,26 @@ int launch(const void* x, long long ldx, const void* w, const void* scale,
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   const long long max_rows = p.base + (p.extra ? 1 : 0);
   const long long scols = INT4 ? K / group : 1;
-  if (!mma) {
+  if (!tc && (p.xw || p.slot || p.ksplit)) return static_cast<int>(cudaErrorInvalidValue);
+  if (tc) {
+    // [planes | x's f32 slice | weight rows, TMA-swizzled] a slot, each
+    // 1024-aligned, the barriers below the ring, then the CTA's group scales
+    // (int4) and the warpgroups' k-split sums
+    const int W = tc_width(mt), KS = tc_ks(W), BK = tc_bk(W);
+    const int R = p.ksplit ? 64 : 128;
+    bad = M < 2 || ldx % 4 || p.xw != W || p.kseg != (INT4 ? KS / 2 : KS)
+        || (INT4 && group % BK) || p.nseg != (rowbytes + p.kseg - 1) / p.kseg
+        || p.stages < 2 || p.stages > 8
+        || p.rstride != (p.kseg < 128 ? p.kseg : 128)     // a TMA box row (its swizzle span)
+        || p.xstride != 6 * W * KS || p.x_off != p.xstride || p.x_off % 1024
+        || p.slot % 1024
+        || p.slot < p.x_off + (4LL * mt * KS + 1023) / 1024 * 1024 + (long long)R * p.kseg
+        || p.ring_off % 1024 || p.ring_off < 24 * p.stages
+        || p.s_off < p.ring_off + (long long)p.stages * p.slot
+        || p.red_off % 16 || p.red_off < p.s_off + (INT4 ? max_rows * scols * 4 : 0)
+        || p.ksplit != (max_rows <= 64 ? 1 : 0) || (p.ksplit && p.stages % 2)
+        || p.smem < p.red_off + (p.ksplit ? 128LL * W / 2 * 4 : 0) + 1024;
+  } else if (!mma) {
     // x in f32, blocks of 32 chunks of KPC k each; then a sum a unit
     const int block = 32 * (INT4 ? 32 : 16);
     const long long units = (long long)p.vpr * max_rows;
@@ -534,6 +1057,7 @@ int launch(const void* x, long long ldx, const void* w, const void* scale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tr = ROW_WARPS * 32, tm = MMA_WARPS * 32 + 32;
   if constexpr (F32) {
+    if (tc) return launch_tc<INT4>(x, ldx, w, scale, out, ldo, M, N, K, p, st);
     switch (p.mt) {
       case 1: return launch_k<float>(gemv_rows_kernel<INT4, 1, float>, tr, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);
       case 2: return launch_k<float>(gemv_rows_kernel<INT4, 2, float>, tr, x, ldx, w, scale, out, ldo, M, N, K, group, p, st);

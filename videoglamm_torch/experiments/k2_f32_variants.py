@@ -23,9 +23,7 @@ Needs a CUDA device and nvcc.
 from __future__ import annotations
 
 import ctypes
-import re
 import statistics
-import subprocess
 import sys
 
 import torch
@@ -41,26 +39,10 @@ ROWS = (524288, 131072, 32768, 8192)
 def build_variant(overrides: dict):
     """The C entry of csrc/gemm_f32.cu rebuilt with `overrides`
     ({NAME: value} of its constexpr int lines)."""
-    src = (_cuda.CSRC / "gemm_f32.cu").read_text()
-    for name, value in overrides.items():
-        src, n = re.subn(rf"^constexpr int {name} = -?\d+;",
-                         f"constexpr int {name} = {value};", src, flags=re.M)
-        if n != 1:
-            raise ValueError(f"no constexpr int {name} in gemm_f32.cu")
-    tag = "_".join(f"{k}{v}" for k, v in sorted(overrides.items()))
-    out = _cuda.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"gemm_f32_{tag}.cu", out / f"libgemm_f32_{tag}.so"
-    cu.write_text(src)
-    proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC),
-                           "-o", str(so), str(cu)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {cu}:\n{proc.stderr}")
-    spills = [l for l in proc.stderr.splitlines() if "spill" in l
-              and "0 bytes spill stores, 0 bytes spill loads" not in l]
-    if spills:
-        raise RuntimeError(f"{tag} spills: {spills}")
-    fn = ctypes.CDLL(str(so)).vgt_gemm_f32
+    built, _ = _cuda.build_variant("gemm_f32", overrides)
+    if _cuda.spills(built.ptxas_log):
+        raise RuntimeError(f"{overrides} spills: {_cuda.spills(built.ptxas_log)}")
+    fn = built.lib.vgt_gemm_f32
     P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.argtypes = [P, L, P, P, P, L, P, L, I, I, I, I, P]
     fn.restype = ctypes.c_int

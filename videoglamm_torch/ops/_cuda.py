@@ -85,9 +85,43 @@ def constants(name: str) -> dict:
     """The `constexpr int NAME = <integer>;` lines of `csrc/<name>.cu` as
     {NAME: value}: a kernel's constants that its Python plan needs too,
     read from the source so that they have one definition."""
-    text = (CSRC / f"{name}.cu").read_text()
+    return _constexprs((CSRC / f"{name}.cu").read_text())
+
+
+def _constexprs(text: str) -> dict:
     return {m[1]: int(m[2]) for m in
             re.finditer(r"^constexpr int (\w+) = (-?\d+);", text, re.M)}
+
+
+def build_variant(name: str, overrides: dict):
+    """`csrc/<name>.cu` rebuilt with `overrides` ({NAME: value} of its
+    `constexpr int` lines) into the build directory's `variants/`, for the
+    experiments that time a kernel's constants against each other. Returns
+    (the Built library, the variant's constants as `constants` gives them)."""
+    src = (CSRC / f"{name}.cu").read_text()
+    for key, value in overrides.items():
+        src, n = re.subn(rf"^constexpr int {key} = -?\d+;",
+                         f"constexpr int {key} = {value};", src, flags=re.M)
+        if n != 1:
+            raise ValueError(f"no constexpr int {key} in {name}.cu")
+    tag = "_".join(f"{k}{v}" for k, v in sorted(overrides.items()))
+    out = BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"{name}_{tag}.cu", out / f"lib{name}_{tag}.so"
+    cu.write_text(src)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(so),
+                           str(cu)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {cu}:\n{proc.stderr}")
+    return (Built(ctypes.CDLL(str(so)), so, time.perf_counter() - t0,
+                  proc.stderr), _constexprs(src))
+
+
+def spills(log: str) -> list:
+    """The lines of an nvcc log (`-Xptxas -v`) that report spilled registers."""
+    return [l for l in log.splitlines() if "spill" in l
+            and "0 bytes spill stores, 0 bytes spill loads" not in l]
 
 
 def load_all(names) -> dict:

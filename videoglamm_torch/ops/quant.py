@@ -17,10 +17,13 @@ first: the same function, f32 rounding in another order). Both are bound by the 
 grid of contiguous row ranges reads once: for 1 to 3 rows of x on the
 CUDA cores straight into registers, for 4 or more on the tensor cores
 through a ring of bulk copies, in tiles of 8 rows. f32 activations (an f32
-model) take K5's f32 entries: the CUDA-core kernel at every M, x staged from
-f32 and y stored in f32 with nothing rounded to bf16, one pass over the
-weights for every tile of up to 4 rows. `k5_plan` computes the
-grid and its shared-memory layout and hands them to the kernel.
+model) take K5's f32 entries, with nothing rounded: one row on the
+CUDA-core kernel (x staged from f32, y stored in f32), and from the
+crossover (`k5_f32_tc_min_m`: 2, 4 or 5 rows by the output channels an
+SM holds) a tensor-core kernel that splits x exactly into three bf16
+planes (hi + mid + lo == x) and streams the weights once for every 64
+rows of x. `k5_plan` computes the grid and its shared-memory layout and
+hands them to the kernel.
 
 Routing follows the JAX package. `dequant_matmul` sends M >= `w8a8_min_m`
 rows through dynamic per-token W8A8 (activations quantised per row, an
@@ -153,6 +156,14 @@ K5_SMEM = 232448         # dynamic shared memory a block can use (H100)
 K5_SMEM_SM = 233472      # shared memory of an SM (228 KB)
 K5_SMEM_CTA = 1024       # of which the system reserves per CTA
 K5_BARRIERS = 128        # bytes for the full / empty mbarriers at offset 0
+# the f32 tensor-core route (csrc/dequant_gemv.cu `gemv_f32_tc_kernel`):
+# its constexpr lines, read from the source (the functions below take them)
+_K5 = _cuda.constants("dequant_gemv")
+K5_TC_MT = _K5["TC_MT"]                 # rows of x a pass over the weights
+K5_TC_PN_MAX_W = _K5["TC_PN_MAX_W"]     # planes side by side along N up to W
+K5_TC_BK = _K5["TC_BK"]                 # k a fresh accumulator sums at most
+K5_TC_MAX_STAGES = 8
+K5_TC_ALIGN = 1024       # the ring's slots and planes: the swizzle's period
 
 
 def _round_up(v: int, m: int) -> int:
@@ -179,13 +190,22 @@ class K5Plan:
     CUDA-core route (mt <= 4): `per_sm` CTAs an SM; a CTA's rows are cut
     into units of 32 lanes x 2 vectors of 16 bytes (int8) or 32 x 1 (int4);
     their sums sit at `s_off` until a row's add in order. With f32 x it
-    takes every M, in `m_tiles` tiles of up to 4 rows.
+    takes the rows below the crossover (`k5_f32_tc_min_m`), in tiles of up
+    to 4 rows.
     Tensor-core route (mt = 8): one CTA an SM streams its rows in stages of
     16 rows x one `kseg`-byte segment of each row, through a ring of
     `stages` slots of 16 rows `rstride` bytes apart at `ring_off`, behind
     the barriers at 0; the CTA's scales sit at `s_off` and the warps' sums
-    at `red_off`. The C entry checks every region against its own
-    constants before it launches."""
+    at `red_off`.
+    f32 tensor-core route (`xw` = W > 0, mt <= 64 rows a pass): one CTA an
+    SM, or for few output channels as few CTAs of up to 64 rows; a ring of
+    `stages` slots of `slot` bytes at `ring_off`, each the three bf16
+    planes of x's k-slice (`xstride` bytes), x's slice in f32 at `x_off`,
+    then 128 weight rows (64 with `ksplit`) of `kseg` bytes (TMA boxes of
+    8 to 64 rows, `rstride`-byte halves, swizzled); the CTA's group scales
+    (int4) at `s_off`, the warpgroups' k-split sums at `red_off`. The C
+    entry checks every region against its own constants before it
+    launches."""
     M: int
     N: int
     K: int
@@ -204,23 +224,35 @@ class K5Plan:
     ring_off: int
     smem: int
     per_sm: int
+    xw: int = 0         # f32 tensor cores: the planes' width W (0: another route)
+    slot: int = 0       # bytes of a ring slot
+    ksplit: int = 0     # 1: the two warpgroups take alternate k-slices
 
     def fields(self) -> tuple:
         """The integers the C entry takes, in its `Plan` struct's order:
         the layout, then N = ctas * base + extra, two divisors with their
         multipliers (`fast_div`): a row's units (CUDA-core route) and the
-        32-k slices of a scale group (int4), and the CTAs an SM."""
+        32-k slices of a scale group (int4), the CTAs an SM, and the f32
+        tensor-core route's plane width, slot bytes and k split."""
         base, extra = divmod(self.N, self.ctas)
-        vpr = 0 if self.mma else -(-self.rowbytes // K5_UNIT[bool(self.group)])
+        vpr = 0 if self.mma or self.tc else \
+            -(-self.rowbytes // K5_UNIT[bool(self.group)])
         gdiv = self.group // 32
         return (self.ctas, self.mt, self.m_tiles, self.kseg, self.nseg,
                 self.stages, self.rstride, self.xstride, self.x_off,
                 self.s_off, self.red_off, self.ring_off, self.smem, base,
-                extra, vpr, _div_mul(vpr), gdiv, _div_mul(gdiv), self.per_sm)
+                extra, vpr, _div_mul(vpr), gdiv, _div_mul(gdiv), self.per_sm,
+                self.xw, self.slot, self.ksplit)
 
     @property
     def mma(self) -> bool:
-        return self.mt == K5_MMA_TILE
+        """The bf16 tensor-core route (mma.sync, tiles of 8 rows)."""
+        return self.mt == K5_MMA_TILE and not self.tc
+
+    @property
+    def tc(self) -> bool:
+        """The f32 tensor-core route (wgmma over x's three bf16 planes)."""
+        return self.xw > 0
 
     @property
     def rowbytes(self) -> int:
@@ -232,15 +264,51 @@ class K5Plan:
         return cta * base + min(cta, extra), base + (cta < extra)
 
 
+def k5_f32_tc_min_m(N: int, sms: int, src: dict = _K5) -> int:
+    """The rows of f32 x from which `k5_plan` takes the tensor cores for N
+    output channels on `sms` SMs (the crossovers measured on the card, by
+    the channels an SM would hold): F32_TC_MIN_M_FEW_ROWS for at most 64,
+    F32_TC_MIN_M_MANY_ROWS for more than F32_TC_MANY_ROWS, F32_TC_MIN_M
+    between. `src`: the .cu's constants (`_cuda.constants`), here and in the
+    functions below (a rebuilt variant's, experiments/k5_f32_variants.py)."""
+    rows = -(-N // sms)
+    return (src["F32_TC_MIN_M_FEW_ROWS"] if rows <= 64 else
+            src["F32_TC_MIN_M_MANY_ROWS"] if rows > src["F32_TC_MANY_ROWS"] else
+            src["F32_TC_MIN_M"])
+
+
+def k5_tc_width(mt: int, src: dict = _K5) -> int:
+    """The planes' width W (B columns a plane) for `mt` rows of x on the
+    f32 tensor-core route: a multiple of 8, and TC_MT above TC_NARROW_MAX."""
+    return src["TC_MT"] if mt > src["TC_NARROW_MAX"] else _round_up(mt, 8)
+
+
+def k5_tc_ks(W: int, src: dict = _K5) -> int:
+    """k a stage of the f32 tensor-core route at plane width W."""
+    return (src["TC_KS_SMALL"] if W <= src["TC_SMALL_MAX"] else
+            src["TC_KS_NARROW"] if W <= src["TC_NARROW_MAX"] else src["TC_KS_WIDE"])
+
+
+def k5_tc_bk(W: int, src: dict = _K5) -> int:
+    """k a fresh accumulator sums (within a stage, inside one int4 scale
+    group) at plane width W."""
+    return min(k5_tc_ks(W, src), src["TC_BK"])
+
+
 def k5_plan(M: int, N: int, K: int, group: int, sms: int,
-            f32: bool = False) -> K5Plan:
+            f32: bool = False, tc=None, src: dict = _K5) -> K5Plan:
     """K5's launch for x [M, K] against N weight rows (group = 0: int8 rows
     of K bytes; else int4 rows of K/2 bytes with a scale per `group` k) on
-    a card of `sms` SMs. f32: x is f32 (rows of 4 K bytes, read twice as
-    many bytes as bf16's and staged as they are), which takes the CUDA-core
-    route at every M in tiles of up to K5_F32_MT rows. Raises ValueError
-    where the layout does not fit."""
+    a card of `sms` SMs. f32: x is f32. It takes the f32 tensor-core route
+    from `k5_f32_tc_min_m(N, sms)` rows (where an int4 scale group is a
+    whole number of its k-blocks), else the CUDA-core route in tiles of up
+    to K5_F32_MT rows; `tc` True / False forces one (the card's crossover
+    timings). `src`: the .cu's constants the f32 tensor-core route is planned
+    by. Raises ValueError where the layout does not fit."""
     rowbytes = K // 2 if group else K
+    if f32 and M >= 2 and (tc if tc is not None else M >= k5_f32_tc_min_m(N, sms, src) and (
+            not group or group % k5_tc_bk(k5_tc_width(min(M, src["TC_MT"]), src), src) == 0)):
+        return _k5_f32_tc_plan(M, N, K, group, sms, src)
     if f32 or M <= K5_ROWS_MAX_M:
         mt = min(M, K5_F32_MT) if f32 else M
         per_sm = K5_ROW_CTAS[mt - 1]
@@ -280,6 +348,57 @@ def k5_plan(M: int, N: int, K: int, group: int, sms: int,
     return K5Plan(M, N, K, group, ctas, K5_MMA_TILE, -(-M // K5_MMA_TILE),
                   kseg, nseg, stages, rstride, xstride, x_off, s_off, red_off,
                   ring_off, ring_off + stages * stage_bytes, 1)
+
+
+def _k5_f32_tc_plan(M: int, N: int, K: int, group: int, sms: int,
+                    src: dict) -> K5Plan:
+    """The f32 tensor-core route: CTAs over contiguous row ranges (one
+    an SM, or as few of up to 64 rows where an SM would hold at most 64),
+    x in passes of up to 64 rows (grid.y), a stage `k5_tc_ks(W)` k of x's
+    planes, x in f32 and 128 weight rows (two warpgroups of 64; a CTA of
+    at most 64 rows gives its warpgroups alternate stages instead)."""
+    rowbytes = K // 2 if group else K
+    mt = min(M, src["TC_MT"])
+    W = k5_tc_width(mt, src)
+    ks, bk = k5_tc_ks(W, src), k5_tc_bk(W, src)
+    if group and group % bk:
+        raise ValueError(f"k5_plan: an int4 scale group of {group} k is not a "
+                         f"whole number of the f32 tensor-core route's "
+                         f"{bk}-k blocks")
+    kseg = ks // 2 if group else ks
+    # a warpgroup's products take 64 rows whatever a CTA holds: where the
+    # card's SMs would hold at most 64 rows each, as few CTAs of 64 rows
+    # (the two warpgroups then take alternate stages)
+    ctas = min(N, sms) if -(-N // sms) > 64 else -(-N // 64)
+    max_rows = -(-N // ctas)
+    ksplit = int(max_rows <= 64)
+    # weight rows in TMA boxes of 8 to 64 rows x min(kseg, 128) bytes (a
+    # 256-byte row slice in two such halves), swizzled over that span: a
+    # warp's 8 rows x 4 words fall on 32 banks
+    rstride = min(kseg, 128)
+    planes = 6 * W * ks          # three bf16 planes of W rows
+    slot = _round_up(planes + _round_up(4 * mt * ks, K5_TC_ALIGN)
+                     + (64 if ksplit else 128) * kseg, K5_TC_ALIGN)
+    scales = _round_up(max_rows * (K // group) * 4, 16) if group else 0
+    red = 128 * W // 2 * 4 if ksplit else 0
+    ring_off = K5_TC_ALIGN       # the barriers below it
+    stages = min(K5_TC_MAX_STAGES,
+                 (K5_SMEM - K5_TC_ALIGN - ring_off - scales - red) // slot)
+    if ksplit:
+        # even: stage i lies in slot i % stages and belongs to warpgroup
+        # i % 2, so a slot serves one warpgroup, which waits on every phase
+        # of its barrier (with an odd ring a warpgroup would skip phases, and
+        # a wait for a lap's parity could return on the phase before it)
+        stages -= stages % 2
+    if stages < 2:
+        raise ValueError(f"k5_plan: M={M} K={K} N={N} leaves no room for two "
+                         f"{slot}-byte stages of the f32 tensor-core route")
+    s_off = ring_off + stages * slot
+    red_off = s_off + scales
+    return K5Plan(M, N, K, group, ctas, mt, -(-M // mt), kseg,
+                  -(-rowbytes // kseg), stages, rstride, planes, planes, s_off,
+                  red_off, ring_off, red_off + red + K5_TC_ALIGN, 1, xw=W,
+                  slot=slot, ksplit=ksplit)
 
 
 # ---------------------------------------------------------------------------
@@ -332,9 +451,10 @@ def _check_gemv(x2, w, scale, row_bytes: int, what: str):
 def dequant_gemv_int8(x2, w_q, scale):
     """Launch K5's int8 entry. x2: [M, K] bf16 or f32; w_q: [>= N, K] int8
     with K % 16 == 0; scale: [N] f32 -> [M, N] of x2's dtype. Every M is
-    taken (bf16: tiles of 8 rows from M = 4 on; f32: the f32 entry, tiles
-    of up to 4 rows on the CUDA cores). Raises unless the operands are CUDA
-    tensors of these types.
+    taken (bf16: tiles of 8 rows from M = 4 on; f32: the f32 entry, one row
+    on the CUDA cores, from `k5_f32_tc_min_m` rows the tensor cores in
+    passes of 64 rows). Raises unless the operands are CUDA tensors of these
+    types.
 
     K5 is a programmatic dependent launch: it starts while the kernel
     before it on the stream drains and reads the weights and scales before
